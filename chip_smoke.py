@@ -3,17 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure raises and exits non-zero:
+Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
-  2 build    nvcc builds csrc/*.cu for sm_90a
+  2 build    nvcc builds csrc/*.cu for sm_90a, one process per source, at once
   3 K1/K2    fused Poisson kernel vs its twin (float64 on the card) at the
              main-path shape S=8, B=1024, D=20000, K=32, plus a rescue batch
   4 K3f/K3b  fused IG sampler vs its twin at total=1,400,064, S=8, both modes
-  5 slice    PoissonFactorization(latent_dim=32, feature_dim=20000).fit(...)
+  5 K4/K5    row log-likelihood kernel (both links, and a rescue batch whose
+             NaN rows must match) and exp-rate-sum kernel vs their float64
+             twins at S=8, B=1024, D=20000, K=32
+  6 dense    PoissonFactorization(latent_dim=32, feature_dim=20000).fit(...)
              through the kernels, with launch counters; one step at a small
              size checked against the plain float64 path on the same draws
-  6 times    ms/step and rows/s at B=4096 and B=32768; kernel vs twin times
-Then a JSON line with the kernels, and as the last line
+  7 sparse   scRNA-like counts (N=32768 x D=20000 at 3%), configured as the
+             scRNA CLI does (log link, column means as norms); one epoch each
+             of the blocked COO energy (K5), the flat COO energy (K5) and the
+             dense scatter (K1), with launch counters and the dispatch
+             record; one blocked-COO step at a small size against the plain
+             float64 path on the same draws
+  8 scoring  log_likelihood of 4096 held-out rows (100 samples) and
+             waic(subsample='batch') through K4; the COO row log-likelihood
+             at a small size against the plain float64 path
+  9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
+             and a torch.profiler breakdown (device-busy share, costliest
+             kernels) of the dense and the three sparse steps;
+             log_likelihood rows/s
+Then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
 """
@@ -22,11 +37,16 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 S, D, K = 8, 20000, 32
 IG_TOTAL = 2 * D * K + 2 * 2 * D + 2 * D + 2 * K  # u_eta(_a), s_eta(_a), ...
+N_SPARSE, DENSITY, B_SPARSE = 32768, 0.03, 4096
+# Peak rates from NVIDIA's H100 SXM data sheet
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
 
 
 def say(phase, msg):
@@ -50,6 +70,10 @@ def rel_elem(a, b):
     return float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
 
 
+def abs_max(pairs):
+    return max(float((k.double() - t.double()).abs().max()) for k, t in pairs)
+
+
 def cuda_ms(fn, iters=10, warmup=2):
     """Median ms of ``fn`` over ``iters`` runs, CUDA events, after warmup."""
     import torch
@@ -68,6 +92,42 @@ def cuda_ms(fn, iters=10, warmup=2):
     return float(np.median(times))
 
 
+def bound(n_bytes, n_ops):
+    """(ms, 'bytes' | 'operations'): the least time for the work at the
+    card's published peaks, 3.35 TB/s and 67 TFLOP/s float32 outside the
+    tensor cores (every operation counted at that rate)."""
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_o = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def bounds(B, total):
+    """Per-kernel bounds at the timed shapes (S=8, D=20000, K=32; B rows for
+    the Poisson kernels, ``total`` elements for the IG sampler). Bytes: each
+    input read once, each output written once, float32. Operations: the
+    K-deep products, 2 per multiply-add (decode, dv and dtheta for K1/K2/K5;
+    the decode for K4), plus one per transcendental or division of a cell
+    at the timed link (K1/K2, identity: log, x/rate, lgamma(x+1)'s 3 logs
+    and 1 reciprocal; K4, log link: exp, log and lgamma's 4; K5: exp); for
+    K3, about 600 operations per element and sample in the forward (30
+    Philox rounds of 8 integer operations, erfinv, 8 logs, the gamma and 2
+    softplus) and 700 in the backward, counted from csrc/fused_ig.cu."""
+    cells = S * B * D
+    theta, v, vec = S * B * K, S * K * D, S * D
+    stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * D + D)
+    out = {"stats": bound(stats_bytes, cells * (6 * K + 6)),
+           "static": bound(stats_bytes, cells * (6 * K + 6)),
+           "row_ll": bound(4 * (theta + v + vec + B * D + D + S * B),
+                           cells * (2 * K + 6)),
+           "expsum": bound(4 * (2 * theta + 2 * v + D + S),
+                           cells * (6 * K + 1)),
+           "fwd": bound(4 * (4 * total + S * total) + 8 * S,
+                        600 * S * total),
+           "bwd": bound(4 * (4 * total + S * total + S + 2 * total),
+                        700 * S * total)}
+    return out
+
+
 def stats_inputs(B, dev, seed=0, rescue=False):
     import torch
 
@@ -82,6 +142,165 @@ def stats_inputs(B, dev, seed=0, rescue=False):
     return theta, v, phi, x, eta
 
 
+def sparse_counts(n, d, density, seed, dev):
+    """A SparseCounts of n x d counts, 1 + Poisson(1) at a ``density``
+    share of cells chosen uniformly, drawn on the card from ``seed``; and
+    its column means (zero columns as 1, as the scRNA CLI does)."""
+    import torch
+
+    from spmf_tpu_torch.data import SparseCounts
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows, cols, vals = [], [], []
+    colsum = torch.zeros(d, dtype=torch.float64, device=dev)
+    for r0 in range(0, n, 4096):
+        m = min(4096, n - r0)
+        r, c = (torch.rand(m, d, generator=g, device=dev) < density).nonzero(
+            as_tuple=True)
+        val = 1.0 + torch.poisson(torch.ones(r.numel(), device=dev),
+                                  generator=g)
+        colsum.index_add_(0, c, val.double())
+        rows.append((r + r0).cpu())
+        cols.append(c.cpu())
+        vals.append(val.cpu())
+    rows = torch.cat(rows).numpy()
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    sp = SparseCounts(indptr, torch.cat(cols).numpy(),
+                      torch.cat(vals).numpy(), (n, d))
+    means = (colsum / n).cpu().numpy()[None, :]
+    return sp, np.where(means > 0, means, 1.0)
+
+
+def lognormal_samples(model, n, seed):
+    """Positive values of every surrogate variable's shape with a leading
+    axis of n, from numpy (valid inputs to any energy or scorer)."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.lognormal(-1.0, 0.5, (n,) + tuple(s.shape))
+            for k, s in model._surrogate.surrogates.items()}
+
+
+def perturbed_init(model, seed):
+    from spmf_tpu_torch.utils import params_to_numpy
+
+    rng = np.random.default_rng(seed)
+    return {n: {k: v + 0.1 * rng.standard_normal(v.shape)
+                for k, v in sub.items()}
+            for n, sub in params_to_numpy(model.surrogate_params).items()}
+
+
+def numpy_draws(model, seed):
+    """Base draws of one sample_and_log_prob call (the WH 'fast' sampler's
+    normals and uniforms), from numpy, so that two models draw alike."""
+    rng = np.random.default_rng(seed)
+    sur = model._surrogate
+    tot_n = sum(sur._sizes[n] for n in sur._normal_names)
+    tot_g = sum(sur._sizes[n] for n in sur._ig_names)
+    return {"normal_eps": rng.standard_normal((S, tot_n)),
+            "ig_eps": rng.standard_normal((S, tot_g)),
+            "ig_u": rng.uniform(1e-6, 1.0, (8, S, tot_g))}
+
+
+def step_grads(model, p0, batch, draws):
+    """(loss, flat gradients) of one ELBO step of ``model`` from params p0
+    on ``batch`` with injected base draws."""
+    import torch
+
+    from spmf_tpu_torch.utils import params_from_numpy
+    from spmf_tpu_torch.vi.minibatch import elbo_loss
+
+    params = params_from_numpy(p0, model.device, model.dtype)
+    for sub in params.values():
+        for t in sub.values():
+            t.requires_grad_(True)
+    loss = elbo_loss(model._surrogate, model._energy, params, batch, None, S,
+                     draws=draws)
+    loss.backward()
+    grads = torch.cat([t.grad.reshape(-1).double().cpu()
+                       for sub in params.values() for t in sub.values()])
+    return float(loss.detach()), grads
+
+
+def step_timer(model, batch):
+    """A function running one full training step (sample, energy, backward,
+    clip, Adam) of ``model`` on ``batch`` from a copy of its params."""
+    import torch
+
+    from spmf_tpu_torch.vi.minibatch import (clip_and_step, elbo_loss,
+                                             make_optimizer)
+
+    params = {n: {k: t.clone().requires_grad_(True) for k, t in sub.items()}
+              for n, sub in model.surrogate_params.items()}
+    opt = make_optimizer(params, 0.01)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = elbo_loss(model._surrogate, model._energy, params, batch, gen,
+                         S)
+        loss.backward()
+        clip_and_step(opt, 5.0)
+
+    return step
+
+
+def time_steps(step, n=13, skip=3):
+    """Median wall ms of ``step`` (synchronised) and the peak device memory
+    in GB over the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i >= skip:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), torch.cuda.max_memory_allocated() / 1e9
+
+
+def profile_steps(step, n=5):
+    """torch.profiler over ``n`` steps after one warm-up: (wall ms/step,
+    device-busy ms/step, the six costliest device kernels as (name,
+    ms/step)); busy is None when the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only: a CPU op (an autograd Function, aten::bmm)
+    # also reports the device time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e3 / n
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    return wall, (busy or None), [(e.key[:70], dev_us(e) / 1e3 / n)
+                                  for e in top]
+
+
+def say_profile(tag, prof, smi):
+    wall, busy, top = prof
+    share = f"{busy:.2f} ms/step busy ({busy / wall:.1%})" if busy else \
+        "device time not measured (the profiler saw none)"
+    say(9, f"profile {tag}: {wall:.2f} ms/step wall, {share}; top "
+           + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top) + f" ({smi})")
+
+
 def main():
     import torch
 
@@ -90,13 +309,12 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from spmf_tpu_torch import PoissonFactorization
-    from spmf_tpu_torch.data import ArrayDataset
+    from spmf_tpu_torch.data import ArrayDataset, SparseCounts
     from spmf_tpu_torch.ops import _build
     from spmf_tpu_torch.ops import fused_ig as tig
     from spmf_tpu_torch.ops import fused_poisson as tfp
-    from spmf_tpu_torch.utils import params_from_numpy, params_to_numpy
-    from spmf_tpu_torch.vi.minibatch import (clip_and_step, elbo_loss,
-                                             make_optimizer)
+    from spmf_tpu_torch.utils import params_from_numpy
+    from spmf_tpu_torch.vi.minibatch import _device_batch
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -113,8 +331,9 @@ def main():
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    tfp._lib()
-    tig._lib()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(tfp._lib), pool.submit(tig._lib)]:
+            f.result()
     ptxas = []
     for lib in ("fused_poisson", "fused_ig"):
         with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
@@ -124,6 +343,18 @@ def main():
            f"{time.perf_counter() - t0:.1f} s (nvcc {_build.NVCC_FLAGS}); "
            + " | ".join(ptxas))
 
+    kernels = ("stats", "static", "row_ll", "expsum", "fwd", "bwd")
+
+    def zero_launches():
+        for d in (tfp.LAUNCHES, tig.LAUNCHES):
+            for k in d:
+                d[k] = 0
+
+    def read_launches():
+        return {k: (tfp.LAUNCHES.get(k) if k in tfp.LAUNCHES
+                    else tig.LAUNCHES[k]) for k in kernels}
+
+    path_launches = {}
     errs = {}
     # ---- 3: K1 / K2 at the main-path shape
     B = 1024
@@ -144,8 +375,7 @@ def main():
             check(e_min < 1e-6, f"K1 gmin rel err {e_min}")
             key = "static" if static else "stats"
             if not rescue:
-                errs[key] = max(float((k.double() - t.double()).abs().max())
-                                for k, t in zip(out_k[3:], out_t[3:]))
+                errs[key] = abs_max(zip(out_k[3:], out_t[3:]))
             say(3, f"{'K2' if static else 'K1'} rescue={rescue}: sums rel "
                    f"{e_sum:.2e}, counts {out_k[1].tolist()}, gmin rel "
                    f"{e_min:.2e}, grads rel-of-max {e_grad:.2e}")
@@ -170,14 +400,50 @@ def main():
         check(e_y < 1e-5, f"K3f y rel err {e_y}")
         check(e_lq < 1e-5, f"K3f lq rel err {e_lq}")
         check(e_g < 1e-4, f"K3b grads rel err {e_g}")
-        errs["fwd"] = max(errs["fwd"], float((y_k.double() - y_t).abs().max()))
-        errs["bwd"] = max(errs["bwd"], float(max(
-            (ga_k.double() - ga_t).abs().max(),
-            (gb_k.double() - gb_t).abs().max())))
+        errs["fwd"] = max(errs["fwd"], abs_max([(y_k, y_t)]))
+        errs["bwd"] = max(errs["bwd"], abs_max([(ga_k, ga_t), (gb_k, gb_t)]))
         say(4, f"K3 total={IG_TOTAL} antithetic={anti}: y rel {e_y:.2e}, "
                f"lq rel {e_lq:.2e}, ga/gb rel-of-max {e_g:.2e}")
 
-    # ---- 5: the slice through the normal entry point
+    # ---- 5: K4 / K5 at the main-path shape
+    theta, v, phi, x, eta = stats_inputs(B, dev, seed=7)
+    errs["row_ll"] = 0.0
+    for log_transform in (False, True):
+        out_k = tfp._kernel_row_ll(theta, v, phi, x, eta, log_transform)
+        out_t = tfp.row_loglik_twin(theta.double(), v.double(), phi.double(),
+                                    x.double(), eta.double(), log_transform)
+        torch.cuda.synchronize()
+        e_row = rel_elem(out_k, out_t)
+        check(e_row < 1e-5, f"K4 row sums rel err {e_row}")
+        errs["row_ll"] = max(errs["row_ll"], abs_max([(out_k, out_t)]))
+        say(5, f"K4 log_transform={log_transform}: row sums rel {e_row:.2e}")
+    phi_r, theta_r = phi.clone(), theta.clone()
+    phi_r[:, :, 7] = -1e-3        # column 7 of every sample: a negative
+    theta_r[:, ::97] = 0.0        # intercept, the rate of these rows there
+    out_k = tfp._kernel_row_ll(theta_r, v, phi_r, x, eta, False)
+    out_t = tfp.row_loglik_twin(theta_r.double(), v.double(), phi_r.double(),
+                                x.double(), eta.double())
+    nan_t = torch.isnan(out_t)
+    check(int(nan_t.sum()) == S * len(range(0, B, 97)),
+          f"rescue batch NaN rows {int(nan_t.sum())}")
+    check(torch.equal(torch.isnan(out_k), nan_t), "K4 NaN rows differ")
+    e_row = rel_elem(out_k[~nan_t], out_t[~nan_t])
+    check(e_row < 1e-5, f"K4 rescue row sums rel err {e_row}")
+    say(5, f"K4 rescue: {int(nan_t.sum())} NaN rows at the same positions, "
+           f"other rows rel {e_row:.2e}")
+    out_k = tfp._kernel_expsum(theta, v, eta)
+    out_t = tfp.expsum_twin(theta.double(), v.double(), eta.double())
+    torch.cuda.synchronize()
+    e_sum = rel_elem(out_k[0], out_t[0])
+    e_grad = max(rel_max(k, t) for k, t in zip(out_k[1:], out_t[1:]))
+    check(e_sum < 1e-5, f"K5 sums rel err {e_sum}")
+    check(e_grad < 1e-4, f"K5 grads rel err {e_grad}")
+    errs["expsum"] = abs_max(zip(out_k, out_t))
+    say(5, f"K5: sums rel {e_sum:.2e} (R ~ {float(out_t[0][0]):.4e}), "
+           f"grads rel-of-max {e_grad:.2e}")
+    del theta, v, phi, x, eta, phi_r, theta_r, out_k, out_t
+
+    # ---- 6: the dense slice through the normal entry point
     N = 16384
     gx = torch.Generator(device=dev).manual_seed(3)
     X = torch.poisson(torch.ones(N, D, device=dev), generator=gx).cpu().numpy()
@@ -191,9 +457,7 @@ def main():
                                        data=ds, likelihood_clip="static"),
     }
     epochs = {"reference": 2, "static": 1}
-    for d in (tfp.LAUNCHES, tig.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = {k: m.fit(num_steps=epochs[k], learning_rate=0.01,
@@ -201,9 +465,7 @@ def main():
               for k, m in models.items()}
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = dict(stats=tfp.LAUNCHES["stats"],
-                    static=tfp.LAUNCHES["static"],
-                    fwd=tig.LAUNCHES["fwd"], bwd=tig.LAUNCHES["bwd"])
+    launches = path_launches["dense"] = read_launches()
     steps = {k: epochs[k] * (N // 4096) for k in models}
     check(all(np.isfinite(v).all() for v in losses.values()),
           f"non-finite losses {losses}")
@@ -216,7 +478,7 @@ def main():
               "fused paths inactive")
         check(all(t.is_cuda for sub in m.surrogate_params.values()
                   for t in sub.values()), "params left the card")
-    say(5, f"fit: {sum(steps.values())} steps in {fit_s:.1f} s; losses "
+    say(6, f"fit: {sum(steps.values())} steps in {fit_s:.1f} s; losses "
            f"{ {k: [round(x, 4) for x in v] for k, v in losses.items()} }; "
            f"launches {launches}")
 
@@ -233,90 +495,203 @@ def main():
             latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
             u_tau_scale=1.0 / np.sqrt(n_s * d_s),
             data=ArrayDataset({"counts": Xs}).batch(b_s), **kw)
-    rng = np.random.default_rng(5)
-    p0 = {n: {k: v + 0.1 * rng.standard_normal(v.shape)
-              for k, v in sub.items()}
-          for n, sub in params_to_numpy(
-              small["plain"].surrogate_params).items()}
-    sur = small["plain"]._surrogate
-    tot_n = sum(sur._sizes[n] for n in sur._normal_names)
-    tot_g = sum(sur._sizes[n] for n in sur._ig_names)
-    draws = {"normal_eps": rng.standard_normal((S, tot_n)),
-             "ig_eps": rng.standard_normal((S, tot_g)),
-             "ig_u": rng.uniform(1e-6, 1.0, (8, S, tot_g))}
+    p0 = perturbed_init(small["plain"], 5)
+    draws = numpy_draws(small["plain"], 5)
     res = {}
     for tag, m in small.items():
-        params = params_from_numpy(p0, m.device, m.dtype)
-        for sub in params.values():
-            for t in sub.values():
-                t.requires_grad_(True)
         batch = {"counts": torch.as_tensor(Xs[:b_s], device=m.device)
                  .to(m.dtype)}
         before = tfp.LAUNCHES["stats"]
-        loss = elbo_loss(m._surrogate, m._energy, params, batch, None, S,
-                         draws=draws)
-        loss.backward()
-        grads = torch.cat([t.grad.reshape(-1).double().cpu()
-                           for sub in params.values() for t in sub.values()])
-        res[tag] = (float(loss.detach()), grads)
+        res[tag] = step_grads(m, p0, batch, draws)
         if tag == "kernel":
             check(tfp.LAUNCHES["stats"] == before + 1, "small step skipped K1")
     e_loss = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
     e_grad = rel_max(res["kernel"][1], res["plain"][1])
     check(e_loss < 1e-4, f"small-step loss rel err {e_loss}")
     check(e_grad < 1e-3, f"small-step grads rel err {e_grad}")
-    say(5, f"small step vs float64 plain path: loss {res['kernel'][0]:.6f} vs "
+    say(6, f"small step vs float64 plain path: loss {res['kernel'][0]:.6f} vs "
            f"{res['plain'][0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
            f"{e_grad:.2e}")
+    dense_model = models["reference"]
+    del models, small, X, ds
 
-    # ---- 6: times (medians of 10 after warmup)
-    model = models["reference"]
-    for Bt in (4096, 32768):
-        xb = torch.poisson(torch.ones(Bt, D, device=dev),
-                           generator=gx)
-        batch = {"counts": xb, "indices": torch.arange(Bt, device=dev)}
-        params = {n: {k: t.clone().requires_grad_(True)
-                      for k, t in sub.items()}
-                  for n, sub in model.surrogate_params.items()}
-        opt = make_optimizer(params, 0.01)
-        gen = torch.Generator(device=dev).manual_seed(0)
+    # ---- 7: the sparse slice, configured as the scRNA CLI does
+    t0 = time.perf_counter()
+    sp, col_means = sparse_counts(N_SPARSE, D, DENSITY, 11, dev)
+    sp.shuffle(seed=0).batch(B_SPARSE, drop_remainder=True).as_coo()
+    blocked = sp.to_device(block_rows=128, device="cuda")
+    flat = sp.to_device(device="cuda")
+    say(7, f"data: {N_SPARSE} x {D}, {len(sp.data)} nonzeros (density "
+           f"{sp.density:.4f}), blocked layout {blocked.n_blocks} blocks of "
+           f"{blocked.block_nnz} slots; built in "
+           f"{time.perf_counter() - t0:.1f} s")
 
-        def step():
-            opt.zero_grad(set_to_none=True)
-            loss = elbo_loss(model._surrogate, model._energy, params, batch,
-                             gen, S)
-            loss.backward()
-            clip_and_step(opt, 5.0)
+    def scrna_model(data, **kw):
+        return PoissonFactorization(
+            latent_dim=K, feature_dim=D, log_transform=True,
+            column_norms=col_means, u_tau_scale=1.0 / np.sqrt(N_SPARSE * D),
+            dtype="float32", device="cuda", data=data, **kw)
 
-        times = []
-        for i in range(13):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            if i >= 3:
-                times.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(times))
-        say(6, f"step B={Bt}: {ms:.2f} ms/step, {Bt / ms * 1e3:.0f} rows/s "
-               f"(median of 10; {name}; {smi})")
-        del xb, batch, params, opt
+    sparse = {"blocked": scrna_model(blocked),
+              "flat": scrna_model(flat, sparse_dense_scatter=False),
+              "scatter": scrna_model(flat)}
+    sparse_steps = N_SPARSE // B_SPARSE
+    for tag, m in sparse.items():
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = m.fit(num_steps=1, learning_rate=0.01, sample_size=S,
+                     verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = path_launches[tag] = read_launches()
+        check(np.isfinite(loss).all(), f"{tag}: non-finite losses {loss}")
+        if tag == "scatter":
+            check(launches["stats"] >= sparse_steps, f"{tag}: {launches}")
+            check(m.fusion_active and m.fusion_inactive_reason is None,
+                  f"{tag}: dispatch {m.fusion_inactive_reason}")
+        else:
+            check(launches["expsum"] >= sparse_steps, f"{tag}: {launches}")
+            expect = {"blocked": "blocked COO energy",
+                      "flat": "sparse COO gather energy"}[tag]
+            check(not m.fusion_active
+                  and m.fusion_inactive_reason.startswith(expect),
+                  f"{tag}: dispatch {m.fusion_inactive_reason}")
+        say(7, f"{tag}: {sparse_steps} steps in {fit_s:.1f} s, losses "
+               f"{[round(x, 4) for x in loss]}; dispatch "
+               f"{m.fusion_inactive_reason!r}; launches {launches}")
 
+    # one blocked-COO step at a small size through the kernels (log link:
+    # K5), against the plain float64 path on the same batch and draws
+    sp_s, _ = sparse_counts(n_s, d_s, DENSITY, 12, dev)
+    sp_s.batch(b_s, drop_remainder=True)
+    small = {}
+    for tag, kw in (("kernel", dict(dtype="float32", device="cuda",
+                                    fused_likelihood=True)),
+                    ("plain", dict(dtype="float64", device="cpu",
+                                   fused_likelihood=False))):
+        data = sp_s.to_device(block_rows=128, dtype=kw["dtype"],
+                              device=kw["device"])
+        small[tag] = (PoissonFactorization(
+            latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
+            log_transform=True, u_tau_scale=1.0 / np.sqrt(n_s * d_s),
+            data=data, **kw), next(iter(data)))
+    p0 = perturbed_init(small["plain"][0], 6)
+    draws = numpy_draws(small["plain"][0], 6)
+    res = {}
+    for tag, (m, batch) in small.items():
+        before = tfp.LAUNCHES["expsum"]
+        res[tag] = step_grads(m, p0, batch, draws)
+        check(m.fusion_inactive_reason.startswith("blocked COO"),
+              f"small {tag} step dispatch {m.fusion_inactive_reason}")
+        if tag == "kernel":
+            check(tfp.LAUNCHES["expsum"] == before + 1,
+                  "small blocked step skipped K5")
+    e_loss = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    e_grad = rel_max(res["kernel"][1], res["plain"][1])
+    check(e_loss < 1e-4, f"small blocked step loss rel err {e_loss}")
+    check(e_grad < 1e-3, f"small blocked step grads rel err {e_grad}")
+    say(7, f"small blocked-COO step vs float64 plain path: loss "
+           f"{res['kernel'][0]:.6f} vs {res['plain'][0]:.6f} (rel "
+           f"{e_loss:.2e}), grads rel-of-max {e_grad:.2e}")
+
+    # ---- 8: scoring through K4
+    held, _ = sparse_counts(B_SPARSE, D, DENSITY, 13, dev)
+    held.batch(B_SPARSE).as_coo()
+    scorer = sparse["blocked"]
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = scorer.log_likelihood(held, num_samples=100, sample_chunk=8)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
+    scoring = read_launches()
+    w = scorer.waic(subsample="batch")
+    path_launches["scoring"] = read_launches()
+    check(scoring["row_ll"] >= 13 and scoring["fwd"] > 0,
+          f"log_likelihood launches {scoring}")
+    check(ll["n_rows"] == B_SPARSE and np.isfinite(ll["total"]),
+          f"log_likelihood {ll}")
+    check(w["n_rows"] == B_SPARSE and np.isfinite(
+        [w["waic"], w["se"], w["lppd"], w["pwaic"]]).all(), f"waic {w}")
+    check(scorer.fusion_inactive_reason.startswith("blocked COO"),
+          "scoring clobbered the training dispatch record")
+    say(8, f"log_likelihood(4096 held-out rows, 100 samples): per_row "
+           f"{ll['per_row']:.4f} in {ll_s:.2f} s ({B_SPARSE / ll_s:.0f} "
+           f"rows/s); launches {scoring}; waic(subsample='batch') "
+           f"{ {k: round(v, 3) for k, v in w.items()} }")
+
+    # the COO row log-likelihood at a small size: K4 (f32, card) vs the
+    # plain float64 path on the same samples
+    coo = next(iter(SparseCounts(sp_s.indptr, sp_s.indices, sp_s.data,
+                                 sp_s.shape).batch(b_s).as_coo()))
+    samples = lognormal_samples(small["plain"][0], S, 7)
+    out = {}
+    for tag, (m, _) in small.items():
+        before = tfp.LAUNCHES["row_ll"]
+        out[tag] = m._row_log_likelihood(
+            _device_batch(coo, m.dtype, m.device),
+            params_from_numpy(samples, m.device, m.dtype))
+        if tag == "kernel":
+            check(tfp.LAUNCHES["row_ll"] == before + 1, "small rows skip K4")
+    e_row = rel_elem(out["kernel"].cpu(), out["plain"])
+    check(e_row < 1e-5, f"small COO row ll rel err {e_row}")
+    say(8, f"small COO row log-likelihood vs float64 plain path: rel "
+           f"{e_row:.2e}")
+    del small, sp_s
+
+    # ---- 9: times (medians of 10 after warmup)
     B = 4096
+    for Bt in (B, 32768):
+        xb = torch.poisson(torch.ones(Bt, D, device=dev), generator=gx)
+        step = step_timer(dense_model, {
+            "counts": xb, "indices": torch.arange(Bt, device=dev)})
+        ms, mem = time_steps(step)
+        say(9, f"dense step B={Bt}: {ms:.2f} ms/step, {Bt / ms * 1e3:.0f} "
+               f"rows/s, peak {mem:.2f} GB (median of 10; {smi})")
+        say_profile(f"dense B={Bt}", profile_steps(step), smi)
+        del xb, step
+    del dense_model
+    for tag, m in sparse.items():
+        batch = _device_batch(next(iter(m.data())), m.dtype, m.device)
+        step = step_timer(m, batch)
+        ms, mem = time_steps(step)
+        say(9, f"sparse {tag} step B={B_SPARSE}: {ms:.2f} ms/step, "
+               f"{B_SPARSE / ms * 1e3:.0f} rows/s, peak {mem:.2f} GB "
+               f"(median of 10; {smi})")
+        say_profile(f"sparse {tag} B={B_SPARSE}", profile_steps(step), smi)
+        del step
+    t0 = time.perf_counter()
+    scorer.log_likelihood(held, num_samples=100, sample_chunk=8)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
+    say(9, f"log_likelihood B={B_SPARSE}, 100 samples: {ll_s:.3f} s, "
+           f"{B_SPARSE / ll_s:.0f} rows/s ({smi})")
+    del sparse, scorer, blocked, flat
+
     args = stats_inputs(B, dev, seed=6)
     kt = {}
     for static, key in ((False, "stats"), (True, "static")):
         kt[key] = (cuda_ms(lambda: tfp._kernel_stats(*args, False, static)),
                    cuda_ms(lambda: tfp.stats_twin(*args, static=static)))
+    kt["row_ll"] = (cuda_ms(lambda: tfp._kernel_row_ll(*args, True)),
+                    cuda_ms(lambda: tfp.row_loglik_twin(*args, True)))
+    th, vv, ee = args[0], args[1], args[4]
+    kt["expsum"] = (cuda_ms(lambda: tfp._kernel_expsum(th, vv, ee)),
+                    cuda_ms(lambda: tfp.expsum_twin(th, vv, ee)))
     kt["fwd"] = (cuda_ms(lambda: tig._kernel_fwd(a, b, seed, S, False)),
                  cuda_ms(lambda: tig.ig_twin_fwd(a, b, seed, S, False)))
     kt["bwd"] = (cuda_ms(lambda: tig._kernel_bwd(a, b, seed, S, False, gy,
                                                  glq)),
                  cuda_ms(lambda: tig.ig_twin_bwd(a, b, seed, S, False, gy,
                                                  glq)))
+    bd = bounds(B, IG_TOTAL)
     for key, (k_ms, t_ms) in kt.items():
-        say(6, f"{key}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms (float32, "
-               f"{'B=4096' if key in ('stats', 'static') else 'total=' + str(IG_TOTAL)}"
-               f", S={S})")
+        say(9, f"{key}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, bound "
+               f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
+               f"of it) (float32, "
+               f"{'total=' + str(IG_TOTAL) if key in ('fwd', 'bwd') else 'B=' + str(B)}"
+               f", S={S}; {smi})")
 
     meta = {
         "stats": ("fused_poisson_stats (K1, clip='reference')",
@@ -325,16 +700,27 @@ def main():
         "static": ("fused_poisson_stats (K2, clip='static')",
                    "spmf_tpu_torch/csrc/fused_poisson.cu",
                    "spmf_tpu/ops/fused_poisson.py:387"),
+        "row_ll": ("fused_poisson_row_ll (K4)",
+                   "spmf_tpu_torch/csrc/fused_poisson.cu",
+                   "spmf_tpu/ops/fused_poisson.py:768"),
+        "expsum": ("fused_exp_rate_sum (K5)",
+                   "spmf_tpu_torch/csrc/fused_poisson.cu",
+                   "spmf_tpu/ops/fused_poisson.py:872"),
         "fwd": ("fused_ig_fwd (K3f)", "spmf_tpu_torch/csrc/fused_ig.cu",
                 "spmf_tpu/ops/fused_ig.py:193"),
         "bwd": ("fused_ig_bwd (K3b)", "spmf_tpu_torch/csrc/fused_ig.cu",
                 "spmf_tpu/ops/fused_ig.py:230"),
     }
-    kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
-                "replaces": meta[k][2], "launches": launches[k],
-                "max_abs_err": errs[k], "ms": kt[k][0], "plain_ms": kt[k][1]}
-               for k in ("stats", "static", "fwd", "bwd")]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    total = {k: sum(p[k] for p in path_launches.values()) for k in kernels}
+    say(9, f"launches per path {path_launches}")
+    check(all(total[k] > 0 for k in kernels), f"kernel never launched {total}")
+    # no single PyTorch call computes any of these functions: library null
+    print(json.dumps({"kernels": [
+        {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
+         "replaces": meta[k][2], "launches": total[k],
+         "max_abs_err": errs[k], "ms": kt[k][0], "plain_ms": kt[k][1],
+         "bound_ms": bd[k][0], "bound_by": bd[k][1], "library_ms": None}
+        for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,14 +13,20 @@ __all__ = ["canonical_dtype", "canonical_device", "default_device"]
 
 
 def default_device() -> torch.device:
-    """cuda when a card is present, else cpu."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The port runs on the card unless the caller asks for the CPU."""
+    return torch.device("cuda")
 
 
 def canonical_device(device=None) -> torch.device:
-    if device is None:
-        return default_device()
-    return torch.device(device)
+    """``device`` as a torch.device; None means the card, and raises on a
+    host without one (the port never moves to the CPU on its own)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found: spmf_tpu_torch runs on the card by "
+            "default; pass device='cpu' to run on the CPU")
+    return default_device()
 
 
 def canonical_dtype(dtype=None) -> torch.dtype:

@@ -1,14 +1,19 @@
 """Data pipeline: numpy-backed datasets of dict batches (copied from
 spmf_tpu/data/__init__.py, which is pure numpy; the port may not import the
 JAX package). Batches are dicts ``{'counts' | 'data', 'indices', ...}`` of
-host arrays; the fit engine moves each batch to the device."""
+host arrays, or of COO triplets from the sparse datasets (``data/sparse.py``,
+whose ``DeviceSparseCounts`` yields tensors already on the card); the fit
+engine moves each batch to the device."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 
-__all__ = ["ArrayDataset", "as_data_factory", "load_csv_counts"]
+from spmf_tpu_torch.data.sparse import DeviceSparseCounts, SparseCounts
+
+__all__ = ["ArrayDataset", "DeviceSparseCounts", "SparseCounts",
+           "as_data_factory", "load_csv_counts"]
 
 
 class ArrayDataset:
@@ -78,9 +83,11 @@ class ArrayDataset:
 
 def as_data_factory(data) -> Callable[[], Iterable[dict]]:
     """Normalize any supported data input into a zero-arg factory returning
-    an iterable of dict batches: a factory callable, an ArrayDataset, any
-    re-iterable of dict batches, a dict of arrays (one full batch), or a
-    bare 2-D array (treated as counts)."""
+    an iterable of dict batches: a factory callable, an ArrayDataset, a
+    SparseCounts or DeviceSparseCounts, any re-iterable of dict batches, a
+    dict of arrays (one full batch), or a bare 2-D array (treated as
+    counts). The factory's ``source`` attribute is the dataset it iterates
+    (``compute_scales`` reads a sparse source's ``col_stats`` from it)."""
     if data is None:
         return None
     if callable(data):

@@ -1,6 +1,6 @@
 """BayesianModel base class (mirrors spmf_tpu/models/base.py: data binding,
-the ``fit`` / ``calibrate_advi`` training entry points and the calibrated
-expectations). All trainable state is the surrogate parameter dict
+the ``fit`` / ``calibrate_advi`` training entry points, the ``waic`` /
+``log_likelihood`` scoring entry points and the calibrated expectations). All trainable state is the surrogate parameter dict
 ``self.surrogate_params``; the model holds configuration, the device and the
 normalization constants."""
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 from spmf_tpu_torch.config import canonical_device, canonical_dtype
 from spmf_tpu_torch.data import as_data_factory
 from spmf_tpu_torch.vi.minibatch import fit_surrogate_posterior
+from spmf_tpu_torch.vi.waic import waic as _waic
 
 __all__ = ["BayesianModel"]
 
@@ -150,6 +151,49 @@ class BayesianModel:
             verbose=verbose,
             **kwargs,
         )
+
+    # ------------------------------------------------------------- reporting
+    def waic(self, data=None, num_samples: int = 100, seed: int = 1,
+             subsample=None, sample_chunk: int = 8):
+        """{'waic', 'se', 'lppd', 'pwaic', 'n_rows'}, pointwise per row.
+
+        ``subsample=None`` scans the whole bound (or given) dataset;
+        ``subsample='batch'`` evaluates its FIRST batch only, the unit the
+        reference engine's recorded WAIC outputs used."""
+        factory = as_data_factory(data) or self.data
+        if factory is None:
+            raise ValueError("No data bound for waic()")
+        if subsample == "batch":
+            first = next(iter(factory()))
+            factory = lambda: iter([first])  # noqa: E731
+        elif subsample is not None:
+            raise ValueError(f"unknown subsample mode {subsample!r}")
+        return _waic(
+            self._row_log_likelihood,
+            self._surrogate,
+            self.surrogate_params,
+            factory,
+            num_samples=num_samples,
+            seed=seed,
+            sample_chunk=sample_chunk,
+            dtype=self.dtype,
+            device=self.device,
+        )
+
+    def log_likelihood(self, data=None, num_samples: int = 100, seed: int = 1,
+                       sample_chunk: int = 8):
+        """Predictive log-likelihood of ``data`` under the posterior:
+        {'total', 'per_row', 'n_rows'}, where ``total`` is the lppd
+        (sum_i log mean_s exp(ll_is)). Pass held-out data to score
+        generalization; with ``data=None`` it scores the bound data and
+        ``total`` equals ``waic()['lppd']`` for the same draws."""
+        out = self.waic(data=data, num_samples=num_samples, seed=seed,
+                        sample_chunk=sample_chunk)
+        return {
+            "total": out["lppd"],
+            "per_row": out["lppd"] / out["n_rows"],
+            "n_rows": out["n_rows"],
+        }
 
     def set_calibration_expectations(self, num_samples: int = 250,
                                      seed: int = 42):

@@ -1,4 +1,4 @@
-"""Sparse (horseshoe+) Poisson matrix factorization, dense path (mirrors
+"""Sparse (horseshoe+) Poisson matrix factorization (mirrors
 spmf_tpu/models/poisson.py).
 
     encoder   theta_i = g(x_i) @ A,  A = w1 * u   (w = s / colsum(s), w1 = w[0])
@@ -9,8 +9,18 @@ with a horseshoe+ prior on the encoding loadings u and the split weights s.
 On a CUDA device the decode and clipped Poisson log-likelihood run as one
 fused kernel (spmf_tpu_torch.ops.fused_poisson) and the horseshoe+
 auxiliaries are sampled by the fused IG kernel (ops.fused_ig).
+
+Sparse count batches (``data.SparseCounts.as_coo()`` and
+``DeviceSparseCounts``, flat or block-aligned) either densify into a
+transient (B, D) slab for the fused kernel, or train through the COO
+energy, which never materialises (B, D): a gather-dot over the nonzeros
+plus the rate total over all cells, in closed form for the identity link
+and through the exp-rate kernel (K5) for the log link. WAIC and held-out
+scoring stream per-row log-likelihoods through the row kernel (K4).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -91,7 +101,10 @@ class PoissonFactorization(BayesianModel):
         **kwargs,
     ):
         """Mirrors the JAX constructor (including the ``horshoe_plus``
-        spelling), plus ``device`` (default: cuda when present)."""
+        spelling), plus ``device`` (default: cuda; on a host without a card
+        pass ``device='cpu'``). ``sparse_dense_scatter``: None/'auto'
+        densifies COO batches for the fused kernel where that pays (see
+        ``_sparse_dense_scatter``), True/False force it."""
         super().__init__(data=None, data_transform_fn=None,
                          strategy=strategy, mesh=mesh, dtype=dtype,
                          device=device)
@@ -106,9 +119,6 @@ class PoissonFactorization(BayesianModel):
         if aux_broadcast:
             raise NotImplementedError(
                 "aux_broadcast is not ported to spmf_tpu_torch yet")
-        if sparse_dense_scatter is not None:
-            raise NotImplementedError(
-                "sparse (COO) batches are not ported to spmf_tpu_torch yet")
         self.eta_i = self._const(1.0)
         self.xi_u_global = self._const(1.0)
         self._column_norms_given = column_norms is not None
@@ -139,6 +149,7 @@ class PoissonFactorization(BayesianModel):
                 f"likelihood_clip must be 'reference' or 'static', got "
                 f"{likelihood_clip!r}")
         self.likelihood_clip = likelihood_clip
+        self.sparse_dense_scatter = sparse_dense_scatter
         self.fusion_inactive_reason = None
         self._fusion_warned = False
 
@@ -157,10 +168,6 @@ class PoissonFactorization(BayesianModel):
         """The count matrix of a batch dict ('counts' or legacy 'data'), as
         a tensor of the model's dtype on its device."""
         if isinstance(data, dict):
-            if "coo_vals" in data or "coo_rowl" in data:
-                raise NotImplementedError(
-                    "sparse (COO) batches are not ported to spmf_tpu_torch "
-                    "yet")
             for k in (self.count_key, "counts", "data"):
                 if k in data:
                     data = data[k]
@@ -191,18 +198,24 @@ class PoissonFactorization(BayesianModel):
         if not (need_eta or need_xi):
             return
         print("Looping through the entire dataset once to get some stats")
-        colsums = None
-        col_nonzero = None
-        for batch in factory():
-            x = batch
-            if isinstance(batch, dict):
-                x = next(batch[k] for k in (self.count_key, "counts", "data")
-                         if k in batch)
-            x = np.asarray(x, np.float64)
-            colsums = x.sum(0, keepdims=True) + (0 if colsums is None
-                                                 else colsums)
-            nz = (x > 0).sum(0, keepdims=True)
-            col_nonzero = nz + (0 if col_nonzero is None else col_nonzero)
+        src = getattr(factory, "source", None)
+        if hasattr(src, "col_stats"):
+            # sparse sources: one pass over the CSR nonzeros, no densifying
+            colsums, col_nonzero = src.col_stats()
+        else:
+            colsums = None
+            col_nonzero = None
+            for batch in factory():
+                x = batch
+                if isinstance(batch, dict):
+                    x = next(batch[k] for k in (self.count_key, "counts",
+                                                "data") if k in batch)
+                x = np.asarray(x, np.float64)
+                colsums = x.sum(0, keepdims=True) + (0 if colsums is None
+                                                     else colsums)
+                nz = (x > 0).sum(0, keepdims=True)
+                col_nonzero = nz + (0 if col_nonzero is None
+                                    else col_nonzero)
         with np.errstate(divide="ignore", invalid="ignore"):
             colmeans_nonzero = colsums / col_nonzero
         rowmean_nonzero = np.nansum(colmeans_nonzero)
@@ -248,6 +261,21 @@ class PoissonFactorization(BayesianModel):
         if self.scale_rows:
             z = z * (torch.sum(x, dim=-1, keepdim=True) / self.xi_u_global)
         return z
+
+    def encode_sparse(self, sparse_counts, u=None, s=None):
+        """Encode a CSR ``SparseCounts`` without densifying
+        (ops.sparse_encode; g(0) = 0 makes this exact)."""
+        from spmf_tpu_torch.ops.sparse_encode import sparse_encode_coo
+
+        u = self.calibrated_expectations["u"] if u is None else u
+        s = self.calibrated_expectations["s"] if s is None else s
+        sc = sparse_counts
+        rows = np.repeat(np.arange(sc.num_rows), np.diff(sc.indptr))
+        return sparse_encode_coo(
+            rows, sc.indices, sc.data, sc.num_rows,
+            self.encoding_matrix(u, s), self.eta_i, self.log_transform,
+            xi_global=self.xi_u_global if self.scale_rows else None,
+        )
 
     def _observation_distribution(self, rate):
         return tfd.Poisson(rate=rate)
@@ -345,11 +373,47 @@ class PoissonFactorization(BayesianModel):
     def unormalized_log_prob_parts(self, data, prior_weight=1.0, **params):
         """Energy parts: weighted prior parts, the HalfNormal(1) prior on
         theta ('z'), and the finite-masked, clipped Poisson log-likelihood
-        summed over features and rows ('x')."""
+        summed over features and rows ('x'). COO batches take the dense
+        scatter into the fused path or a COO energy (see below)."""
         if data is None:
             data = self._next_batch()
         prior_parts = self.prior_distribution.log_prob_parts(params)
         prior_parts = {k: v * prior_weight for k, v in prior_parts.items()}
+
+        if isinstance(data, dict) and "coo_rowl" in data:
+            # block-aligned batches (DeviceSparseCounts block_rows): the
+            # blocked energy when this class's COO math is authoritative;
+            # otherwise flatten to the triplet format and dispatch below
+            if self._coo_energy_supported():
+                self._fusion_last_ok = False
+                self.fusion_inactive_reason = (
+                    "blocked COO energy dispatched (block-aligned batch)")
+                return self._coo_log_prob_parts_blocked(
+                    data, prior_parts, params)
+            data = self._flatten_blocked_coo(data)
+
+        if isinstance(data, dict) and "coo_vals" in data:
+            # two energies, chosen per batch shape: scatter the triplets
+            # into a transient dense (B, D) slab and take the fused path, or
+            # the COO energy, which never materialises the slab (below the
+            # density bound, or where the slab is too large)
+            if self._sparse_dense_scatter(data["indices"].shape[0],
+                                          data["coo_rows"].shape[-1]):
+                data = self._densify_coo(data, enforce_slab_limit=False)
+            elif self._coo_energy_supported() and self._coo_energy_mesh_ok():
+                # the intended sparse path: record the dispatch without the
+                # fallback warning, which would be false here
+                self._fusion_last_ok = False
+                self.fusion_inactive_reason = (
+                    "sparse COO gather energy dispatched (dense-scatter "
+                    "not engaged for this batch shape/slab)"
+                )
+                return self._coo_log_prob_parts(data, prior_parts, params)
+            else:
+                # a subclass swapped the observation model, so the COO
+                # energy would train the wrong likelihood: densify (slab
+                # checked) and take the generic dense path
+                data = self._densify_coo(data)
 
         x = self._counts(data)
         theta = self.encode(x, params["u"], params["s"])
@@ -387,6 +451,278 @@ class PoissonFactorization(BayesianModel):
         return fused_poisson_loglik(theta, B, phi, x, self.eta_i,
                                     self.log_transform, self._fused_kind(),
                                     self.likelihood_clip)
+
+    # ------------------------------------------------------ sparse energies
+    def _coo_arrays(self, data):
+        """(rows, cols, vals, B) of a triplet batch, on the model's device;
+        vals in the model's dtype."""
+        dev = self.device
+        return (torch.as_tensor(data["coo_rows"], device=dev),
+                torch.as_tensor(data["coo_cols"], device=dev),
+                torch.as_tensor(data["coo_vals"], device=dev).to(self.dtype),
+                data["indices"].shape[0])
+
+    def _coo_encode_nz(self, rows, cols, vals, B, A, v, phi, eta,
+                       per_row=False):
+        """Shared COO math: theta encoded from the triplets, and the
+        nonzero likelihood term sum_nz [x log(rate) - lgamma(x+1)] (zero
+        padding is an exact no-op: x = 0 and the rate floored positive).
+        With ``per_row`` the nonzero term keeps the row axis, lead + (B,),
+        for the row scorer; otherwise it is summed over rows, lead. Sample
+        dims are flattened into the gathered width: (B, L*K) and (D, L*K)
+        tables."""
+        from spmf_tpu_torch.ops.sparse_encode import sparse_encode_coo
+
+        theta = sparse_encode_coo(rows, cols, vals, B, A, self.eta_i,
+                                  self.log_transform, xi_global=None)
+        if self.scale_rows:
+            rowsums = torch.zeros(B, dtype=vals.dtype,
+                                  device=vals.device).index_add(0, rows, vals)
+            theta = theta * (rowsums / self.xi_u_global)[:, None]
+        K = theta.shape[-1]
+        lead = theta.shape[:-2]
+        v = v.broadcast_to(lead + v.shape[-2:])              # lead + (K, D)
+        phi = phi.broadcast_to(lead + phi.shape[-2:])        # lead + (1, D)
+        L = math.prod(lead)
+        D = v.shape[-1]
+        th_flat = theta.reshape(L, B, K).movedim(0, 1).reshape(B, L * K)
+        v_flat = v.reshape(L, K, D).permute(2, 0, 1).reshape(D, L * K)
+        phi_flat = phi.reshape(L, D).T                       # (D, L)
+        tv = (th_flat.index_select(0, rows) * v_flat.index_select(0, cols)
+              ).reshape(-1, L, K).sum(-1)                    # (nnz, L)
+        eta_c = eta[cols][:, None]
+        phi_c = phi_flat.index_select(0, cols)
+        if self.log_transform:
+            rate_nz = torch.exp(tv * eta_c) - 1.0 + phi_c
+        else:
+            rate_nz = tv * eta_c + phi_c
+        rate_nz = torch.clamp_min(rate_nz, torch.finfo(self.dtype).tiny)
+        x_log_rate = vals[:, None] * torch.log(rate_nz)      # (nnz, L)
+        lgx = torch.lgamma(vals + 1.0)
+        if per_row:
+            zeros = torch.zeros((B, L), dtype=vals.dtype, device=vals.device)
+            nz_row = zeros.index_add(0, rows, x_log_rate) - zeros[:, 0] \
+                .index_add(0, rows, lgx)[:, None]
+            nz_term = nz_row.movedim(0, -1).reshape(lead + (B,))
+        else:
+            nz_term = (x_log_rate.sum(0) - lgx.sum()).reshape(lead)
+        return theta, nz_term
+
+    def _coo_log_prob_parts(self, data, prior_parts, params):
+        """Sparse (COO) energy: trains on padded triplet batches without
+        materialising the dense (B, D) slab. The nonzero term is a
+        gather-dot over the triplets; the rate total over all B x D cells
+        collapses to sum_b(theta) . sum_d(v * eta) for the identity link
+        and is the fused exp-rate sum (K5) for the log link. The exact
+        Poisson log-likelihood is finite by construction here, so the
+        reference's data-dependent clip is a no-op and is not applied (as in
+        the JAX package)."""
+        rows, cols, vals, B = self._coo_arrays(data)
+        A = self.encoding_matrix(params["u"], params["s"])   # (..., D, K)
+        v = self.decoding_matrix(params["v"])                # (..., K, D)
+        phi = self.intercept_matrix(params["w"], params["s"])  # (..., 1, D)
+        D = v.shape[-1]
+        eta = self.eta_i.broadcast_to((1, D))[0]
+        theta, nz_term = self._coo_encode_nz(rows, cols, vals, B, A, v, phi,
+                                             eta)
+        prior_parts["z"] = self._theta_prior_log_prob(theta)
+        if self.log_transform:
+            # rate = exp(tv*eta) - 1 + phi
+            total_rate = self._exp_rate_total(theta, v) \
+                - B * D + B * torch.sum(phi, dim=(-1, -2))
+        else:
+            # sum_ij (theta@v)*eta = sum_k [sum_b theta_bk][sum_d v_kd eta_d]
+            v_eta = torch.sum(v * eta, dim=-1)               # (..., K)
+            total_rate = torch.einsum(
+                "...k,...k->...", torch.sum(theta, dim=-2), v_eta
+            ) + B * torch.sum(phi, dim=(-1, -2))
+        prior_parts["x"] = nz_term - total_rate
+        return prior_parts
+
+    def _coo_log_prob_parts_blocked(self, data, prior_parts, params):
+        """Blocked COO energy: the block-aligned layout (``coo_rowl`` /
+        ``coo_cols`` / ``coo_vals`` of shape (Rb, NBLK), batch-local row
+        j*R + rowl, pads exact no-ops) through the same math as
+        ``_coo_log_prob_parts``. The JAX package contracts each 128-row
+        block with one-hot matrices, a trick for the TPU's matrix unit; on
+        the card, theta and the per-nnz theta rows are a scatter-add
+        (``index_add``) and a gather over the rows j*R + rowl, which is the
+        flat energy on the flattened batch."""
+        return self._coo_log_prob_parts(self._flatten_blocked_coo(data),
+                                        prior_parts, params)
+
+    @staticmethod
+    def _flatten_blocked_coo(data):
+        """A block-aligned batch as the flat triplet batch (batch-local
+        rows j*R + rowl; pads stay exact no-ops)."""
+        rowl = torch.as_tensor(data["coo_rowl"])
+        Rb = rowl.shape[0]
+        R = data["indices"].shape[0] // Rb
+        rows = (torch.arange(Rb, dtype=rowl.dtype, device=rowl.device)[:, None]
+                * R + rowl).reshape(-1)
+        out = {k: v for k, v in data.items() if k != "coo_rowl"}
+        out["coo_rows"] = rows
+        out["coo_cols"] = torch.as_tensor(data["coo_cols"]).reshape(-1)
+        out["coo_vals"] = torch.as_tensor(data["coo_vals"]).reshape(-1)
+        return out
+
+    def _exp_rate_total(self, theta, v):
+        """sum_ij exp((theta @ v) * eta) per sample, for the COO energies'
+        log link: the fused exp-rate sum (K5 on the card, its twin on the
+        CPU) in float32, never materialising (S, B, D); the direct sum in
+        float64, as in the JAX package."""
+        from spmf_tpu_torch.ops.fused_poisson import fused_exp_rate_sum
+
+        if self.dtype == torch.float32:
+            squeeze = theta.dim() == 2
+            out = fused_exp_rate_sum(theta[None] if squeeze else theta,
+                                     v[None] if squeeze else v, self.eta_i)
+            return (out[0] if squeeze else out).to(self.dtype)
+        return torch.sum(torch.exp(torch.matmul(theta, v) * self.eta_i),
+                         dim=(-1, -2))
+
+    #: auto-mode ceiling for the transient dense (B, D) slab, in bytes:
+    #: beyond it, auto keeps the COO energy. The JAX package's value, set
+    #: for a TPU v5e's 16 GB; kept so the dispatch matches it (retuning for
+    #: the H100 is on the ROADMAP)
+    _DENSE_SCATTER_MAX_SLAB_BYTES = 4 << 30
+
+    #: auto-mode density bound for the COO energy: below it (padded nnz /
+    #: (B*D), an upper bound on batch density) the COO energy is taken
+    #: over the dense slab. The JAX package's crossover, measured on a TPU
+    #: v5e (0.17%, kept with a margin at 0.15%); not measured on the H100
+    _COO_ENERGY_MAX_DENSITY = 0.0015
+
+    def _sparse_dense_scatter(self, batch_rows=None, pad_nnz=None):
+        """Whether COO batches take the dense scatter into the fused path.
+        None/'auto': yes when the fused kernel is active for the densified
+        (B, D) shape, the slab stays under _DENSE_SCATTER_MAX_SLAB_BYTES
+        and the batch is not so sparse that the COO energy is taken
+        (_COO_ENERGY_MAX_DENSITY); True/False force it."""
+        mode = self.sparse_dense_scatter
+        if mode in (None, "auto"):
+            shape = None
+            if batch_rows is not None and self.feature_dim:
+                slab = (int(batch_rows) * int(self.feature_dim)
+                        * torch.finfo(self.dtype).bits // 8)
+                if slab > self._DENSE_SCATTER_MAX_SLAB_BYTES:
+                    return False
+                shape = (int(batch_rows), int(self.feature_dim))
+                if (pad_nnz is not None
+                        and int(pad_nnz) < self._COO_ENERGY_MAX_DENSITY
+                        * shape[0] * shape[1]
+                        and self._coo_energy_supported()
+                        and self._coo_energy_mesh_ok()):
+                    return False
+            # record=False: a rejection routes to the COO energy (the
+            # designed sparse path), not to the plain fallback, and the
+            # caller records the dispatch itself
+            return self._can_fuse(shape, record=False)
+        return bool(mode)
+
+    def _densify_coo(self, batch, enforce_slab_limit=True):
+        """Scatter a COO batch's triplets into a transient dense (B, D) slab
+        on the device and return a dense-count batch dict. Zero padding
+        adds 0 into cell (0, 0): exact."""
+        B = batch["indices"].shape[0]
+        D = int(self.feature_dim)
+        if enforce_slab_limit:
+            slab = B * D * torch.finfo(self.dtype).bits // 8
+            if slab > self._DENSE_SCATTER_MAX_SLAB_BYTES:
+                raise ValueError(
+                    f"this path needs a transient dense ({B}, {D}) slab "
+                    f"({slab / 2**30:.1f} GiB > "
+                    f"{self._DENSE_SCATTER_MAX_SLAB_BYTES / 2**30:.0f} GiB "
+                    "ceiling) — use a smaller batch size (or raise "
+                    "_DENSE_SCATTER_MAX_SLAB_BYTES)"
+                )
+        rows, cols, vals, _ = self._coo_arrays(batch)
+        x = torch.zeros((B, D), dtype=self.dtype, device=self.device)
+        x.index_put_((rows, cols), vals, accumulate=True)
+        return dict(batch, **{self.count_key: x})
+
+    def _coo_energy_supported(self):
+        """Whether the COO energies compute this model's likelihood: their
+        math is the stock Poisson observation model with the identity or
+        log link baked in, so the class defining ``_coo_log_prob_parts``
+        vouches only for observation machinery at or above it in the MRO
+        (the rule of ``_fusion_check``), and encoder or decoder overrides
+        invalidate it."""
+        mro = type(self).__mro__
+        coo_depth = _def_depth(mro, "_coo_log_prob_parts")
+        for hook in ("_observation_distribution", "log_likelihood_components",
+                     "_fused_x_part", "_fused_kind", "encode"):
+            if _def_depth(mro, hook) < coo_depth:
+                return False
+        for fn in ("decoder_function", "encoder_function"):
+            if fn in self.__dict__ or (
+                getattr(type(self), fn)
+                is not getattr(PoissonFactorization, fn)
+            ):
+                return False
+        return True
+
+    def _coo_energy_mesh_ok(self):
+        """Whether the COO energies serve the model's device layout: always
+        on one device (the port has no meshes yet)."""
+        return True
+
+    # ------------------------------------------------------------ scoring
+    def _coo_row_log_likelihood(self, batch, samples):
+        """Per-row Poisson log-likelihood over COO triplets without
+        densifying (B, D). Identity link only: the per-row rate total
+        collapses to theta_i . (v @ eta) + sum_j(phi_j), so each row's ll
+        is [nonzero term] - [closed-form rate total] exactly."""
+        rows, cols, vals, B = self._coo_arrays(batch)
+        A = self.encoding_matrix(samples["u"], samples["s"])
+        v = self.decoding_matrix(samples["v"])
+        phi = self.intercept_matrix(samples["w"], samples["s"])
+        eta = self.eta_i.broadcast_to((1, v.shape[-1]))[0]
+        theta, nz_row = self._coo_encode_nz(rows, cols, vals, B, A, v, phi,
+                                            eta, per_row=True)
+        v_eta = torch.sum(v * eta, dim=-1)                   # (..., K)
+        row_rate = torch.einsum("...bk,...k->...b", theta, v_eta) \
+            + torch.sum(phi, dim=(-1, -2))[..., None]
+        return nz_row - row_rate                             # (..., B)
+
+    def _row_log_likelihood(self, batch, samples):
+        """Per-row log-likelihood, (S, B): the WAIC pointwise unit. COO
+        batches take the COO row scorer where the training dispatch would
+        not densify (identity link), else densify; dense batches stream the
+        row kernel (K4) when fusion is active. Query only: the fusion
+        record of the last training dispatch is left as it is."""
+        if isinstance(batch, dict) and "coo_rowl" in batch:
+            batch = self._flatten_blocked_coo(batch)
+        if isinstance(batch, dict) and "coo_vals" in batch:
+            if (not self._sparse_dense_scatter(
+                    batch["indices"].shape[0],
+                    batch["coo_rows"].shape[-1])
+                    and not self.log_transform
+                    and self._coo_energy_supported()
+                    and self._coo_energy_mesh_ok()):
+                return self._coo_row_log_likelihood(batch, samples)
+            batch = self._densify_coo(batch)
+        x = self._counts(batch)
+        if self._can_fuse(tuple(x.shape), record=False):
+            from spmf_tpu_torch.ops.fused_poisson import (
+                fused_poisson_row_loglik,
+            )
+
+            theta = self.encode(x, samples["u"], samples["s"])
+            phi = self.intercept_matrix(samples["w"], samples["s"])
+            B = self.decoding_matrix(samples["v"])
+            squeeze = theta.dim() == 2
+            out = fused_poisson_row_loglik(
+                theta[None] if squeeze else theta,
+                B[None] if squeeze else B,
+                phi[None] if squeeze else phi,
+                x, self.eta_i, log_transform=self.log_transform,
+                likelihood=self._fused_kind(),
+            ).to(self.dtype)
+            return out[0] if squeeze else out
+        ll = self.log_likelihood_components(data=x, **samples)[
+            "log_likelihood"]
+        return torch.sum(ll, dim=-1)                         # (S, B)
 
     def _can_fuse(self, batch_shape=None, record=True):
         """Fused kernel only for the stock Poisson decode path. A rejection

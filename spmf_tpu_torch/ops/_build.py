@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: seconds each library took to compile in this process (0.0: found built)
 BUILD_SECONDS: dict = {}
 _LIBS: dict = {}
-_LOCK = threading.Lock()
+_LOCKS: dict = {}               # one per library: different ones build at once
+_LOCK = threading.Lock()        # guards _LOCKS
 
 
 def _nvcc():
@@ -53,8 +54,11 @@ def _source_hash(src):
 def load_library(name: str, signatures: dict):
     """Build (if needed) and load ``csrc/<name>.cu``. ``signatures`` maps
     each exported C function to its ctypes argument types; every function
-    returns an int (the launch's ``cudaGetLastError()``)."""
+    returns an int (the launch's ``cudaGetLastError()``). Thread-safe;
+    different libraries may be built from different threads at once."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")

@@ -1,8 +1,10 @@
-"""Fused decode + clipped Poisson log-likelihood: the CUDA kernel K1/K2 and
-its twin.
+"""Fused decode + Poisson kernels and their twins: K1/K2 (clipped
+log-likelihood sums with their gradients), K4 (per-row log-likelihood sums)
+and K5 (the exp-rate total of the sparse energy).
 
 Port of spmf_tpu/ops/fused_poisson.py (``fused_poisson_loglik`` and the
-``_fused_stats`` / ``_fused_sum_static`` custom VJPs). Per ELBO sample s:
+``_fused_stats`` / ``_fused_sum_static`` custom VJPs,
+``fused_poisson_row_loglik`` and ``fused_exp_rate_sum``). Per ELBO sample s:
 
     rate = f(theta_s @ v_s) * eta + phi_s      f: identity, or exp(.) - 1
     ll   = x log(rate) - rate - lgamma(x + 1)
@@ -17,10 +19,16 @@ cotangent, so the backward is a per-sample scalar rescale. ``clip='static'``
 clips at the constant FLOOR (the K2 flag of the same kernel): identical
 values on healthy data, identical gradients always.
 
-``fused_poisson_loglik`` launches the kernel (``csrc/fused_poisson.cu``)
-for CUDA tensors and runs ``stats_twin`` for CPU tensors. The twin is the
-explicit formulas of ``_tile_ll_grads`` over the whole (B, D) slab of each
-sample, for any dtype and device.
+``fused_poisson_row_loglik`` sums the unclipped ll over features per row,
+(S, B), for WAIC and held-out scoring; it has no gradient. The sparse
+energy's rate total under the log link, R_s = sum exp((theta_s @ v_s) *
+eta), is ``fused_exp_rate_sum``; like K1 its kernel emits the gradients at
+unit cotangent from the same tiles, so the backward is a rescale.
+
+Each wrapper launches its kernel (``csrc/fused_poisson.cu``) for CUDA
+tensors and runs its twin (``stats_twin``, ``row_loglik_twin``,
+``expsum_twin``) for CPU tensors. The twins are the explicit formulas over
+the whole (B, D) slab of each sample, for any dtype and device.
 """
 from __future__ import annotations
 
@@ -30,14 +38,16 @@ import torch
 
 from spmf_tpu_torch.ops import _build
 
-__all__ = ["FLOOR", "LAUNCHES", "fused_poisson_loglik",
-           "poisson_loglik_reference", "stats_twin"]
+__all__ = ["FLOOR", "LAUNCHES", "expsum_twin", "fused_exp_rate_sum",
+           "fused_poisson_loglik", "fused_poisson_row_loglik",
+           "poisson_loglik_reference", "row_loglik_twin", "stats_twin"]
 
 FLOOR = -1e27  # static clip-bound floor (see _floor_min_val)
 
-#: kernel launches, counted by the wrapper where it launches: "stats" for
-#: clip='reference' (K1), "static" for clip='static' (K2)
-LAUNCHES = {"stats": 0, "static": 0}
+#: kernel launches, counted by the wrappers where they launch: "stats" for
+#: clip='reference' (K1), "static" for clip='static' (K2), "row_ll" (K4) and
+#: "expsum" (K5)
+LAUNCHES = {"stats": 0, "static": 0, "row_ll": 0, "expsum": 0}
 
 
 def _safe_log(rate):
@@ -120,9 +130,38 @@ def stats_twin(theta, v, phi, x, eta, log_transform=False, static=False):
             torch.stack(dths), torch.stack(dvs), torch.stack(dphis))
 
 
-# ---------------------------------------------------------------- kernel
+def row_loglik_twin(theta, v, phi, x, eta, log_transform=False):
+    """Plain PyTorch K4: (S, B) per-row sums over features of the UNCLIPPED
+    ll, through the same ``_decode_rate`` and ``_safe_log`` (a negative rate
+    makes its row NaN). Loops over samples so one (B, D) slab is live at a
+    time."""
+    lgx = torch.lgamma(x + 1.0)
+    rows = []
+    for s in range(theta.shape[0]):
+        rate = _decode_rate(theta[s] @ v[s], eta, phi[s], log_transform)
+        rows.append((x * _safe_log(rate) - rate - lgx).sum(-1))
+    return torch.stack(rows)
+
+
+def expsum_twin(theta, v, eta):
+    """Plain PyTorch K5: (R (S,), dtheta (S,B,K), dv (S,K,D)) with
+    R_s = sum exp((theta_s @ v_s) * eta) and its gradients at unit
+    cotangent. Loops over samples so one (B, D) slab is live at a time."""
+    sums, dths, dvs = [], [], []
+    for s in range(theta.shape[0]):
+        ev = torch.exp((theta[s] @ v[s]) * eta)
+        sums.append(ev.sum())
+        dtv = ev * eta
+        dths.append(dtv @ v[s].T)
+        dvs.append(theta[s].T @ dtv)
+    return torch.stack(sums), torch.stack(dths), torch.stack(dvs)
+
+
+# ---------------------------------------------------------------- kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"poisson_stats": [_P] * 11 + [_I] * 6 + [_P]}
+_SIGNATURES = {"poisson_stats": [_P] * 11 + [_I] * 6 + [_P],
+               "poisson_row_ll": [_P] * 6 + [_I] * 5 + [_P],
+               "poisson_expsum": [_P] * 6 + [_I] * 4 + [_P]}
 _TB, _TD = 128, 64          # must match csrc/fused_poisson.cu
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 
@@ -131,23 +170,31 @@ def _lib():
     return _build.load_library("fused_poisson", _SIGNATURES)
 
 
-def _kernel_stats(theta, v, phi, x, eta, log_transform, static):
-    S, B, K = theta.shape
-    D = x.shape[-1]
-    for name, t, shape in (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
-                           ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
-                           ("eta", eta, (1, D))):
+def _check_cuda(what, theta, tensors, smem_floats):
+    """Raise unless every (name, tensor, shape) is a contiguous float32 CUDA
+    tensor of that shape on theta's device, and the block's shared-memory
+    tiles fit."""
+    for name, t, shape in tensors:
         if (not t.is_cuda or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != shape
                 or t.device != theta.device):
             raise ValueError(
-                f"fused Poisson kernel: {name} must be a contiguous float32 "
-                f"CUDA tensor of shape {shape} on {theta.device}, got "
+                f"{what} kernel: {name} must be a contiguous float32 CUDA "
+                f"tensor of shape {shape} on {theta.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    smem = 4 * (2 * _TB * K + K * (_TD + 1) + _TB * (_TD + 1) + 2 * _TD)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"latent dim K={K} is too wide for the fused "
-                         "Poisson kernel's shared-memory tiles")
+    if 4 * smem_floats > _SMEM_LIMIT:
+        raise ValueError(f"latent dim K={theta.shape[-1]} is too wide for "
+                         f"the {what} kernel's shared-memory tiles")
+
+
+def _kernel_stats(theta, v, phi, x, eta, log_transform, static):
+    S, B, K = theta.shape
+    D = x.shape[-1]
+    _check_cuda("fused Poisson", theta,
+                (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
+                 ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
+                 ("eta", eta, (1, D))),
+                2 * _TB * K + K * (_TD + 1) + _TB * (_TD + 1) + 2 * _TD)
     dev = theta.device
     nrb = -(-B // _TB)
     psum = torch.empty((S, nrb), dtype=torch.float64, device=dev)
@@ -166,6 +213,45 @@ def _kernel_stats(theta, v, phi, x, eta, log_transform, static):
     LAUNCHES["static" if static else "stats"] += 1
     return (psum.sum(1).to(torch.float32), pcnt.sum(1, dtype=torch.int32),
             pmin.min().reshape(1), dtheta, dv, dphi)
+
+
+def _kernel_row_ll(theta, v, phi, x, eta, log_transform):
+    S, B, K = theta.shape
+    D = x.shape[-1]
+    # dynamic tiles plus the kernel's static (2, TB) double row buffer
+    _check_cuda("row log-likelihood", theta,
+                (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
+                 ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
+                 ("eta", eta, (1, D))),
+                _TB * K + K * (_TD + 1) + 2 * _TD + 4 * _TB)
+    out = torch.empty((S, B), dtype=torch.float32, device=theta.device)
+    err = _lib().poisson_row_ll(
+        theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
+        eta.data_ptr(), out.data_ptr(), S, B, K, D, int(bool(log_transform)),
+        torch.cuda.current_stream(theta.device).cuda_stream)
+    _build.check(err, "poisson_row_ll")
+    LAUNCHES["row_ll"] += 1
+    return out
+
+
+def _kernel_expsum(theta, v, eta):
+    S, B, K = theta.shape
+    D = v.shape[-1]
+    _check_cuda("exp-rate sum", theta,
+                (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
+                 ("eta", eta, (1, D))),
+                2 * _TB * K + K * (_TD + 1) + _TB * (_TD + 1) + _TD)
+    dev = theta.device
+    psum = torch.empty((S, -(-B // _TB)), dtype=torch.float64, device=dev)
+    dtheta = torch.empty((S, B, K), dtype=torch.float32, device=dev)
+    dv = torch.zeros((S, K, D), dtype=torch.float32, device=dev)
+    err = _lib().poisson_expsum(
+        theta.data_ptr(), v.data_ptr(), eta.data_ptr(), psum.data_ptr(),
+        dtheta.data_ptr(), dv.data_ptr(), S, B, K, D,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "poisson_expsum")
+    LAUNCHES["expsum"] += 1
+    return psum.sum(1).to(torch.float32), dtheta, dv
 
 
 class _FusedStats(torch.autograd.Function):
@@ -208,12 +294,71 @@ def fused_poisson_loglik(theta, v, phi, x, eta, log_transform=False,
     v = v.to(f32).contiguous()
     phi = phi.to(f32).contiguous()
     x = torch.as_tensor(x, device=theta.device).to(f32).contiguous()
-    D = x.shape[-1]
-    eta = torch.as_tensor(eta, dtype=f32, device=theta.device)
-    eta = eta.broadcast_to((1, D)).contiguous()
+    eta = _f32_eta(eta, x.shape[-1], theta.device)
     ssum, cnt, gmin = _FusedStats.apply(theta, v, phi, x, eta,
                                         log_transform, clip == "static")
     if clip == "static":
         return ssum
     m = _floor_min_val(gmin - 10.0)
     return ssum + cnt.to(f32) * m[0]
+
+
+def _f32_eta(eta, D, device):
+    eta = torch.as_tensor(eta, dtype=torch.float32, device=device)
+    return eta.broadcast_to((1, D)).contiguous()
+
+
+def fused_poisson_row_loglik(theta, v, phi, x, eta, log_transform=False,
+                             likelihood="poisson", codes=None):
+    """Per-row raw (unclipped) log-likelihood sums, shape (S, B), float32:
+    the WAIC pointwise unit, without materialising (S, B, D). Evaluation
+    only: the result carries no gradient. theta (S,B,K), v (S,K,D),
+    phi (S,1,D), x (B,D), eta (1,D) or broadcastable; cast to float32 as the
+    JAX entry does. ``codes`` (the mixed-likelihood lane) is accepted for
+    signature parity."""
+    del codes
+    if likelihood != "poisson":
+        raise NotImplementedError(
+            f"likelihood={likelihood!r} is not ported to spmf_tpu_torch yet "
+            "(Poisson only)")
+    f32 = torch.float32
+    with torch.no_grad():
+        theta = theta.to(f32).contiguous()
+        v = v.to(f32).contiguous()
+        phi = phi.to(f32).contiguous()
+        x = torch.as_tensor(x, device=theta.device).to(f32).contiguous()
+        eta = _f32_eta(eta, x.shape[-1], theta.device)
+        if theta.is_cuda:
+            return _kernel_row_ll(theta, v, phi, x, eta, log_transform)
+        return row_loglik_twin(theta, v, phi, x, eta, log_transform)
+
+
+class _FusedExpRateSum(torch.autograd.Function):
+    """R (S,) with the kernel's unit-cotangent gradients saved; the backward
+    rescales them by the per-sample cotangent. eta gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, theta, v, eta):
+        expsum = _kernel_expsum if theta.is_cuda else expsum_twin
+        r, dth, dv = expsum(theta, v, eta)
+        ctx.save_for_backward(dth, dv)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        dth, dv = ctx.saved_tensors
+        g = g.to(dth.dtype)[:, None, None]
+        return dth * g, dv * g, None
+
+
+def fused_exp_rate_sum(theta, v, eta):
+    """R_s = sum_ij exp((theta_s @ v_s) * eta), shape (S,), float32.
+
+    theta (S,B,K), v (S,K,D), eta (1,D) or scalar; inputs are cast to
+    float32 as the JAX entry does. The forward emits the unit-cotangent
+    gradients from the same tiles; the backward rescales."""
+    f32 = torch.float32
+    theta = theta.to(f32).contiguous()
+    v = v.to(f32).contiguous()
+    return _FusedExpRateSum.apply(theta, v,
+                                  _f32_eta(eta, v.shape[-1], theta.device))

@@ -7,6 +7,7 @@ from .surrogates import (
     build_trainable_InverseGamma_dist,
     build_trainable_normal_dist,
 )
+from .waic import waic
 
 __all__ = [
     "SurrogatePosterior",
@@ -17,4 +18,5 @@ __all__ = [
     "build_trainable_InverseGamma_dist",
     "fit_surrogate_posterior",
     "FitResult",
+    "waic",
 ]

@@ -33,8 +33,9 @@ class FitResult:
 
 
 def _device_batch(batch, dtype, device):
-    """A dict batch as tensors on ``device``; floating arrays cast to the
-    engine dtype."""
+    """A dict batch as tensors on ``device``: floating arrays cast to the
+    engine dtype, index arrays kept as integers, and tensors already on
+    ``device`` (a DeviceSparseCounts batch) passed through uncopied."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)

@@ -306,6 +306,11 @@ class SurrogatePosterior:
         logq = torch.as_tensor(logq, dtype=self.dtype, device=self.device)
         return values, torch.broadcast_to(logq, sample_shape)
 
+    def sample(self, params, generator, sample_shape=()):
+        """Joint reparameterized sample: ``sample_and_log_prob`` without
+        its log q (what WAIC draws with)."""
+        return self.sample_and_log_prob(params, generator, sample_shape)[0]
+
     @torch.no_grad()
     def mean(self, params, generator=None, num_samples=250, chunk=10):
         """Calibrated expectations: the sample mean of each constrained

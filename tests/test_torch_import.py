@@ -1,4 +1,5 @@
-"""The port imports no JAX, and its kernels build only when launched."""
+"""The port imports no JAX, its kernels build only when launched, and its
+entry points run on the card unless the caller asks for the CPU."""
 import os
 import subprocess
 import sys
@@ -19,7 +20,8 @@ def test_import_leaves_jax_out_and_builds_nothing():
         "import sys\n"
         "import spmf_tpu_torch\n"
         "import spmf_tpu_torch.ops.fused_ig, spmf_tpu_torch.ops.fused_poisson\n"
-        "import spmf_tpu_torch.vi, spmf_tpu_torch.utils\n"
+        "import spmf_tpu_torch.ops.sparse_encode, spmf_tpu_torch.data.sparse\n"
+        "import spmf_tpu_torch.vi, spmf_tpu_torch.vi.waic, spmf_tpu_torch.utils\n"
         "from spmf_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spmf_tpu'))\n"
@@ -42,3 +44,28 @@ def test_source_imports_no_jax(path):
            and ln.split()[1].split(".")[0] in ("jax", "jaxlib", "spmf_tpu",
                                                "optax")]
     assert not bad, bad
+
+
+def test_entry_points_without_device_raise_without_a_card(monkeypatch):
+    """With no card, an entry point given no device= raises and names
+    device='cpu'; it never carries on on the CPU by itself."""
+    import numpy as np
+    import torch
+
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.config import default_device
+    from spmf_tpu_torch.data import SparseCounts
+    from spmf_tpu_torch.utils import params_from_numpy
+    from spmf_tpu_torch.vi import TrainableNormal
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert default_device() == torch.device("cuda")
+    sp = SparseCounts.from_dense(np.eye(4))
+    for entry in (lambda: PoissonFactorization(latent_dim=2, feature_dim=5),
+                  lambda: params_from_numpy({"a": np.ones(2)}),
+                  lambda: sp.batch(2).to_device(),
+                  lambda: TrainableNormal(np.zeros(2), np.ones(2))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    m = PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu")
+    assert m.device.type == "cpu"

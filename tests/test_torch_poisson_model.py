@@ -86,12 +86,14 @@ def test_defaults_and_unported_options():
                                                 "raw_scale"}
     assert set(m.surrogate_params["u"]) == {"loc", "raw_scale"}
     for kw in (dict(horshoe_plus=False), dict(aux_broadcast=True),
-               dict(mesh=object()), dict(gamma_sampler="exact"),
-               dict(sparse_dense_scatter=True)):
+               dict(mesh=object()), dict(gamma_sampler="exact")):
         with pytest.raises(NotImplementedError):
             PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
                                  **kw)
-    with pytest.raises(NotImplementedError):
-        m.unormalized_log_prob_parts(
-            {"coo_vals": np.ones(3), "indices": np.arange(2)},
-            **m.calibrated_expectations)
+    # COO batches are ported: on the CPU they take the COO energy
+    parts = m.unormalized_log_prob_parts(
+        {"coo_rows": np.array([0, 1, 1]), "coo_cols": np.array([0, 2, 4]),
+         "coo_vals": np.ones(3), "indices": np.arange(2)},
+        **m.calibrated_expectations)
+    assert torch.isfinite(parts["x"])
+    assert m.fusion_inactive_reason.startswith("sparse COO gather")

@@ -1,0 +1,116 @@
+"""The twins of the row log-likelihood kernel (K4) and the exp-rate-sum
+kernel (K5) against spmf_tpu: its Pallas kernels run interpreted in float32
+and its plain formulas in float64. Shapes are ragged (neither B nor D a
+tile multiple)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.scipy.special import gammaln
+
+from spmf_tpu.ops import fused_poisson as jfp
+
+from spmf_tpu_torch.ops import fused_poisson as tfp
+
+S, B, K, D = 3, 37, 4, 150
+
+
+def _expsum_inputs(seed=5):
+    rng = np.random.default_rng(seed)
+    theta = rng.normal(0.1, 0.2, (S, B, K))
+    v = np.abs(rng.normal(0.1, 0.1, (S, K, D)))
+    eta = np.abs(rng.normal(1.0, 0.1, (1, D)))
+    return theta, v, eta
+
+
+def _row_inputs(seed=0, rescue=False):
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0.0, 0.5, (S, B, K))
+    v = rng.uniform(0.0, 0.5, (S, K, D))
+    phi = rng.uniform(0.05, 0.5, (S, 1, D))
+    x = rng.poisson(1.0, (B, D)).astype(float)
+    eta = rng.uniform(0.5, 2.0, (1, D))
+    if rescue:
+        # a small negative intercept in one column of sample 1, and rows 3
+        # and 11 of that sample encoded at 0: their rate there is the
+        # negative intercept, so those two rows (only) are NaN
+        phi[1, :, 7] = -1e-3
+        theta[1, [3, 11]] = 0.0
+    return theta, v, phi, x, eta
+
+
+def test_expsum_twin_matches_interpreted_kernel_f32():
+    """Value within 1e-5 relative (f32 exps summed in another order), the
+    gradients at a non-unit cotangent within 1e-4 of the largest entry
+    (the JAX test's tolerances)."""
+    theta, v, eta = (np.asarray(a, np.float32) for a in _expsum_inputs())
+    g = np.array([0.7, -1.3, 2.0], np.float32)
+    val_j, vjp = jax.vjp(lambda t, vv: jfp.fused_exp_rate_sum(t, vv, eta, True),
+                         jnp.asarray(theta), jnp.asarray(v))
+    grads_j = vjp(jnp.asarray(g))
+    t = [torch.tensor(a).requires_grad_(True) for a in (theta, v)]
+    val_t = tfp.fused_exp_rate_sum(*t, torch.tensor(eta))
+    (val_t * torch.tensor(g)).sum().backward()
+    np.testing.assert_allclose(val_t.detach().numpy(), np.asarray(val_j),
+                               rtol=1e-5)
+    for a, gj in zip(t, grads_j):
+        gj = np.asarray(gj)
+        np.testing.assert_allclose(a.grad.numpy(), gj, rtol=1e-4,
+                                   atol=1e-4 * np.abs(gj).max())
+
+
+def test_expsum_twin_matches_direct_sum_f64():
+    """float64 twin against jax's direct sum and its autodiff, 1e-10."""
+    theta, v, eta = _expsum_inputs(seed=6)
+
+    def direct(t, vv):
+        return jnp.sum(jnp.exp(jnp.matmul(t, vv) * eta), axis=(-1, -2))
+
+    ref = direct(jnp.asarray(theta), jnp.asarray(v))
+    gref = jax.grad(lambda t, vv: jnp.sum(direct(t, vv)), (0, 1))(
+        jnp.asarray(theta), jnp.asarray(v))
+    r, dth, dv = tfp.expsum_twin(*(torch.tensor(a) for a in (theta, v, eta)))
+    np.testing.assert_allclose(r.numpy(), np.asarray(ref), rtol=1e-10)
+    for a, b in zip((dth, dv), gref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10)
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+def test_row_ll_twin_matches_interpreted_kernel_f32(log_transform):
+    """Row sums within 3e-5 relative (the JAX test's tolerance: f32 cells,
+    another lgamma); NaN rows of a rescue batch at the same positions."""
+    args = [np.asarray(a, np.float32) for a in _row_inputs(rescue=True)]
+    out_j = np.asarray(jfp.fused_poisson_row_loglik(
+        *map(jnp.asarray, args), log_transform, True))
+    out_t = tfp.fused_poisson_row_loglik(
+        *(torch.tensor(a) for a in args), log_transform=log_transform).numpy()
+    assert out_t.shape == (S, B) and out_t.dtype == np.float32
+    nan_j = np.isnan(out_j)
+    assert nan_j.sum() == 2 and nan_j[1, [3, 11]].all()
+    np.testing.assert_array_equal(np.isnan(out_t), nan_j)
+    np.testing.assert_allclose(out_t[~nan_j], out_j[~nan_j], rtol=3e-5)
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+def test_row_ll_twin_matches_formula_f64(log_transform):
+    """float64 twin against the plain per-row formula, 1e-10."""
+    theta, v, phi, x, eta = _row_inputs(seed=1, rescue=True)
+    tv = np.matmul(theta, v)
+    rate = (np.exp(tv * eta) - 1.0 + phi) if log_transform else tv * eta + phi
+    with np.errstate(invalid="ignore"):
+        ll = x * np.log(rate) - rate - np.asarray(gammaln(x + 1.0))
+    ref = ll.sum(-1)
+    out = tfp.row_loglik_twin(*(torch.tensor(a) for a in
+                                (theta, v, phi, x, eta)),
+                              log_transform=log_transform).numpy()
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    np.testing.assert_allclose(out, ref, rtol=1e-10)
+
+
+def test_row_ll_is_evaluation_only_and_poisson_only():
+    t = [torch.tensor(a, dtype=torch.float32) for a in _row_inputs()]
+    t[0].requires_grad_(True)
+    assert not tfp.fused_poisson_row_loglik(*t).requires_grad
+    with pytest.raises(NotImplementedError):
+        tfp.fused_poisson_row_loglik(*t, likelihood="bernoulli")

@@ -24,10 +24,30 @@ Phases, each printing lines; any failure raises and exits non-zero:
   8 scoring  log_likelihood of 4096 held-out rows (100 samples) and
              waic(subsample='batch') through K4; the COO row log-likelihood
              at a small size against the plain float64 path
+  K6 sampler fused Normal sampler (K6f/K6b) vs its float64 twin at
+             total=1,340,000, S=8, with the Gaussian family's mask (u, v, w
+             Identity, s Softplus) and an all-Softplus one; the KS distance
+             of the recovered draws from N(0, 1); the replay backward against
+             autograd through the twin
+  lik        K1, K2 and K4 at 'bernoulli', ('normal', 1), 'poisson_softplus'
+             and ('mixed', 1), both links, vs their float64 twins at S=8,
+             B=1024, D=20000, K=32, plus a batch whose softplus rates
+             underflow
+  A          the K6 path: the dense PoissonFactorization with
+             surrogate.fused_normals = True, with launch counters; one small
+             step against the plain float64 path on the same Philox draws;
+             ms/step with and without fused_normals, interleaved
+  B          the families at full width (D=20000, K=32, S=8, B=4096):
+             MixedFactorization (12000 poisson, 6000 bernoulli, 2000 normal
+             columns; both clips; log_likelihood and waic through K4),
+             BernoulliFactorization on binarised counts,
+             GaussianFactorization(observation_model='normal') on
+             standardised log counts with fused_normals = True; one small
+             step per family against the plain float64 path
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, costliest
              kernels) of the dense and the three sparse steps;
-             log_likelihood rows/s
+             log_likelihood rows/s; K1 and K4 per likelihood; the mixed step
 Then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -43,6 +63,11 @@ import numpy as np
 
 S, D, K = 8, 20000, 32
 IG_TOTAL = 2 * D * K + 2 * 2 * D + 2 * D + 2 * K  # u_eta(_a), s_eta(_a), ...
+N_TOTAL = 2 * D * K + D + 2 * D                   # the Normal block: u, v, w, s
+MIXED_COLUMNS = (("poisson", 12000), ("bernoulli", 6000), ("normal", 2000))
+LIKELIHOODS = {"bernoulli": "bernoulli", "normal": ("normal", 1.0),
+               "poisson_softplus": "poisson_softplus",
+               "mixed": ("mixed", 1.0)}
 N_SPARSE, DENSITY, B_SPARSE = 32768, 0.03, 4096
 # Peak rates from NVIDIA's H100 SXM data sheet
 PEAK_BYTES_PER_S = 3.35e12
@@ -101,9 +126,10 @@ def bound(n_bytes, n_ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def bounds(B, total):
+def bounds(B, total, n_total):
     """Per-kernel bounds at the timed shapes (S=8, D=20000, K=32; B rows for
-    the Poisson kernels, ``total`` elements for the IG sampler). Bytes: each
+    the Poisson kernels, ``total`` elements for the IG sampler, ``n_total``
+    for the Normal sampler). Bytes: each
     input read once, each output written once, float32. Operations: the
     K-deep products, 2 per multiply-add (decode, dv and dtheta for K1/K2/K5;
     the decode for K4), plus one per transcendental or division of a cell
@@ -111,7 +137,10 @@ def bounds(B, total):
     and 1 reciprocal; K4, log link: exp, log and lgamma's 4; K5: exp); for
     K3, about 600 operations per element and sample in the forward (30
     Philox rounds of 8 integer operations, erfinv, 8 logs, the gamma and 2
-    softplus) and 700 in the backward, counted from csrc/fused_ig.cu."""
+    softplus) and 700 in the backward, counted from csrc/fused_ig.cu; for
+    K6, about 150 per element and sample each way (10 Philox rounds of 8,
+    erfinv, two softplus or sigmoids, a log), counted from
+    csrc/fused_normal.cu."""
     cells = S * B * D
     theta, v, vec = S * B * K, S * K * D, S * D
     stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * D + D)
@@ -124,7 +153,11 @@ def bounds(B, total):
            "fwd": bound(4 * (4 * total + S * total) + 8 * S,
                         600 * S * total),
            "bwd": bound(4 * (4 * total + S * total + S + 2 * total),
-                        700 * S * total)}
+                        700 * S * total),
+           "nfwd": bound(4 * (3 * n_total + S * n_total) + 8 * S,
+                         150 * S * n_total),
+           "nbwd": bound(4 * (3 * n_total + S * n_total + S + 2 * n_total),
+                         150 * S * n_total)}
     return out
 
 
@@ -140,6 +173,70 @@ def stats_inputs(B, dev, seed=0, rescue=False):
     if rescue:
         phi[:, :, ::37] = -5.0   # negative rates: NaN cells the clip replaces
     return theta, v, phi, x, eta
+
+
+def mixed_codes(dev):
+    """The (1, D) codes lane of MIXED_COLUMNS, three contiguous blocks."""
+    import torch
+
+    from spmf_tpu_torch.ops import fused_poisson as tfp
+
+    code_of = {"poisson": tfp.CODE_POISSON, "bernoulli": tfp.CODE_BERNOULLI,
+               "normal": tfp.CODE_NORMAL}
+    return torch.cat([torch.full((n,), code_of[t]) for t, n in MIXED_COLUMNS]
+                     )[None].to(dev)
+
+
+def likelihood_x(name, n, dev, g):
+    """n x D observations for a likelihood: Poisson(1) counts, binarised for
+    'bernoulli', standard normals for 'normal', and the three column blocks
+    of MIXED_COLUMNS for 'mixed'."""
+    import torch
+
+    from spmf_tpu_torch.ops import fused_poisson as tfp
+
+    counts = torch.poisson(torch.ones(n, D, device=dev), generator=g)
+    if name in ("poisson", "poisson_softplus"):
+        return counts
+    if name == "bernoulli":
+        return counts.clamp_max(1.0)
+    real = torch.randn(n, D, generator=g, device=dev)
+    if name == "normal":
+        return real
+    codes = mixed_codes(dev)
+    return torch.where(codes == tfp.CODE_BERNOULLI, counts.clamp_max(1.0),
+                       torch.where(codes == tfp.CODE_NORMAL, real, counts))
+
+
+def likelihood_inputs(name, B, dev, seed=0, rescue=False):
+    """stats_inputs for the other likelihoods: signed operands (the rate is a
+    logit or a location) and observations from ``likelihood_x``; the codes
+    lane for 'mixed', else None. ``rescue``: rates of -2000 in every 37th
+    column, whose softplus underflows to 0 in either precision (clipped
+    cells under a softplus link, large finite values elsewhere)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    theta = torch.randn(S, B, K, generator=g, device=dev) * 0.1
+    v = torch.randn(S, K, D, generator=g, device=dev) * 0.1
+    phi = torch.randn(S, 1, D, generator=g, device=dev) * 0.3
+    eta = torch.rand(1, D, generator=g, device=dev) * 1.5 + 0.5
+    x = likelihood_x(name, B, dev, g)
+    if rescue:
+        phi[:, :, ::37] = -2000.0
+    return (theta, v, phi, x, eta), (mixed_codes(dev) if name == "mixed"
+                                     else None)
+
+
+def ks_distance(eps):
+    """Kolmogorov-Smirnov distance of a flat float64 tensor from N(0, 1)."""
+    import torch
+
+    n = eps.numel()
+    cdf = 0.5 * (1.0 + torch.erf(torch.sort(eps).values / 2.0 ** 0.5))
+    i = torch.arange(n, dtype=torch.float64, device=eps.device)
+    return float(torch.maximum((cdf - i / n).abs(),
+                               (cdf - (i + 1) / n).abs()).max())
 
 
 def sparse_counts(n, d, density, seed, dev):
@@ -200,9 +297,38 @@ def numpy_draws(model, seed):
             "ig_u": rng.uniform(1e-6, 1.0, (8, S, tot_g))}
 
 
-def step_grads(model, p0, batch, draws):
+def philox_draws(model, seed, dev):
+    """The base draws that one sample_and_log_prob call of a model with both
+    fused samplers makes from a generator seeded with ``seed`` on ``dev``
+    (the Normal block's Philox seed is drawn first, then the IG block's), in
+    float64, in the form the plain samplers take: K6's standard normals,
+    and K3's eps and 8 uniforms for the WH 'fast' sampler."""
+    import torch
+
+    from spmf_tpu_torch.ops import fused_ig as tig
+    from spmf_tpu_torch.ops import fused_normal as tfn
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seeds = [int(torch.randint(0, 2**31 - 1, (1,), generator=g,
+                               dtype=torch.int32, device=dev))
+             for _ in range(2)]
+    sur = model._surrogate
+    tot_n = sum(sur._sizes[n] for n in sur._normal_names)
+    tot_g = sum(sur._sizes[n] for n in sur._ig_names)
+    f64 = torch.float64
+    u = torch.stack([tig.uniforms(tot_g, s, seeds[1], f64, dev)
+                     for s in range(S)], dim=1)          # (9, S, tot_g)
+    return {"normal_eps": torch.stack(
+                [tfn.draw_eps(tot_n, s, seeds[0], f64, dev)
+                 for s in range(S)]).cpu().numpy(),
+            "ig_eps": (2.0 ** 0.5 * torch.erfinv(2.0 * u[0] - 1.0)
+                       ).cpu().numpy(),
+            "ig_u": u[1:].cpu().numpy()}
+
+
+def step_grads(model, p0, batch, draws, generator=None):
     """(loss, flat gradients) of one ELBO step of ``model`` from params p0
-    on ``batch`` with injected base draws."""
+    on ``batch`` with injected base draws, or with ``generator``'s."""
     import torch
 
     from spmf_tpu_torch.utils import params_from_numpy
@@ -212,8 +338,8 @@ def step_grads(model, p0, batch, draws):
     for sub in params.values():
         for t in sub.values():
             t.requires_grad_(True)
-    loss = elbo_loss(model._surrogate, model._energy, params, batch, None, S,
-                     draws=draws)
+    loss = elbo_loss(model._surrogate, model._energy, params, batch,
+                     generator, S, draws=draws)
     loss.backward()
     grads = torch.cat([t.grad.reshape(-1).double().cpu()
                        for sub in params.values() for t in sub.values()])
@@ -308,10 +434,12 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch import (BernoulliFactorization, GaussianFactorization,
+                                MixedFactorization, PoissonFactorization)
     from spmf_tpu_torch.data import ArrayDataset, SparseCounts
     from spmf_tpu_torch.ops import _build
     from spmf_tpu_torch.ops import fused_ig as tig
+    from spmf_tpu_torch.ops import fused_normal as tfn
     from spmf_tpu_torch.ops import fused_poisson as tfp
     from spmf_tpu_torch.utils import params_from_numpy
     from spmf_tpu_torch.vi.minibatch import _device_batch
@@ -331,28 +459,38 @@ def main():
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(tfp._lib), pool.submit(tig._lib)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(tfp._lib), pool.submit(tig._lib),
+                  pool.submit(tfn._lib)]:
             f.result()
-    ptxas = []
-    for lib in ("fused_poisson", "fused_ig"):
-        with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
-            ptxas += [ln.strip() for ln in f if "registers" in ln
-                      or "spill" in ln]
     say(2, f"built {sorted(_build.BUILD_SECONDS)} in "
-           f"{time.perf_counter() - t0:.1f} s (nvcc {_build.NVCC_FLAGS}); "
-           + " | ".join(ptxas))
+           f"{time.perf_counter() - t0:.1f} s (nvcc {_build.NVCC_FLAGS})")
+    for lib in ("fused_poisson", "fused_ig", "fused_normal"):
+        # ptxas -v: one (name, spill, registers) triple of lines per kernel
+        with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
+            lines = [ln.strip() for ln in f]
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                if "Used " in ln and "registers" in ln]
+        spills = [ln for ln in lines
+                  if "spill" in ln and "0 bytes spill stores" not in ln]
+        say(2, f"{lib}: {len(regs)} kernels, registers {sorted(regs)}, "
+               f"spilling kernels: {spills or 'none'}")
 
-    kernels = ("stats", "static", "row_ll", "expsum", "fwd", "bwd")
+    #: launch counters by kernel, as the JSON line names them
+    counters = {"stats": (tfp.LAUNCHES, "stats"),
+                "static": (tfp.LAUNCHES, "static"),
+                "row_ll": (tfp.LAUNCHES, "row_ll"),
+                "expsum": (tfp.LAUNCHES, "expsum"),
+                "fwd": (tig.LAUNCHES, "fwd"), "bwd": (tig.LAUNCHES, "bwd"),
+                "nfwd": (tfn.LAUNCHES, "fwd"), "nbwd": (tfn.LAUNCHES, "bwd")}
+    kernels = tuple(counters)
 
     def zero_launches():
-        for d in (tfp.LAUNCHES, tig.LAUNCHES):
-            for k in d:
-                d[k] = 0
+        for d, k in counters.values():
+            d[k] = 0
 
     def read_launches():
-        return {k: (tfp.LAUNCHES.get(k) if k in tfp.LAUNCHES
-                    else tig.LAUNCHES[k]) for k in kernels}
+        return {name: d[k] for name, (d, k) in counters.items()}
 
     path_launches = {}
     errs = {}
@@ -443,6 +581,153 @@ def main():
            f"grads rel-of-max {e_grad:.2e}")
     del theta, v, phi, x, eta, phi_r, theta_r, out_k, out_t
 
+    # ---- K6: the fused Normal sampler at the Normal block of D=20000, K=32.
+    # Tolerances: the kernel and its float64 twin draw the same Philox bits;
+    # y and the gradients 1e-5 of their largest entry (erfinvf against
+    # float64 erfinv in the tails of a 23-bit uniform, as for K3; x = loc +
+    # scale eps may cancel to near 0, so not elementwise); log q 1e-6
+    # relative (a double-accumulated sum of 1.3 M float terms)
+    g = torch.Generator(device=dev).manual_seed(8)
+    n_loc = torch.randn(N_TOTAL, generator=g, device=dev) * 2.0
+    n_rs = torch.randn(N_TOTAL, generator=g, device=dev) * 1.5 - 2.0
+    n_gy = torch.randn(S, N_TOTAL, generator=g, device=dev)
+    n_glq = torch.randn(S, generator=g, device=dev)
+    n_seed = torch.tensor([13579], dtype=torch.int32, device=dev)
+    # the surrogate's order is v, w, u, s: Identity but for the last 2 D
+    masks = {"gaussian": torch.cat([torch.zeros(N_TOTAL - 2 * D),
+                                    torch.ones(2 * D)]).to(dev),
+             "softplus": torch.ones(N_TOTAL, device=dev)}
+    errs["nfwd"] = errs["nbwd"] = 0.0
+    for tag, mask in masks.items():
+        y_k, lq_k = tfn._kernel_fwd(n_loc, n_rs, mask, n_seed, S)
+        y_t, lq_t = tfn.normal_twin_fwd(n_loc.double(), n_rs.double(),
+                                        mask.double(), n_seed, S)
+        gl_k, gr_k = tfn._kernel_bwd(n_loc, n_rs, mask, n_seed, S, n_gy,
+                                     n_glq)
+        gl_t, gr_t = tfn.normal_twin_bwd(
+            n_loc.double(), n_rs.double(), mask.double(), n_seed, S,
+            n_gy.double(), n_glq.double())
+        torch.cuda.synchronize()
+        e_y, e_lq = rel_max(y_k, y_t), rel_elem(lq_k, lq_t)
+        e_g = max(rel_max(gl_k, gl_t), rel_max(gr_k, gr_t))
+        check(e_y < 1e-5, f"K6f {tag} y rel err {e_y}")
+        check(e_lq < 1e-6, f"K6f {tag} lq rel err {e_lq}")
+        check(e_g < 1e-5, f"K6b {tag} grads rel err {e_g}")
+        errs["nfwd"] = max(errs["nfwd"], abs_max([(y_k, y_t)]))
+        errs["nbwd"] = max(errs["nbwd"],
+                           abs_max([(gl_k, gl_t), (gr_k, gr_t)]))
+        say("K6", f"total={N_TOTAL} mask={tag}: y rel-of-max {e_y:.2e}, lq "
+                  f"rel {e_lq:.2e}, gloc/grs rel-of-max {e_g:.2e}")
+        if tag == "gaussian":
+            # the draws themselves, without the twin: eps = (x - loc) / scale
+            # over all S * total draws (x = softplus^-1(y) under the mask)
+            y64 = y_k.double()
+            x64 = torch.where(mask > 0,
+                              y64 + torch.log(-torch.expm1(-y64)), y64)
+            scale = torch.nn.functional.softplus(n_rs.double())
+            ks = ks_distance(((x64 - n_loc.double()) / scale).reshape(-1))
+            # 2.5 / sqrt(n), 7.6e-4 at n = 10.7 M: a true N(0, 1) sample
+            # exceeds it with probability 7e-6 (the 23-bit uniform grid
+            # adds 1e-7)
+            check(ks < 2.5 / y64.numel() ** 0.5,
+                  f"K6f draws: KS distance {ks} from N(0, 1)")
+            say("K6", f"KS distance of {y64.numel()} recovered draws from "
+                      f"N(0, 1): {ks:.2e}")
+            del y64, x64
+        del y_t, gl_t, gr_t
+    # forward / backward replay through the wrapper: K6b against autograd
+    # through the float64 twin
+    mask = masks["gaussian"]
+    leaves = [n_loc.clone().requires_grad_(True),
+              n_rs.clone().requires_grad_(True)]
+    y, lq = tfn.fused_normal_sample_logq(*leaves, mask, n_seed, S)
+    ((y * n_gy).sum() + (lq * n_glq).sum()).backward()
+    ref = [t.detach().double().requires_grad_(True) for t in leaves]
+    y_t, lq_t = tfn.normal_twin_fwd(*ref, mask.double(), n_seed, S)
+    ((y_t * n_gy.double()).sum() + (lq_t * n_glq.double()).sum()).backward()
+    e_g = max(rel_max(t.grad, r.grad) for t, r in zip(leaves, ref))
+    check(e_g < 1e-5, f"K6 replay grads rel err {e_g}")
+    say("K6", f"replay: K6b through the wrapper vs autograd through the "
+              f"twin, rel-of-max {e_g:.2e}")
+    del y, lq, y_t, lq_t, leaves, ref, y_k, gl_k, gr_k
+
+    # ---- lik: K1, K2 and K4 at the other likelihoods, the Poisson
+    # tolerances (sums 1e-5, counts exact, minimum 1e-6, gradients 1e-4 of
+    # the largest entry, row sums 1e-5)
+    lik_errs = {}
+    for lname, lik in LIKELIHOODS.items():
+        soft = lname in ("poisson_softplus", "mixed")
+        for log_transform in (False, True):
+            for rescue in (False, True):
+                args, codes = likelihood_inputs(lname, B, dev, seed=21,
+                                                rescue=rescue)
+                args64 = [t.double() for t in args]
+                for static in (False, True):
+                    out_k = tfp._kernel_stats(*args, log_transform, static,
+                                              lik, codes)
+                    out_t = tfp.stats_twin(*args64, log_transform, static,
+                                           lik, codes)
+                    torch.cuda.synchronize()
+                    e_sum = rel_elem(out_k[0], out_t[0])
+                    e_grad = max(rel_max(k, t)
+                                 for k, t in zip(out_k[3:], out_t[3:]))
+                    e_min = (rel_elem(out_k[2], out_t[2]) if not static
+                             else 0.0)
+                    what = (f"{'K2' if static else 'K1'} {lname} "
+                            f"log={log_transform} rescue={rescue}")
+                    check(e_sum < 1e-5, f"{what} sums rel err {e_sum}")
+                    check(e_grad < 1e-4, f"{what} grads rel err {e_grad}")
+                    check(e_min < 1e-6, f"{what} gmin rel err {e_min}")
+                    check(torch.equal(out_k[1].cpu(), out_t[1].cpu()),
+                          f"{what} counts {out_k[1].tolist()} vs "
+                          f"{out_t[1].tolist()}")
+                    check(static or not rescue
+                          or (int(out_t[1].sum()) > 0) == soft,
+                          f"{what} clipped cells {out_t[1].tolist()}")
+                    key = (lname, "static" if static else "stats")
+                    lik_errs[key] = max(lik_errs.get(key, 0.0), e_grad)
+                    say("lik", f"{what}: sums rel {e_sum:.2e}, counts "
+                               f"{out_k[1].tolist()}, gmin rel {e_min:.2e}, "
+                               f"grads rel-of-max {e_grad:.2e}")
+                if rescue:
+                    continue
+                out_k = tfp._kernel_row_ll(*args, log_transform, lik, codes)
+                out_t = tfp.row_loglik_twin(*args64, log_transform, lik,
+                                            codes)
+                torch.cuda.synchronize()
+                e_row = rel_elem(out_k, out_t)
+                check(e_row < 1e-5,
+                      f"K4 {lname} log={log_transform} rows rel err {e_row}")
+                lik_errs[(lname, "row_ll")] = max(
+                    lik_errs.get((lname, "row_ll"), 0.0), e_row)
+                say("lik", f"K4 {lname} log_transform={log_transform}: row "
+                           f"sums rel {e_row:.2e}")
+        if soft:
+            # sample 0 alone has an underflowed rate, in column 7: its rows
+            # are -inf (x > 0 there) or NaN (x = 0), the others finite
+            args, codes = likelihood_inputs(lname, B, dev, seed=22)
+            args[2][0, :, 7] = -2000.0
+            out_k = tfp._kernel_row_ll(*args, False, lik, codes)
+            out_t = tfp.row_loglik_twin(*[t.double() for t in args], False,
+                                        lik, codes)
+            nan_t, inf_t = torch.isnan(out_t), torch.isinf(out_t)
+            check(bool((nan_t | inf_t)[0].all())
+                  and not bool((nan_t | inf_t)[1:].any())
+                  and bool(nan_t.any()) and bool(inf_t.any()),
+                  f"K4 {lname} rescue batch: {int(nan_t.sum())} NaN, "
+                  f"{int(inf_t.sum())} inf rows")
+            check(torch.equal(torch.isnan(out_k), nan_t)
+                  and torch.equal(torch.isinf(out_k), inf_t),
+                  f"K4 {lname} NaN / inf rows differ")
+            e_row = rel_elem(out_k[1:], out_t[1:])
+            check(e_row < 1e-5, f"K4 {lname} rescue rows rel err {e_row}")
+            say("lik", f"K4 {lname} rescue: {int(nan_t.sum())} NaN and "
+                       f"{int(inf_t.sum())} -inf rows at the same positions, "
+                       f"other rows rel {e_row:.2e}")
+    say("lik", "largest relative errors by (likelihood, kernel): "
+               + ", ".join(f"{k}: {v:.2e}" for k, v in lik_errs.items()))
+    del args, args64, codes, out_k, out_t
+
     # ---- 6: the dense slice through the normal entry point
     N = 16384
     gx = torch.Generator(device=dev).manual_seed(3)
@@ -513,7 +798,108 @@ def main():
            f"{res['plain'][0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
            f"{e_grad:.2e}")
     dense_model = models["reference"]
-    del models, small, X, ds
+    del models, small
+
+    # ---- A: the K6 path. The same dense model with the surrogate's
+    # fused_normals seam on: K6f, K6b, K3f, K3b and K1 in every step
+    model_a = PoissonFactorization(latent_dim=K, feature_dim=D,
+                                   dtype="float32", device="cuda", data=ds)
+    model_a._surrogate.fused_normals = True
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_a = model_a.fit(num_steps=1, learning_rate=0.01, sample_size=S,
+                         verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = path_launches["A fused_normals"] = read_launches()
+    # what fit launches besides its steps: the initial loss, and the
+    # posterior means it takes at its end (forward only)
+    zero_launches()
+    model_a.set_calibration_expectations()
+    calib = read_launches()["nfwd"]
+    steps_a = N // 4096
+    check(np.isfinite(loss_a).all(), f"A: non-finite losses {loss_a}")
+    check(launches["nfwd"] == steps_a + 1 + calib,
+          f"A: K6f launches {launches}, {steps_a} steps, calibration {calib}")
+    check(launches["nbwd"] == steps_a, f"A: K6b launches {launches}")
+    check(launches["fwd"] == launches["nfwd"]
+          and launches["bwd"] == steps_a and launches["stats"] == steps_a + 1,
+          f"A: K3 / K1 launches {launches}")
+    say("A", f"fit with fused_normals: {steps_a} steps in {fit_s:.1f} s; "
+             f"losses {[round(x, 4) for x in loss_a]}; launches {launches} "
+             f"(K6f: {steps_a} steps + 1 initial loss + {calib} for the "
+             f"posterior means; K6b: one per step)")
+
+    def small_step_check(tag, cls, Xs, seed, signed_vw=False, **kw):
+        """One ELBO step at a small size through every kernel (float32 on
+        the card, both samplers fused) against the plain float64 path (CPU,
+        unfused, the WH 'fast' sampler) fed the same Philox draws.
+        ``signed_vw``: start v and w near 0 (see ``start_vw_near_zero``).
+        Tolerances as the small step above: loss 1e-4, gradients 1e-3 of
+        the largest entry."""
+        pair = {}
+        for side, skw in (("kernel", dict(dtype="float32", device="cuda",
+                                          fused_likelihood=True,
+                                          gamma_sampler="fused")),
+                          ("plain", dict(dtype="float64", device="cpu",
+                                         fused_likelihood=False,
+                                         gamma_sampler="fast"))):
+            pair[side] = cls(
+                latent_dim=k_s, feature_dim=d_s,
+                u_tau_scale=1.0 / np.sqrt(n_s * d_s),
+                data=ArrayDataset({"counts": Xs}).batch(b_s), **kw, **skw)
+        pair["kernel"]._surrogate.fused_normals = True
+        p0 = perturbed_init(pair["plain"], seed)
+        if signed_vw:
+            rng = np.random.default_rng(seed)
+            for name in ("v", "w"):
+                p0[name]["loc"] = 0.05 * rng.standard_normal(
+                    p0[name]["loc"].shape)
+        before = read_launches()
+        res_k = step_grads(
+            pair["kernel"], p0,
+            {"counts": torch.as_tensor(Xs[:b_s], device=dev).float()}, None,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        after = read_launches()
+        ran = [k for k in kernels if after[k] == before[k] + 1]
+        check(ran == ["stats", "fwd", "bwd", "nfwd", "nbwd"],
+              f"{tag}: small step launched {ran}")
+        check(pair["kernel"].fusion_active, f"{tag}: small step unfused")
+        res_p = step_grads(pair["plain"], p0,
+                           {"counts": torch.as_tensor(Xs[:b_s]).double()},
+                           philox_draws(pair["plain"], seed, dev))
+        e_loss = abs(res_k[0] - res_p[0]) / abs(res_p[0])
+        e_grad = rel_max(res_k[1], res_p[1])
+        check(e_loss < 1e-4, f"{tag}: small-step loss rel err {e_loss}")
+        check(e_grad < 1e-3, f"{tag}: small-step grads rel err {e_grad}")
+        say(tag, f"small step through K1, K3, K6 vs float64 plain path on "
+                 f"the same Philox draws: loss {res_k[0]:.6f} vs "
+                 f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
+                 f"{e_grad:.2e}")
+
+    small_step_check("A", PoissonFactorization, Xs, 15)
+
+    # the A/B this kernel exists for: the same model and batch with and
+    # without fused_normals, in turns
+    xb = torch.as_tensor(X[:4096], device=dev)
+    step = step_timer(model_a, {"counts": xb,
+                                "indices": torch.arange(4096, device=dev)})
+    ab_ms = {True: [], False: []}
+    for i in range(13):
+        for on in ((True, False) if i % 2 else (False, True)):
+            model_a._surrogate.fused_normals = on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i >= 3:
+                ab_ms[on].append((time.perf_counter() - t0) * 1e3)
+    ab_on, ab_off = (float(np.median(ab_ms[k])) for k in (True, False))
+    say("A", f"dense step B=4096, fused_normals on {ab_on:.2f} ms/step, off "
+             f"{ab_off:.2f} ms/step (medians of 10, interleaved; on/off "
+             f"{ab_on / ab_off:.3f}; {smi})")
+    del model_a, step, xb, X, ds
 
     # ---- 7: the sparse slice, configured as the scRNA CLI does
     t0 = time.perf_counter()
@@ -640,6 +1026,124 @@ def main():
            f"{e_row:.2e}")
     del small, sp_s
 
+    # ---- B: the other families at full width
+    n_b = 8192
+    types = [t for t, n in MIXED_COLUMNS for _ in range(n)]
+    gb = torch.Generator(device=dev).manual_seed(31)
+    counts_b = likelihood_x("poisson", n_b, dev, gb)
+    col_std = lambda t: (t - t.mean(0)) / t.std(0).clamp_min(1e-6)  # noqa
+    data_b = {
+        "mixed": likelihood_x("mixed", n_b, dev, gb),
+        "bernoulli": counts_b.clamp_max(1.0),
+        "gaussian": col_std(torch.log1p(counts_b)),
+    }
+    held_b = likelihood_x("mixed", 4096, dev, gb).cpu().numpy()
+    data_b = {k: ArrayDataset({"counts": t.cpu().numpy(),
+                               "indices": np.arange(n_b)}).batch(4096)
+              for k, t in data_b.items()}
+    del counts_b
+    common = dict(latent_dim=K, feature_dim=D, dtype="float32", device="cuda")
+    # (class, data, learning rate, arguments). The learning rates: theta is
+    # about 13.5 in every latent dimension at this width, and Adam's first
+    # steps move all K loadings of a column by the learning rate in one
+    # direction, so a logit moves by 432 learning rates a step: 5e-4 keeps
+    # that at 0.2. The Gaussian family's rates start near 4e4 and shrink by
+    # a relative step, so it takes 0.05.
+    families = {
+        "mixed": (MixedFactorization, "mixed", 5e-4, dict(
+            column_types=types, obs_scale=1.0, scale_columns=False)),
+        "mixed static": (MixedFactorization, "mixed", 5e-4, dict(
+            column_types=types, obs_scale=1.0, scale_columns=False,
+            likelihood_clip="static")),
+        "bernoulli": (BernoulliFactorization, "bernoulli", 5e-4, {}),
+        "gaussian normal": (GaussianFactorization, "gaussian", 0.05, dict(
+            observation_model="normal", obs_scale=1.0, scale_columns=False,
+            scale_rows=False)),
+    }
+    def start_vw_near_zero(m, seed):
+        """The families' surrogates start v and w at loc -6, the Poisson
+        model's value. Under the Identity bijector of the Bernoulli and
+        Mixed families that is a loading of -6, and at D=20000 every logit
+        and softplus rate then starts below -1000: Poisson columns begin as
+        clipped cells, which pass no gradient. Start them near 0, as a
+        user of these families at this width would."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            v_loc = m.surrogate_params["v"]["loc"]
+            v_loc.copy_(0.01 * torch.randn(v_loc.shape, generator=g,
+                                           device=dev))
+            m.surrogate_params["w"]["loc"].zero_()
+
+    steps_b = 2 * (n_b // 4096)
+    fitted = {}
+    for tag, (cls, dkey, lr, kw) in families.items():
+        m = fitted[tag] = cls(data=data_b[dkey], **common, **kw)
+        if cls is not GaussianFactorization:
+            start_vw_near_zero(m, 32)
+        fused_normals = tag == "gaussian normal"
+        m._surrogate.fused_normals = fused_normals
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = m.fit(num_steps=2, learning_rate=lr, sample_size=S,
+                     verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = path_launches[f"B {tag}"] = read_launches()
+        clip = "static" if tag == "mixed static" else "stats"
+        check(np.isfinite(loss).all() and loss[-1] < loss[0],
+              f"B {tag}: losses {loss}")
+        check(launches[clip] == steps_b + 1, f"B {tag}: launches {launches}")
+        check(launches["nbwd"] == (steps_b if fused_normals else 0)
+              and launches["bwd"] == steps_b, f"B {tag}: launches {launches}")
+        check(m.fusion_active and m.fusion_inactive_reason is None,
+              f"B {tag}: dispatch {m.fusion_inactive_reason}")
+        say("B", f"{tag} ({cls.__name__}, likelihood {m._fused_kind()}): "
+                 f"{steps_b} steps in {fit_s:.1f} s, losses "
+                 f"{[round(x, 4) for x in loss]}; launches {launches}")
+
+    mixed = fitted["mixed"]
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = mixed.log_likelihood(
+        ArrayDataset({"counts": held_b, "indices": np.arange(4096)}
+                     ).batch(4096), num_samples=32, sample_chunk=8)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
+    w = mixed.waic(subsample="batch", num_samples=32)
+    launches = path_launches["B mixed scoring"] = read_launches()
+    check(launches["row_ll"] == 8, f"B mixed scoring launches {launches}")
+    check(ll["n_rows"] == 4096 and np.isfinite(ll["total"]),
+          f"B mixed log_likelihood {ll}")
+    check(w["n_rows"] == 4096 and np.isfinite(
+        [w["waic"], w["se"], w["lppd"], w["pwaic"]]).all(), f"B waic {w}")
+    say("B", f"mixed log_likelihood(4096 held-out rows, 32 samples): per_row "
+             f"{ll['per_row']:.4f} in {ll_s:.2f} s; waic(subsample='batch') "
+             f"{ {k: round(v, 3) for k, v in w.items()} }; launches "
+             f"{launches}")
+
+    # one small step per family through K1 (its likelihood), K3 and K6
+    rng = np.random.default_rng(16)
+    types_s = [t for t in ("poisson", "bernoulli", "normal")
+               for _ in range(d_s // 3)]
+    Xs_mixed = Xs.copy()
+    Xs_mixed[:, d_s // 3:2 * (d_s // 3)] %= 2
+    Xs_mixed[:, 2 * (d_s // 3):] = rng.standard_normal(
+        (n_s, d_s - 2 * (d_s // 3))).astype(np.float32)
+    Xs_log = np.log1p(Xs)
+    Xs_log = ((Xs_log - Xs_log.mean(0)) / Xs_log.std(0)).astype(np.float32)
+    small_step_check("B mixed", MixedFactorization, Xs_mixed, 17,
+                     signed_vw=True, column_types=types_s,
+                     scale_columns=False)
+    small_step_check("B bernoulli", BernoulliFactorization,
+                     np.minimum(Xs, 1.0), 18, signed_vw=True)
+    small_step_check("B gaussian normal", GaussianFactorization, Xs_log, 19,
+                     observation_model="normal", scale_columns=False,
+                     scale_rows=False)
+    mixed_model = fitted["mixed"]
+    del fitted, data_b, held_b
+
     # ---- 9: times (medians of 10 after warmup)
     B = 4096
     for Bt in (B, 32768):
@@ -685,13 +1189,48 @@ def main():
                                                  glq)),
                  cuda_ms(lambda: tig.ig_twin_bwd(a, b, seed, S, False, gy,
                                                  glq)))
-    bd = bounds(B, IG_TOTAL)
+    mask = masks["gaussian"]
+    kt["nfwd"] = (
+        cuda_ms(lambda: tfn._kernel_fwd(n_loc, n_rs, mask, n_seed, S)),
+        cuda_ms(lambda: tfn.normal_twin_fwd(n_loc, n_rs, mask, n_seed, S)))
+    kt["nbwd"] = (
+        cuda_ms(lambda: tfn._kernel_bwd(n_loc, n_rs, mask, n_seed, S, n_gy,
+                                        n_glq)),
+        cuda_ms(lambda: tfn.normal_twin_bwd(n_loc, n_rs, mask, n_seed, S,
+                                            n_gy, n_glq)))
+    bd = bounds(B, IG_TOTAL, N_TOTAL)
+    sizes = {"fwd": f"total={IG_TOTAL}", "bwd": f"total={IG_TOTAL}",
+             "nfwd": f"total={N_TOTAL}", "nbwd": f"total={N_TOTAL}"}
     for key, (k_ms, t_ms) in kt.items():
         say(9, f"{key}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, bound "
                f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
-               f"of it) (float32, "
-               f"{'total=' + str(IG_TOTAL) if key in ('fwd', 'bwd') else 'B=' + str(B)}"
-               f", S={S}; {smi})")
+               f"of it) (float32, {sizes.get(key, 'B=' + str(B))}, S={S}; "
+               f"{smi})")
+
+    # K1 and K4 at the other likelihoods (identity link for K1, log link for
+    # K4, as their Poisson rows above), and the mixed training step
+    for lname in ("bernoulli", "normal", "mixed"):
+        largs, codes = likelihood_inputs(lname, B, dev, seed=6)
+        lik = LIKELIHOODS[lname]
+        k1 = (cuda_ms(lambda: tfp._kernel_stats(*largs, False, False, lik,
+                                                codes)),
+              cuda_ms(lambda: tfp.stats_twin(*largs, False, False, lik,
+                                             codes)))
+        k4 = (cuda_ms(lambda: tfp._kernel_row_ll(*largs, True, lik, codes)),
+              cuda_ms(lambda: tfp.row_loglik_twin(*largs, True, lik, codes)))
+        say(9, f"likelihood {lik}: K1 kernel {k1[0]:.3f} ms (twin "
+               f"{k1[1]:.3f} ms; Poisson {kt['stats'][0]:.3f} ms), K4 kernel "
+               f"{k4[0]:.3f} ms (twin {k4[1]:.3f} ms; Poisson "
+               f"{kt['row_ll'][0]:.3f} ms) (float32, B={B}, S={S}; {smi})")
+    del largs, codes
+    batch = _device_batch(next(iter(mixed_model.data())), mixed_model.dtype,
+                          mixed_model.device)
+    step = step_timer(mixed_model, batch)
+    ms, mem = time_steps(step)
+    say(9, f"mixed step B={B}: {ms:.2f} ms/step, {B / ms * 1e3:.0f} rows/s, "
+           f"peak {mem:.2f} GB (median of 10; {smi})")
+    say_profile(f"mixed B={B}", profile_steps(step), smi)
+    del step, batch, mixed_model
 
     meta = {
         "stats": ("fused_poisson_stats (K1, clip='reference')",
@@ -710,6 +1249,12 @@ def main():
                 "spmf_tpu/ops/fused_ig.py:193"),
         "bwd": ("fused_ig_bwd (K3b)", "spmf_tpu_torch/csrc/fused_ig.cu",
                 "spmf_tpu/ops/fused_ig.py:230"),
+        "nfwd": ("fused_normal_fwd (K6f)",
+                 "spmf_tpu_torch/csrc/fused_normal.cu",
+                 "spmf_tpu/ops/fused_normal.py:80"),
+        "nbwd": ("fused_normal_bwd (K6b)",
+                 "spmf_tpu_torch/csrc/fused_normal.cu",
+                 "spmf_tpu/ops/fused_normal.py:99"),
     }
     total = {k: sum(p[k] for p in path_launches.values()) for k in kernels}
     say(9, f"launches per path {path_launches}")

@@ -2,15 +2,25 @@
 
 Sparse probabilistic matrix factorization trained by minibatch ADVI, with
 the hot path in CUDA kernels written by hand for NVIDIA Hopper (sm_90a):
-the fused decode + clipped Poisson log-likelihood and the fused
-InverseGamma-surrogate sampler. Every kernel has a plain PyTorch twin,
+the fused decode + clipped log-likelihood (Poisson, Bernoulli, Normal and
+mixed-type decoders) and the fused InverseGamma- and Normal-surrogate
+samplers. Every kernel has a plain PyTorch twin,
 which is what runs for CPU tensors. This package imports no JAX.
 """
 
 __version__ = "0.1.0"
 
 from spmf_tpu_torch import bijectors, distributions  # noqa: F401
-from spmf_tpu_torch.models import BayesianModel, PoissonFactorization  # noqa: F401
+from spmf_tpu_torch.models import (  # noqa: F401
+    BayesianModel,
+    BernoulliFactorization,
+    GaussianFactorization,
+    MixedFactorization,
+    PoissonFactorization,
+    PoissonMatrixFactorization,
+)
 
 __all__ = ["distributions", "bijectors", "BayesianModel",
-           "PoissonFactorization", "__version__"]
+           "PoissonFactorization", "BernoulliFactorization",
+           "GaussianFactorization", "MixedFactorization",
+           "PoissonMatrixFactorization", "__version__"]

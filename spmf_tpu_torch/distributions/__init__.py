@@ -1,6 +1,6 @@
 from .base import Distribution, Independent
 from .continuous import HalfNormal, InverseGamma, Normal, SqrtInverseGamma
-from .discrete import Poisson
+from .discrete import Bernoulli, Poisson
 from .joint import JointDistributionNamed
 
 __all__ = [
@@ -11,5 +11,6 @@ __all__ = [
     "InverseGamma",
     "SqrtInverseGamma",
     "Poisson",
+    "Bernoulli",
     "JointDistributionNamed",
 ]

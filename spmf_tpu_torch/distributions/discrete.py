@@ -1,12 +1,14 @@
 """Discrete observation distributions (mirrors
-spmf_tpu/distributions/discrete.py; Poisson only in this slice)."""
+spmf_tpu/distributions/discrete.py): Poisson and Bernoulli."""
 from __future__ import annotations
 
 import torch
 
+from spmf_tpu_torch.bijectors import softplus
+
 from .continuous import _as_tensors, _Base
 
-__all__ = ["Poisson"]
+__all__ = ["Poisson", "Bernoulli"]
 
 
 class Poisson(_Base):
@@ -28,3 +30,23 @@ class Poisson(_Base):
         log_rate = torch.log(torch.clamp_min(self.rate, tiny))
         log_rate = torch.where(self.rate < 0, torch.nan, log_rate)
         return x * log_rate - self.rate - torch.lgamma(x + 1.0)
+
+
+class Bernoulli(_Base):
+    def __init__(self, logits=None, probs=None):
+        if (logits is None) == (probs is None):
+            raise ValueError("Provide exactly one of logits / probs")
+        if logits is not None:
+            (self.logits,) = _as_tensors(logits)
+        else:
+            (p,) = _as_tensors(probs)
+            self.logits = torch.log(p) - torch.log1p(-p)
+        self._ref = self.logits
+
+    @property
+    def batch_shape(self):
+        return self.logits.shape
+
+    def log_prob(self, x):
+        """x * logits - softplus(logits), stable for large |logits|."""
+        return self._promote(x) * self.logits - softplus(self.logits)

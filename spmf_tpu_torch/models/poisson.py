@@ -58,6 +58,12 @@ class PoissonFactorization(BayesianModel):
         must override this too)."""
         return "poisson"
 
+    def _fused_codes(self):
+        """Per-column type-code lane for the ('mixed', s) kernel
+        likelihood, or None for single-family models
+        (MixedFactorization overrides)."""
+        return None
+
     def encoder_function(self, x):
         """g(x)."""
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -296,6 +302,46 @@ class PoissonFactorization(BayesianModel):
         return {"log_likelihood": rv.log_prob(x), "rate": rate}
 
     # ------------------------------------------------------------ prior etc.
+    # --- model-family hooks (overridden by Bernoulli / Gaussian / Mixed) ---
+    #: signed encoder loadings: a Normal prior and an Identity bijector on u
+    #: instead of HalfNormal and Softplus
+    _u_signed = False
+
+    def _vw_bijectors(self):
+        return {"v": tfb.Softplus(), "w": tfb.Softplus()}
+
+    def _vw_priors(self, ones):
+        """Priors of v and w; ``ones(*shape)`` gives a tensor of the
+        model's dtype on its device."""
+        D, K = self.feature_dim, self.latent_dim
+        return {
+            "v": tfd.Independent(tfd.HalfNormal(scale=0.1 * ones(K, D)), 2),
+            "w": tfd.Independent(tfd.HalfNormal(scale=ones(1, D)), 2),
+        }
+
+    def _normal_surrogate(self, loc, scale, name):
+        return TransformedSurrogate(
+            TrainableNormal(loc, scale, 2, dtype=self.dtype,
+                            device=self.device), self.bijectors[name])
+
+    def _vw_surrogates(self, ones):
+        """Surrogates of v and w; ``ones(*shape)`` gives a numpy array (the
+        surrogates' initial values are built on the host)."""
+        D, K = self.feature_dim, self.latent_dim
+        return {
+            "v": self._normal_surrogate(-6.0 * ones(K, D), 5e-4 * ones(K, D),
+                                        "v"),
+            "w": self._normal_surrogate(-6.0 * ones(1, D), 5e-4 * ones(1, D),
+                                        "w"),
+        }
+
+    def _u_prior_plus(self, decay):
+        if self._u_signed:
+            return lambda u_eta, u_tau: tfd.Independent(
+                tfd.Normal(loc=0.0 * u_eta, scale=u_eta * u_tau * decay), 2)
+        return lambda u_eta, u_tau: tfd.Independent(
+            tfd.HalfNormal(scale=u_eta * u_tau * decay), 2)
+
     def create_distributions(self):
         """Build the horseshoe+ prior joint and the trainable surrogate."""
         D, K = self.feature_dim, self.latent_dim
@@ -305,17 +351,18 @@ class PoissonFactorization(BayesianModel):
         np_ones = lambda *shape: np.ones(shape, np_dt)  # noqa: E731
 
         self.bijectors = {k: tfb.Softplus() for k in (
-            "u", "u_eta", "u_tau", "s", "s_eta", "s_tau", "v", "w",
+            "u", "u_eta", "u_tau", "s", "s_eta", "s_tau",
             "u_eta_a", "u_tau_a", "s_eta_a", "s_tau_a")}
+        if self._u_signed:
+            self.bijectors["u"] = tfb.Identity()
+        self.bijectors.update(self._vw_bijectors())
         decay = self._const(
             np.asarray(self.symmetry_breaking_decay, np_dt)
             ** np.arange(K, dtype=np_dt)[None, :])
 
-        self.prior_distribution = tfd.JointDistributionNamed(dict(
-            v=tfd.Independent(tfd.HalfNormal(scale=0.1 * ones(K, D)), 2),
-            w=tfd.Independent(tfd.HalfNormal(scale=ones(1, D)), 2),
-            u=lambda u_eta, u_tau: tfd.Independent(
-                tfd.HalfNormal(scale=u_eta * u_tau * decay), 2),
+        dist = dict(self._vw_priors(ones))
+        dist.update(
+            u=self._u_prior_plus(decay),
             u_eta=lambda u_eta_a: tfd.Independent(
                 tfd.SqrtInverseGamma(0.5 * ones(D, K), 1.0 / u_eta_a), 2),
             u_eta_a=tfd.Independent(
@@ -334,28 +381,27 @@ class PoissonFactorization(BayesianModel):
                 tfd.SqrtInverseGamma(0.5 * ones(1, D), 1.0 / s_tau_a), 2),
             s_tau_a=tfd.Independent(tfd.InverseGamma(
                 0.5 * ones(1, D), ones(1, D) / self.s_tau_scale**2), 2),
-        ))
-
-        def normal(loc, scale, name):
-            return TransformedSurrogate(
-                TrainableNormal(loc, scale, 2, dtype=dt, device=dev),
-                self.bijectors[name])
+        )
+        self.prior_distribution = tfd.JointDistributionNamed(dist)
 
         def inv_gamma(conc, scale, name):
             return TransformedSurrogate(
                 TrainableInverseGamma(conc, scale, 2, dtype=dt, device=dev),
                 self.bijectors[name])
 
-        sur = dict(
-            v=normal(-6.0 * np_ones(K, D), 5e-4 * np_ones(K, D), "v"),
-            w=normal(-6.0 * np_ones(1, D), 5e-4 * np_ones(1, D), "w"),
-            u=normal(-6.0 * np_ones(D, K), 5e-4 * np_ones(D, K), "u"),
+        # v and w go through the hook so that a family controls their
+        # initial values (GaussianFactorization: v loc -5, w loc +0.5)
+        sur = dict(self._vw_surrogates(np_ones))
+        sur.update(
+            u=self._normal_surrogate(-6.0 * np_ones(D, K),
+                                     5e-4 * np_ones(D, K), "u"),
             u_eta=inv_gamma(3.0 * np_ones(D, K), np_ones(D, K), "u_eta"),
             u_tau=inv_gamma(3.0 * np_ones(1, K), np_ones(1, K), "u_tau"),
             s_eta=inv_gamma(np_ones(2, D), np_ones(2, D), "s_eta"),
             s_tau=inv_gamma(np_ones(1, D), np_ones(1, D), "s_tau"),
-            s=normal(np_ones(2, D) * np.asarray([[-2.0], [-1.0]], np_dt),
-                     1e-3 * np_ones(2, D), "s"),
+            s=self._normal_surrogate(
+                np_ones(2, D) * np.asarray([[-2.0], [-1.0]], np_dt),
+                1e-3 * np_ones(2, D), "s"),
             u_eta_a=inv_gamma(2.0 * np_ones(D, K), np_ones(D, K), "u_eta_a"),
             u_tau_a=inv_gamma(2.0 * np_ones(1, K),
                               np_ones(1, K) / self.u_tau_scale**2, "u_tau_a"),
@@ -445,12 +491,14 @@ class PoissonFactorization(BayesianModel):
 
     def _fused_x_part(self, theta, B, phi, x):
         """Fused-kernel 'x' energy part, (S,) float32. theta (S,B,K),
-        B (S,K,D), phi (S,1,D), x (B,D)."""
+        B (S,K,D), phi (S,1,D), x (B,D). The mixed family rides the same
+        kernels through its per-column ``codes`` lane (_fused_codes)."""
         from spmf_tpu_torch.ops.fused_poisson import fused_poisson_loglik
 
         return fused_poisson_loglik(theta, B, phi, x, self.eta_i,
                                     self.log_transform, self._fused_kind(),
-                                    self.likelihood_clip)
+                                    self.likelihood_clip,
+                                    codes=self._fused_codes())
 
     # ------------------------------------------------------ sparse energies
     def _coo_arrays(self, data):
@@ -717,7 +765,7 @@ class PoissonFactorization(BayesianModel):
                 B[None] if squeeze else B,
                 phi[None] if squeeze else phi,
                 x, self.eta_i, log_transform=self.log_transform,
-                likelihood=self._fused_kind(),
+                likelihood=self._fused_kind(), codes=self._fused_codes(),
             ).to(self.dtype)
             return out[0] if squeeze else out
         ll = self.log_likelihood_components(data=x, **samples)[
@@ -725,7 +773,7 @@ class PoissonFactorization(BayesianModel):
         return torch.sum(ll, dim=-1)                         # (S, B)
 
     def _can_fuse(self, batch_shape=None, record=True):
-        """Fused kernel only for the stock Poisson decode path. A rejection
+        """Fused kernel only for the stock decode path. A rejection
         lands in ``fusion_inactive_reason`` and, when the user asked for
         fusion, fires one UserWarning."""
         ok, reason = self._fusion_check(batch_shape)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc`` for Hopper (``sm_90a``) into ``spmf_tpu_torch/_build/``, then
 loaded with ``ctypes``. The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time: a host without nvcc can
+source, of every header under ``csrc/`` that it includes, and of the flags,
+so an edited source or shared header is rebuilt and a stale library is never
+loaded. Nothing here runs at import time: a host without nvcc can
 import every module and run the plain PyTorch twins.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,10 +45,32 @@ def _nvcc():
         "spmf_tpu_torch are built from source on the machine with the card")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_files(src):
+    """``src`` and every file it includes with ``#include "..."``, followed
+    through the headers, each relative to the including file's directory
+    (system headers in angle brackets are the toolkit's, not ours)."""
+    files, todo = [], [os.path.abspath(src)]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            todo.append(os.path.normpath(
+                os.path.join(os.path.dirname(path), name.decode())))
+    return files
+
+
 def _source_hash(src):
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in _source_files(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -30,7 +30,7 @@ from spmf_tpu_torch.ops import _build
 from spmf_tpu_torch.ops.gamma import _wh_value
 
 __all__ = ["LAUNCHES", "fused_ig_sample_logq", "ig_twin_fwd", "ig_twin_bwd",
-           "philox4x32", "uniforms"]
+           "philox4x32", "uniform_from_bits", "uniforms"]
 
 BOOST = 8
 _SQRT2 = 1.4142135623730951
@@ -67,17 +67,22 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
+def uniform_from_bits(bits, dtype):
+    """U = (bits >> 9) 2^-23 + 2^-24, on [2^-24, 1 - 2^-24] (log-safe,
+    exactly mirrorable), from uint32 words held in int64."""
+    return (bits >> 9).to(dtype) * 2.0 ** -23 + 2.0 ** -24
+
+
 def uniforms(total, stream, seed, dtype, device):
-    """The 9 uniforms (9, total) of one stream: U = (bits >> 9) 2^-23 +
-    2^-24, on [2^-24, 1 - 2^-24] (log-safe, exactly mirrorable)."""
+    """The 9 uniforms (9, total) of one stream, on the grid of
+    ``uniform_from_bits``."""
     idx = torch.arange(total, dtype=torch.int64, device=device)
     zero = torch.zeros_like(idx)
     words = []
     for j in range(3):
         words.extend(philox4x32(idx, zero + stream, zero + j, zero,
                                 int(seed) & _MASK, 0))
-    bits = torch.stack(words[:BOOST + 1])
-    return (bits >> 9).to(dtype) * 2.0 ** -23 + 2.0 ** -24
+    return uniform_from_bits(torch.stack(words[:BOOST + 1]), dtype)
 
 
 def _draw_eps_s1_s2(a, seed, s, S, antithetic):

@@ -1,4 +1,4 @@
-"""Fused decode + Poisson kernels and their twins: K1/K2 (clipped
+"""Fused decode + likelihood kernels and their twins: K1/K2 (clipped
 log-likelihood sums with their gradients), K4 (per-row log-likelihood sums)
 and K5 (the exp-rate total of the sparse energy).
 
@@ -7,9 +7,15 @@ Port of spmf_tpu/ops/fused_poisson.py (``fused_poisson_loglik`` and the
 ``fused_poisson_row_loglik`` and ``fused_exp_rate_sum``). Per ELBO sample s:
 
     rate = f(theta_s @ v_s) * eta + phi_s      f: identity, or exp(.) - 1
-    ll   = x log(rate) - rate - lgamma(x + 1)
+    ll   = x log(rate) - rate - lgamma(x + 1)  (likelihood='poisson')
     out  = sum(clip(ll, m, 0), non-finite -> m),  m = max(min(finite ll) - 10,
                                                       FLOOR) in float32
+
+K1/K2 and K4 carry a likelihood selector, as the TPU kernels do:
+``'poisson'``, ``'bernoulli'`` (rate as logits), ``('normal', obs_scale)``,
+``'poisson_softplus'`` (Poisson at softplus(rate)) and
+``('mixed', obs_scale)``, which picks one of the last three per column from
+a (1, D) ``codes`` lane (CODE_POISSON / CODE_BERNOULLI / CODE_NORMAL).
 
 With the clip decomposition (see the JAX module docstring) one sweep emits
 per sample the sum of min(ll, 0) over finite ll > FLOOR, the count of the
@@ -33,16 +39,58 @@ the whole (B, D) slab of each sample, for any dtype and device.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
+from spmf_tpu_torch.bijectors import softplus as _softplus
 from spmf_tpu_torch.ops import _build
 
-__all__ = ["FLOOR", "LAUNCHES", "expsum_twin", "fused_exp_rate_sum",
-           "fused_poisson_loglik", "fused_poisson_row_loglik",
+__all__ = ["CODE_BERNOULLI", "CODE_NORMAL", "CODE_POISSON", "FLOOR",
+           "LAUNCHES", "bernoulli_loglik_reference", "expsum_twin",
+           "fused_exp_rate_sum", "fused_poisson_loglik",
+           "fused_poisson_row_loglik", "normal_loglik_reference",
            "poisson_loglik_reference", "row_loglik_twin", "stats_twin"]
 
 FLOOR = -1e27  # static clip-bound floor (see _floor_min_val)
+_HALF_LOG_2PI = 0.9189385332046727
+
+#: per-column type codes of the ('mixed', obs_scale) likelihood: a (1, D)
+#: float lane selects each column's log-density
+CODE_POISSON, CODE_BERNOULLI, CODE_NORMAL = 0.0, 1.0, 2.0
+
+#: the selector as the kernels take it (LIK_* in csrc/fused_poisson.cu)
+_LIKELIHOODS = {"poisson": 0, "bernoulli": 1, "normal": 2,
+                "poisson_softplus": 3, "mixed": 4}
+
+
+def _check_likelihood(likelihood, codes):
+    """Validate the likelihood selector: an unknown value raises, and so
+    does ``('mixed', s)`` without the per-column ``codes`` lane (zeros would
+    make every column Poisson)."""
+    if likelihood in ("poisson", "bernoulli", "poisson_softplus"):
+        return
+    if (isinstance(likelihood, tuple) and len(likelihood) == 2
+            and likelihood[0] in ("normal", "mixed")
+            and isinstance(likelihood[1], (int, float))):
+        if likelihood[0] == "mixed" and codes is None:
+            raise ValueError(
+                "likelihood=('mixed', obs_scale) requires the per-column "
+                "codes lane (codes=None would default every column to "
+                "Poisson)")
+        return
+    raise ValueError(
+        f"unknown likelihood {likelihood!r}: expected 'poisson', "
+        "'bernoulli', 'poisson_softplus', ('normal', obs_scale) or "
+        "('mixed', obs_scale)")
+
+
+def _split_likelihood(likelihood):
+    """(family name, obs_scale) of a validated selector."""
+    if isinstance(likelihood, tuple):
+        return likelihood[0], float(likelihood[1])
+    return likelihood, 1.0
 
 #: kernel launches, counted by the wrappers where they launch: "stats" for
 #: clip='reference' (K1), "static" for clip='static' (K2), "row_ll" (K4) and
@@ -71,11 +119,9 @@ def _decode_rate(theta_v, eta, phi, log_transform):
     return theta_v * eta + phi
 
 
-def poisson_loglik_reference(theta, v, phi, x, eta, log_transform=False):
-    """Plain autograd version of the same semantics (full autodiff,
-    including the clip bound's gradient)."""
-    rate = _decode_rate(torch.matmul(theta, v), eta, phi, log_transform)
-    ll = x * _safe_log(rate) - rate - torch.lgamma(x + 1.0)
+def _clip_sum(ll):
+    """The reference's clip / sum frame: clip at [min(finite ll) - 10, 0],
+    non-finite cells at the bound, summed over rows and features."""
     finite = torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll))
     min_val = _floor_min_val(torch.min(finite) - 10.0)
     ll = torch.minimum(torch.maximum(ll, min_val), torch.zeros_like(ll))
@@ -83,16 +129,84 @@ def poisson_loglik_reference(theta, v, phi, x, eta, log_transform=False):
     return torch.sum(ll, dim=(-1, -2))
 
 
-def stats_twin(theta, v, phi, x, eta, log_transform=False, static=False):
+def poisson_loglik_reference(theta, v, phi, x, eta, log_transform=False):
+    """Plain autograd version of the same semantics (full autodiff,
+    including the clip bound's gradient)."""
+    rate = _decode_rate(torch.matmul(theta, v), eta, phi, log_transform)
+    return _clip_sum(x * _safe_log(rate) - rate - torch.lgamma(x + 1.0))
+
+
+def normal_loglik_reference(theta, v, phi, x, eta, obs_scale=1.0,
+                            log_transform=False):
+    """Plain autograd Normal(loc=rate, scale=obs_scale) counterpart of
+    ``poisson_loglik_reference``."""
+    rate = _decode_rate(torch.matmul(theta, v), eta, phi, log_transform)
+    r = (x - rate) / obs_scale
+    return _clip_sum(-0.5 * r * r - (math.log(obs_scale) + _HALF_LOG_2PI))
+
+
+def bernoulli_loglik_reference(theta, v, phi, x, eta, log_transform=False):
+    """Plain autograd Bernoulli(logits=rate) counterpart of
+    ``poisson_loglik_reference``."""
+    logits = _decode_rate(torch.matmul(theta, v), eta, phi, log_transform)
+    return _clip_sum(x * logits - _softplus(logits))
+
+
+def _cell_ll(x, rate, lgx, likelihood, codes, grads=True):
+    """(ll, dll) per cell for a likelihood selector, the explicit formulas
+    of the kernels' ``cell_ll``; dll = d ll / d rate (None unless
+    ``grads``). ``lgx`` = lgamma(x + 1), where the selector needs it."""
+    name, obs_scale = _split_likelihood(likelihood)
+    tiny = torch.finfo(rate.dtype).tiny
+
+    def gated(lam):  # x / lam, an underflowed lam contributing nothing
+        return torch.where(lam > tiny, x / torch.clamp_min(lam, tiny),
+                           torch.zeros_like(lam))
+
+    if name == "poisson":
+        ll = x * _safe_log(rate) - rate - lgx
+        return ll, (gated(rate) - 1.0 if grads else None)
+    sig = torch.sigmoid(rate) if grads else None
+    if name == "bernoulli":
+        return x * rate - _softplus(rate), (x - sig if grads else None)
+    r = (x - rate) / obs_scale
+    ll_n = -0.5 * r * r - (math.log(obs_scale) + _HALF_LOG_2PI)
+    if name == "normal":
+        return ll_n, (r / obs_scale if grads else None)
+    # the softplus link, with a plain log (an underflowed lam is -inf / NaN)
+    lam = _softplus(rate)
+    ll_p = x * torch.log(lam) - lam - lgx
+    dll_p = (gated(lam) - 1.0) * sig if grads else None
+    if name == "poisson_softplus":
+        return ll_p, dll_p
+    # mixed: a select per column, never a multiply by a 0/1 mask (the
+    # branch not taken may hold NaN)
+    is_b, is_n = codes == CODE_BERNOULLI, codes == CODE_NORMAL
+    ll = torch.where(is_b, x * rate - lam, torch.where(is_n, ll_n, ll_p))
+    if not grads:
+        return ll, None
+    return ll, torch.where(is_b, x - sig,
+                           torch.where(is_n, r / obs_scale, dll_p))
+
+
+def _lgamma_xp1(x, likelihood):
+    """lgamma(x + 1) where the selector has a Poisson branch, else 0."""
+    if _split_likelihood(likelihood)[0] in ("bernoulli", "normal"):
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.lgamma(x + 1.0)
+
+
+def stats_twin(theta, v, phi, x, eta, log_transform=False, static=False,
+               likelihood="poisson", codes=None):
     """Plain PyTorch K1/K2: (sums (S,), counts (S,) int32, gmin (1,),
     dtheta (S,B,K), dv (S,K,D), dphi (S,1,D)) — the kernel's outputs, from
     the explicit ``_tile_ll_grads`` formulas (not autograd through a clip).
     ``static``: clipped cells add FLOOR to the sums; counts and gmin are
     zeros. Loops over samples so one (B, D) slab is live at a time."""
+    _check_likelihood(likelihood, codes)
     S = theta.shape[0]
     dtype = theta.dtype
-    tiny = torch.finfo(dtype).tiny
-    lgx = torch.lgamma(x + 1.0)
+    lgx = _lgamma_xp1(x, likelihood)
     sums, cnts, dths, dvs, dphis = [], [], [], [], []
     gmin = torch.zeros((), dtype=dtype, device=theta.device)
     for s in range(S):
@@ -102,9 +216,7 @@ def stats_twin(theta, v, phi, x, eta, log_transform=False, static=False):
             rate = ev - 1.0 + phi[s]
         else:
             rate = tv * eta + phi[s]
-        ll = x * _safe_log(rate) - rate - lgx
-        dll = torch.where(rate > tiny, x / torch.clamp_min(rate, tiny),
-                          torch.zeros_like(rate)) - 1.0
+        ll, dll = _cell_ll(x, rate, lgx, likelihood, codes)
         finite = torch.isfinite(ll)
         keep = finite & (ll > FLOOR)
         active = keep & (ll < 0.0)
@@ -130,16 +242,19 @@ def stats_twin(theta, v, phi, x, eta, log_transform=False, static=False):
             torch.stack(dths), torch.stack(dvs), torch.stack(dphis))
 
 
-def row_loglik_twin(theta, v, phi, x, eta, log_transform=False):
+def row_loglik_twin(theta, v, phi, x, eta, log_transform=False,
+                    likelihood="poisson", codes=None):
     """Plain PyTorch K4: (S, B) per-row sums over features of the UNCLIPPED
-    ll, through the same ``_decode_rate`` and ``_safe_log`` (a negative rate
-    makes its row NaN). Loops over samples so one (B, D) slab is live at a
-    time."""
-    lgx = torch.lgamma(x + 1.0)
+    ll, through the same ``_decode_rate`` and per-cell formulas (under
+    'poisson' a negative rate makes its row NaN). Loops over samples so one
+    (B, D) slab is live at a time."""
+    _check_likelihood(likelihood, codes)
+    lgx = _lgamma_xp1(x, likelihood)
     rows = []
     for s in range(theta.shape[0]):
         rate = _decode_rate(theta[s] @ v[s], eta, phi[s], log_transform)
-        rows.append((x * _safe_log(rate) - rate - lgx).sum(-1))
+        rows.append(_cell_ll(x, rate, lgx, likelihood, codes,
+                             grads=False)[0].sum(-1))
     return torch.stack(rows)
 
 
@@ -158,9 +273,9 @@ def expsum_twin(theta, v, eta):
 
 
 # ---------------------------------------------------------------- kernels
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"poisson_stats": [_P] * 11 + [_I] * 6 + [_P],
-               "poisson_row_ll": [_P] * 6 + [_I] * 5 + [_P],
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"poisson_stats": [_P] * 12 + [_I] * 7 + [_F] * 2 + [_P],
+               "poisson_row_ll": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
                "poisson_expsum": [_P] * 6 + [_I] * 4 + [_P]}
 _TB, _TD = 128, 64          # must match csrc/fused_poisson.cu
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -187,13 +302,26 @@ def _check_cuda(what, theta, tensors, smem_floats):
                          f"the {what} kernel's shared-memory tiles")
 
 
-def _kernel_stats(theta, v, phi, x, eta, log_transform, static):
+def _kernel_selector(likelihood, codes, D, device):
+    """(LIK_* code, 1 / obs_scale, log(obs_scale) + log(2 pi) / 2, codes
+    lane) as the kernels take them; the constants are computed here in
+    double."""
+    _check_likelihood(likelihood, codes)
+    name, obs_scale = _split_likelihood(likelihood)
+    return (_LIKELIHOODS[name], 1.0 / obs_scale,
+            math.log(obs_scale) + _HALF_LOG_2PI, _f32_lane(codes, D, device))
+
+
+def _kernel_stats(theta, v, phi, x, eta, log_transform, static,
+                  likelihood="poisson", codes=None):
     S, B, K = theta.shape
     D = x.shape[-1]
-    _check_cuda("fused Poisson", theta,
+    lik, inv_scale, norm_const, codes = _kernel_selector(
+        likelihood, codes, D, theta.device)
+    _check_cuda("fused likelihood", theta,
                 (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
                  ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
-                 ("eta", eta, (1, D))),
+                 ("eta", eta, (1, D)), ("codes", codes, (1, D))),
                 2 * _TB * K + K * (_TD + 1) + _TB * (_TD + 1) + 2 * _TD)
     dev = theta.device
     nrb = -(-B // _TB)
@@ -205,29 +333,33 @@ def _kernel_stats(theta, v, phi, x, eta, log_transform, static):
     dphi = torch.zeros((S, 1, D), dtype=torch.float32, device=dev)
     err = _lib().poisson_stats(
         theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
-        eta.data_ptr(), psum.data_ptr(), pcnt.data_ptr(), pmin.data_ptr(),
-        dtheta.data_ptr(), dv.data_ptr(), dphi.data_ptr(), S, B, K, D,
-        int(bool(log_transform)), int(bool(static)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        eta.data_ptr(), codes.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
+        pmin.data_ptr(), dtheta.data_ptr(), dv.data_ptr(), dphi.data_ptr(),
+        S, B, K, D, int(bool(log_transform)), int(bool(static)), lik,
+        inv_scale, norm_const, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "poisson_stats")
     LAUNCHES["static" if static else "stats"] += 1
     return (psum.sum(1).to(torch.float32), pcnt.sum(1, dtype=torch.int32),
             pmin.min().reshape(1), dtheta, dv, dphi)
 
 
-def _kernel_row_ll(theta, v, phi, x, eta, log_transform):
+def _kernel_row_ll(theta, v, phi, x, eta, log_transform,
+                   likelihood="poisson", codes=None):
     S, B, K = theta.shape
     D = x.shape[-1]
+    lik, inv_scale, norm_const, codes = _kernel_selector(
+        likelihood, codes, D, theta.device)
     # dynamic tiles plus the kernel's static (2, TB) double row buffer
     _check_cuda("row log-likelihood", theta,
                 (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
                  ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
-                 ("eta", eta, (1, D))),
+                 ("eta", eta, (1, D)), ("codes", codes, (1, D))),
                 _TB * K + K * (_TD + 1) + 2 * _TD + 4 * _TB)
     out = torch.empty((S, B), dtype=torch.float32, device=theta.device)
     err = _lib().poisson_row_ll(
         theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
-        eta.data_ptr(), out.data_ptr(), S, B, K, D, int(bool(log_transform)),
+        eta.data_ptr(), codes.data_ptr(), out.data_ptr(), S, B, K, D,
+        int(bool(log_transform)), lik, inv_scale, norm_const,
         torch.cuda.current_stream(theta.device).cuda_stream)
     _build.check(err, "poisson_row_ll")
     LAUNCHES["row_ll"] += 1
@@ -260,10 +392,12 @@ class _FusedStats(torch.autograd.Function):
     are piecewise constant and the clip bound is a constant by design)."""
 
     @staticmethod
-    def forward(ctx, theta, v, phi, x, eta, log_transform, static):
+    def forward(ctx, theta, v, phi, x, eta, log_transform, static,
+                likelihood, codes):
         stats = _kernel_stats if theta.is_cuda else stats_twin
         ssum, cnt, gmin, dth, dv, dphi = stats(theta, v, phi, x, eta,
-                                               log_transform, static)
+                                               log_transform, static,
+                                               likelihood, codes)
         ctx.save_for_backward(dth, dv, dphi)
         ctx.mark_non_differentiable(cnt, gmin)
         return ssum, cnt, gmin
@@ -272,21 +406,21 @@ class _FusedStats(torch.autograd.Function):
     def backward(ctx, gsum, gcnt, gmin):
         dth, dv, dphi = ctx.saved_tensors
         g = gsum.to(dth.dtype)[:, None, None]
-        return dth * g, dv * g, dphi * g, None, None, None, None
+        return dth * g, dv * g, dphi * g, None, None, None, None, None, None
 
 
 def fused_poisson_loglik(theta, v, phi, x, eta, log_transform=False,
-                         likelihood="poisson", clip="reference"):
+                         likelihood="poisson", clip="reference", codes=None):
     """Per-sample clipped log-likelihood sums, shape (S,), float32.
 
     theta (S,B,K), v (S,K,D), phi (S,1,D), x (B,D), eta (1,D) or anything
     broadcastable to it. Inputs are cast to float32, as the JAX entry
-    does. ``clip='reference'`` reproduces the data-dependent bound
+    does. ``likelihood``: 'poisson', 'bernoulli' (rate as logits),
+    ('normal', obs_scale), 'poisson_softplus' or ('mixed', obs_scale) with
+    a (1, D) per-column ``codes`` lane (CODE_POISSON / CODE_BERNOULLI /
+    CODE_NORMAL). ``clip='reference'`` reproduces the data-dependent bound
     ``m = min(finite ll) - 10``; ``clip='static'`` clips at FLOOR."""
-    if likelihood != "poisson":
-        raise NotImplementedError(
-            f"likelihood={likelihood!r} is not ported to spmf_tpu_torch yet "
-            "(Poisson only)")
+    _check_likelihood(likelihood, codes)
     if clip not in ("reference", "static"):
         raise ValueError(f"unknown clip mode {clip!r}")
     f32 = torch.float32
@@ -294,18 +428,26 @@ def fused_poisson_loglik(theta, v, phi, x, eta, log_transform=False,
     v = v.to(f32).contiguous()
     phi = phi.to(f32).contiguous()
     x = torch.as_tensor(x, device=theta.device).to(f32).contiguous()
-    eta = _f32_eta(eta, x.shape[-1], theta.device)
+    eta = _f32_lane(eta, x.shape[-1], theta.device)
+    codes = _f32_lane(codes, x.shape[-1], theta.device)
     ssum, cnt, gmin = _FusedStats.apply(theta, v, phi, x, eta,
-                                        log_transform, clip == "static")
+                                        log_transform, clip == "static",
+                                        likelihood, codes)
     if clip == "static":
         return ssum
     m = _floor_min_val(gmin - 10.0)
     return ssum + cnt.to(f32) * m[0]
 
 
-def _f32_eta(eta, D, device):
-    eta = torch.as_tensor(eta, dtype=torch.float32, device=device)
-    return eta.broadcast_to((1, D)).contiguous()
+def _f32_lane(lane, D, device):
+    """A per-column lane (eta, codes) as a contiguous float32 (1, D) tensor
+    on ``device``; None gives zeros (the codes of a single-family model)."""
+    if lane is None:
+        return torch.zeros((1, D), dtype=torch.float32, device=device)
+    if not isinstance(lane, torch.Tensor):
+        lane = np.asarray(lane)
+    lane = torch.as_tensor(lane, dtype=torch.float32, device=device)
+    return lane.broadcast_to((1, D)).contiguous()
 
 
 def fused_poisson_row_loglik(theta, v, phi, x, eta, log_transform=False,
@@ -314,23 +456,20 @@ def fused_poisson_row_loglik(theta, v, phi, x, eta, log_transform=False,
     the WAIC pointwise unit, without materialising (S, B, D). Evaluation
     only: the result carries no gradient. theta (S,B,K), v (S,K,D),
     phi (S,1,D), x (B,D), eta (1,D) or broadcastable; cast to float32 as the
-    JAX entry does. ``codes`` (the mixed-likelihood lane) is accepted for
-    signature parity."""
-    del codes
-    if likelihood != "poisson":
-        raise NotImplementedError(
-            f"likelihood={likelihood!r} is not ported to spmf_tpu_torch yet "
-            "(Poisson only)")
+    JAX entry does. ``likelihood`` and ``codes`` as in
+    ``fused_poisson_loglik``."""
+    _check_likelihood(likelihood, codes)
     f32 = torch.float32
     with torch.no_grad():
         theta = theta.to(f32).contiguous()
         v = v.to(f32).contiguous()
         phi = phi.to(f32).contiguous()
         x = torch.as_tensor(x, device=theta.device).to(f32).contiguous()
-        eta = _f32_eta(eta, x.shape[-1], theta.device)
-        if theta.is_cuda:
-            return _kernel_row_ll(theta, v, phi, x, eta, log_transform)
-        return row_loglik_twin(theta, v, phi, x, eta, log_transform)
+        eta = _f32_lane(eta, x.shape[-1], theta.device)
+        codes = _f32_lane(codes, x.shape[-1], theta.device)
+        row_ll = _kernel_row_ll if theta.is_cuda else row_loglik_twin
+        return row_ll(theta, v, phi, x, eta, log_transform, likelihood,
+                      codes)
 
 
 class _FusedExpRateSum(torch.autograd.Function):
@@ -361,4 +500,4 @@ def fused_exp_rate_sum(theta, v, eta):
     theta = theta.to(f32).contiguous()
     v = v.to(f32).contiguous()
     return _FusedExpRateSum.apply(theta, v,
-                                  _f32_eta(eta, v.shape[-1], theta.device))
+                                  _f32_lane(eta, v.shape[-1], theta.device))

@@ -128,7 +128,10 @@ def test_static_clip_equals_reference_on_healthy_data():
 
 def test_other_likelihoods_and_clip_modes_raise():
     t = [torch.tensor(a, dtype=torch.float32) for a in _inputs()]
-    with pytest.raises(NotImplementedError):
-        tfp.fused_poisson_loglik(*t, likelihood="bernoulli")
+    for bad in ("gamma", "mixed", "normal", ("gamma", 1.0), 7):
+        with pytest.raises(ValueError, match="unknown likelihood"):
+            tfp.fused_poisson_loglik(*t, likelihood=bad)
+    with pytest.raises(ValueError, match="codes"):
+        tfp.fused_poisson_loglik(*t, likelihood=("mixed", 1.0))
     with pytest.raises(ValueError):
         tfp.fused_poisson_loglik(*t, clip="dynamic")

@@ -8,14 +8,18 @@ the same inputs. Sums 1e-5 relative (f32 cells, f64 block sums) — the K1
 sums, the K4 row sums and the K5 exp-rate totals; counts exact; the finite
 minimum 1e-6 relative; gradients 1e-4 of their largest entry (f32 atomics
 in run order); sampler outputs 1e-5 relative (the same Philox bits, f32 vs
-f64 transcendentals). K4's NaN rows (negative rates) match position for
-position.
+f64 transcendentals; the Normal sampler's y and gradients 1e-5 and 1e-4 of
+their largest entry, since y = loc + scale * eps may cancel to near zero, and
+its log q sums 1e-6). K4's NaN rows (negative rates) match position for
+position. The new likelihoods of K1/K2 and K4 are held to the Poisson
+tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
 from spmf_tpu_torch.ops import fused_ig as tig
+from spmf_tpu_torch.ops import fused_normal as tfn
 from spmf_tpu_torch.ops import fused_poisson as tfp
 
 pytestmark = pytest.mark.gpu
@@ -163,11 +167,207 @@ def test_exp_rate_sum_backward_runs_the_kernel(cuda):
         assert _rel_max(a.grad, r.grad) < 1e-4
 
 
+def _bits_checksum(t):
+    """Sum of the float32 bit patterns, as an exact integer."""
+    return int(t.contiguous().view(torch.int32).to(torch.int64).sum())
+
+
+#: _bits_checksum of K3f's y, per antithetic mode, for the inputs below; taken
+#: on an NVIDIA H100 80GB HBM3 with nvcc 12.9 before and after the Philox
+#: helpers moved into csrc/philox.cuh (equal). Another toolkit's erfinvf /
+#: logf may round otherwise: then compare against a build of the commit
+#: before, not against these.
+K3_Y_CHECKSUMS = {False: 17555290085716, True: 17553513816291}
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_ig_kernel_bits_are_pinned(cuda, antithetic):
+    total, S = 4099, 4
+    a = torch.linspace(0.3, 6.0, total, device=cuda)
+    b = torch.linspace(3.0, 0.1, total, device=cuda)
+    seed = torch.tensor([20240607], dtype=torch.int32, device=cuda)
+    y, lq = tig._kernel_fwd(a, b, seed, S, antithetic)
+    assert _bits_checksum(y) == K3_Y_CHECKSUMS[antithetic]
+    # the uniforms behind them are the twin's, bit for bit: Philox and the
+    # half-ulp grid have no rounding to differ in
+    y_t, _ = tig.ig_twin_fwd(a.double(), b.double(), seed, S, antithetic)
+    np.testing.assert_allclose(y.cpu().numpy(), y_t.cpu().numpy(), rtol=1e-5)
+
+
+def _normal_inputs(total, dev, kind, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    loc = torch.randn(total, generator=g) * 2.0
+    rs = torch.randn(total, generator=g) * 1.5 - 2.0
+    mask = {"softplus": torch.ones(total),
+            "both": (torch.rand(total, generator=g) < 0.5).float()}[kind]
+    return loc.to(dev), rs.to(dev), mask.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["softplus", "both"])
+@pytest.mark.parametrize("total", [1000, 70001])
+def test_normal_kernels_match_twin(cuda, total, kind):
+    S = 4
+    loc, rs, mask = _normal_inputs(total, cuda, kind)
+    seed = torch.tensor([4242], dtype=torch.int32, device=cuda)
+    y_k, lq_k = tfn._kernel_fwd(loc, rs, mask, seed, S)
+    y_t, lq_t = tfn.normal_twin_fwd(loc.double(), rs.double(), mask.double(),
+                                    seed, S)
+    torch.cuda.synchronize()
+    assert _rel_max(y_k, y_t) < 1e-5
+    np.testing.assert_allclose(lq_k.cpu().numpy(), lq_t.cpu().numpy(),
+                               rtol=1e-6)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    gy = torch.randn(S, total, generator=g).to(cuda)
+    glq = torch.randn(S, generator=g).to(cuda)
+    gl_k, gr_k = tfn._kernel_bwd(loc, rs, mask, seed, S, gy, glq)
+    gl_t, gr_t = tfn.normal_twin_bwd(loc.double(), rs.double(), mask.double(),
+                                     seed, S, gy.double(), glq.double())
+    assert _rel_max(gl_k, gl_t) < 1e-4
+    assert _rel_max(gr_k, gr_t) < 1e-4
+
+
+def test_fused_normal_backward_runs_the_kernel(cuda):
+    S, total = 4, 5000
+    loc, rs, mask = _normal_inputs(total, cuda, "both", seed=2)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    gy = torch.randn(S, total, generator=g).to(cuda)
+    glq = torch.randn(S, generator=g).to(cuda)
+    loc.requires_grad_(True)
+    rs.requires_grad_(True)
+    before = dict(tfn.LAUNCHES)
+    y, lq = tfn.fused_normal_sample_logq(loc, rs, mask, seed, S)
+    ((y * gy).sum() + (lq * glq).sum()).backward()
+    assert tfn.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    ref = [t.detach().double().requires_grad_(True) for t in (loc, rs)]
+    y_t, lq_t = tfn.normal_twin_fwd(*ref, mask.double(), seed, S)
+    ((y_t * gy.double()).sum() + (lq_t * glq.double()).sum()).backward()
+    for t, r in zip((loc, rs), ref):
+        assert _rel_max(t.grad, r.grad) < 1e-4
+
+
+OBS = 0.8
+SELECTORS = {"bernoulli": "bernoulli", "normal": ("normal", OBS),
+             "poisson_softplus": "poisson_softplus", "mixed": ("mixed", OBS)}
+
+
+def _likelihood_inputs(name, S, B, K, D, dev, seed=0, rescue=False):
+    """Signed operands; binary x for 'bernoulli', real x for 'normal', counts
+    for 'poisson_softplus', three column blocks for 'mixed'. ``rescue``:
+    rates of -2000 in some columns, whose softplus underflows to 0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    theta = torch.randn(S, B, K, generator=g) * 0.4
+    v = torch.randn(S, K, D, generator=g) * 0.3
+    phi = torch.randn(S, 1, D, generator=g) * 0.3
+    eta = torch.rand(1, D, generator=g) * 1.5 + 0.5
+    counts = torch.poisson(torch.ones(B, D), generator=g)
+    real = torch.randn(B, D, generator=g) + 0.5
+    codes = None
+    if name == "bernoulli":
+        x = counts.clamp_max(1.0)
+    elif name == "normal":
+        x = real
+    elif name == "poisson_softplus":
+        x = counts
+    else:
+        codes = (torch.arange(D) % 3).float()[None]
+        x = torch.where(codes == tfp.CODE_BERNOULLI, counts.clamp_max(1.0),
+                        torch.where(codes == tfp.CODE_NORMAL, real, counts))
+    if rescue:
+        phi[:, :, ::7] = -2000.0
+        theta[:, ::5] = 0.0
+    args = [t.to(dev) for t in (theta, v, phi, x, eta)]
+    return args, (None if codes is None else codes.to(dev))
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("name", list(SELECTORS))
+def test_stats_kernel_likelihoods_match_twin(cuda, name, static,
+                                             log_transform):
+    lik = SELECTORS[name]
+    for shape in ((3, 200, 8, 1000), (2, 37, 5, 130)):
+        args, codes = _likelihood_inputs(name, *shape, cuda)
+        out_k = tfp._kernel_stats(*args, log_transform, static, lik, codes)
+        out_t = tfp.stats_twin(*[a.double() for a in args],
+                               log_transform=log_transform, static=static,
+                               likelihood=lik, codes=codes)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out_k[0].cpu().numpy(),
+                                   out_t[0].cpu().numpy(), rtol=1e-5)
+        assert torch.equal(out_k[1].cpu(), out_t[1].cpu())
+        np.testing.assert_allclose(out_k[2].cpu().numpy(),
+                                   out_t[2].cpu().numpy(), rtol=1e-6)
+        for k, t in zip(out_k[3:], out_t[3:]):
+            assert _rel_max(k, t) < 1e-4
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("name", list(SELECTORS))
+def test_row_ll_kernel_likelihoods_match_twin(cuda, name, log_transform):
+    lik = SELECTORS[name]
+    for shape in ((3, 200, 8, 1000), (2, 37, 5, 130)):
+        args, codes = _likelihood_inputs(name, *shape, cuda, seed=3)
+        out_k = tfp._kernel_row_ll(*args, log_transform, lik, codes)
+        out_t = tfp.row_loglik_twin(*[a.double() for a in args],
+                                    log_transform=log_transform,
+                                    likelihood=lik, codes=codes)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out_k.cpu().numpy(), out_t.cpu().numpy(),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["poisson_softplus", "mixed"])
+def test_softplus_link_rescue_batch(cuda, name):
+    """An underflowed softplus rate: the clipped cells are counted exactly
+    and K4's poisoned rows sit where the twin's do."""
+    lik = SELECTORS[name]
+    args, codes = _likelihood_inputs(name, 2, 150, 6, 400, cuda, seed=1,
+                                     rescue=True)
+    args64 = [a.double() for a in args]
+    out_k = tfp._kernel_stats(*args, False, False, lik, codes)
+    out_t = tfp.stats_twin(*args64, likelihood=lik, codes=codes)
+    assert int(out_t[1].sum()) > 0
+    assert torch.equal(out_k[1].cpu(), out_t[1].cpu())
+    np.testing.assert_allclose(out_k[0].cpu().numpy(), out_t[0].cpu().numpy(),
+                               rtol=1e-5)
+    for k, t in zip(out_k[3:], out_t[3:]):
+        assert bool(torch.isfinite(k).all()) and _rel_max(k, t) < 1e-4
+    rows_k = tfp._kernel_row_ll(*args, False, lik, codes).cpu().numpy()
+    rows_t = tfp.row_loglik_twin(*args64, likelihood=lik,
+                                 codes=codes).cpu().numpy()
+    bad = ~np.isfinite(rows_t)
+    assert bad.any()
+    np.testing.assert_array_equal(~np.isfinite(rows_k), bad)
+    np.testing.assert_allclose(rows_k[~bad], rows_t[~bad], rtol=1e-5)
+
+
+def test_fused_loglik_mixed_backward_runs_the_kernel(cuda):
+    args, codes = _likelihood_inputs("mixed", 2, 70, 4, 300, cuda)
+    for a in args[:3]:
+        a.requires_grad_(True)
+    before = tfp.LAUNCHES["stats"]
+    out = tfp.fused_poisson_loglik(*args, likelihood=("mixed", OBS),
+                                   codes=codes)
+    out.sum().backward()
+    assert tfp.LAUNCHES["stats"] == before + 1
+    ssum, cnt, gmin, *grads = tfp.stats_twin(
+        *[a.detach().double() for a in args], likelihood=("mixed", OBS),
+        codes=codes)
+    for a, g in zip(args[:3], grads):
+        assert _rel_max(a.grad, g) < 1e-4
+
+
 def test_cuda_tensors_never_fall_back(cuda):
     a = torch.ones(10, device=cuda, dtype=torch.float64)
     seed = torch.tensor([1], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tig.fused_ig_sample_logq(a, a, seed, 2)
+    with pytest.raises(ValueError):
+        tfn.fused_normal_sample_logq(a, a, a, seed, 2)
+    with pytest.raises(ValueError):
+        tfn.fused_normal_sample_logq(a.float(), a.float(), a.float(),
+                                     seed.cpu(), 2)
     args = _stats_inputs(1, 8, 2, 16, cuda)
     with pytest.raises(ValueError):
         tfp._kernel_stats(*[t.double() for t in args], False, False)

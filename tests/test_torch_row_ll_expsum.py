@@ -112,5 +112,9 @@ def test_row_ll_is_evaluation_only_and_poisson_only():
     t = [torch.tensor(a, dtype=torch.float32) for a in _row_inputs()]
     t[0].requires_grad_(True)
     assert not tfp.fused_poisson_row_loglik(*t).requires_grad
-    with pytest.raises(NotImplementedError):
-        tfp.fused_poisson_row_loglik(*t, likelihood="bernoulli")
+    # the other likelihoods of the selector are evaluation-only too; an
+    # unknown one raises (tests/test_torch_likelihoods.py holds their values)
+    out = tfp.fused_poisson_row_loglik(*t, likelihood="bernoulli")
+    assert out.shape == t[0].shape[:2] and not out.requires_grad
+    with pytest.raises(ValueError, match="unknown likelihood"):
+        tfp.fused_poisson_row_loglik(*t, likelihood="gamma")

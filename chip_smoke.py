@@ -6,12 +6,18 @@
 Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
   2 build    nvcc builds csrc/*.cu for sm_90a, one process per source, at once
+             (two threads meanwhile set up the small float64 CPU models of
+             the plain path); a register spill in fused_poisson's build log
+             fails the run
   3 K1/K2    fused Poisson kernel vs its twin (float64 on the card) at the
-             main-path shape S=8, B=1024, D=20000, K=32, plus a rescue batch
+             main-path shape S=8, B=1024, D=20000, K=32, with and without a
+             rescue batch, and at a ragged one (B=1000, K=20: no multiple of
+             the row tile or the k-step), both links each
   4 K3f/K3b  fused IG sampler vs its twin at total=1,400,064, S=8, both modes
   5 K4/K5    row log-likelihood kernel (both links, and a rescue batch whose
              NaN rows must match) and exp-rate-sum kernel vs their float64
-             twins at S=8, B=1024, D=20000, K=32
+             twins at S=8, B=1024, D=20000, K=32 and at the ragged shape;
+             two K4 launches give the same bits
   6 dense    PoissonFactorization(latent_dim=32, feature_dim=20000).fit(...)
              through the kernels, with launch counters; one step at a small
              size checked against the plain float64 path on the same draws
@@ -32,7 +38,7 @@ Phases, each printing lines; any failure raises and exits non-zero:
   lik        K1, K2 and K4 at 'bernoulli', ('normal', 1), 'poisson_softplus'
              and ('mixed', 1), both links, vs their float64 twins at S=8,
              B=1024, D=20000, K=32, plus a batch whose softplus rates
-             underflow
+             underflow, and at the ragged shape
   A          the K6 path: the dense PoissonFactorization with
              surrogate.fused_normals = True, with launch counters; one small
              step against the plain float64 path on the same Philox draws;
@@ -47,7 +53,9 @@ Phases, each printing lines; any failure raises and exits non-zero:
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, costliest
              kernels) of the dense and the three sparse steps;
-             log_likelihood rows/s; K1 and K4 per likelihood; the mixed step
+             log_likelihood rows/s; K1 and K4 per likelihood and at B=32768,
+             with their registers, shared memory and blocks per SM; the
+             mixed step
 Then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -74,7 +82,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 
+_START = time.perf_counter()
+_PHASE = [None]
+
+
 def say(phase, msg):
+    if phase != _PHASE[0]:   # where the script's time goes, phase by phase
+        _PHASE[0] = phase
+        print(f"[{phase}] begins {time.perf_counter() - _START:.1f} s after "
+              f"the start", flush=True)
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -133,8 +149,10 @@ def bounds(B, total, n_total):
     input read once, each output written once, float32. Operations: the
     K-deep products, 2 per multiply-add (decode, dv and dtheta for K1/K2/K5;
     the decode for K4), plus one per transcendental or division of a cell
-    at the timed link (K1/K2, identity: log, x/rate, lgamma(x+1)'s 3 logs
-    and 1 reciprocal; K4, log link: exp, log and lgamma's 4; K5: exp); for
+    and sample at the timed link (K1/K2, identity: log and x/rate; K4, log
+    link: exp and log; K5: exp), plus lgamma(x+1)'s 3 logs and 1 reciprocal
+    once per cell of x for K1/K2 and K4 (it does not depend on the sample:
+    the least any implementation must do); for
     K3, about 600 operations per element and sample in the forward (30
     Philox rounds of 8 integer operations, erfinv, 8 logs, the gamma and 2
     softplus) and 700 in the backward, counted from csrc/fused_ig.cu; for
@@ -144,10 +162,11 @@ def bounds(B, total, n_total):
     cells = S * B * D
     theta, v, vec = S * B * K, S * K * D, S * D
     stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * D + D)
-    out = {"stats": bound(stats_bytes, cells * (6 * K + 6)),
-           "static": bound(stats_bytes, cells * (6 * K + 6)),
+    lgamma_ops = 4 * B * D
+    out = {"stats": bound(stats_bytes, cells * (6 * K + 2) + lgamma_ops),
+           "static": bound(stats_bytes, cells * (6 * K + 2) + lgamma_ops),
            "row_ll": bound(4 * (theta + v + vec + B * D + D + S * B),
-                           cells * (2 * K + 6)),
+                           cells * (2 * K + 2) + lgamma_ops),
            "expsum": bound(4 * (2 * theta + 2 * v + D + S),
                            cells * (6 * K + 1)),
            "fwd": bound(4 * (4 * total + S * total) + 8 * S,
@@ -161,12 +180,18 @@ def bounds(B, total, n_total):
     return out
 
 
-def stats_inputs(B, dev, seed=0, rescue=False):
+#: a full-width shape no tile divides: B is no multiple of the kernels' row
+#: tile (128) and the latent dimension none of their k-step (4, padded: 20
+#: is one, so the k-groups of the products are 5, not a power of two)
+B_RAGGED, K_RAGGED = 1000, 20
+
+
+def stats_inputs(B, dev, seed=0, rescue=False, k=K):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    theta = torch.rand(S, B, K, generator=g, device=dev) * 0.5
-    v = torch.rand(S, K, D, generator=g, device=dev) * 0.05
+    theta = torch.rand(S, B, k, generator=g, device=dev) * 0.5
+    v = torch.rand(S, k, D, generator=g, device=dev) * 0.05
     phi = torch.rand(S, 1, D, generator=g, device=dev) * 0.5 + 0.05
     x = torch.poisson(torch.ones(B, D, device=dev), generator=g)
     eta = torch.rand(1, D, generator=g, device=dev) * 1.5 + 0.5
@@ -208,7 +233,7 @@ def likelihood_x(name, n, dev, g):
                        torch.where(codes == tfp.CODE_NORMAL, real, counts))
 
 
-def likelihood_inputs(name, B, dev, seed=0, rescue=False):
+def likelihood_inputs(name, B, dev, seed=0, rescue=False, k=K):
     """stats_inputs for the other likelihoods: signed operands (the rate is a
     logit or a location) and observations from ``likelihood_x``; the codes
     lane for 'mixed', else None. ``rescue``: rates of -2000 in every 37th
@@ -217,8 +242,8 @@ def likelihood_inputs(name, B, dev, seed=0, rescue=False):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    theta = torch.randn(S, B, K, generator=g, device=dev) * 0.1
-    v = torch.randn(S, K, D, generator=g, device=dev) * 0.1
+    theta = torch.randn(S, B, k, generator=g, device=dev) * 0.1
+    v = torch.randn(S, k, D, generator=g, device=dev) * 0.1
     phi = torch.randn(S, 1, D, generator=g, device=dev) * 0.3
     eta = torch.rand(1, D, generator=g, device=dev) * 1.5 + 0.5
     x = likelihood_x(name, B, dev, g)
@@ -458,6 +483,48 @@ def main():
            f"{torch.backends.cudnn.allow_tf32}")
     print(smi.splitlines()[0], flush=True)
 
+    # The small-size float64 models of the plain path (phases 6, 7, A, B)
+    # live on the CPU and need no kernel, and each takes seconds to set up
+    # (its posterior means, 250 draws): two threads build them from here on,
+    # under the nvcc build and the kernel checks.
+    n_s, d_s, k_s, b_s = 512, 3000, 16, 256
+    rng = np.random.default_rng(4)
+    Xs = rng.poisson(1.0, (n_s, d_s)).astype(np.float32)
+    types_s = [t for t in ("poisson", "bernoulli", "normal")
+               for _ in range(d_s // 3)]
+    Xs_mixed = Xs.copy()
+    Xs_mixed[:, d_s // 3:2 * (d_s // 3)] %= 2
+    Xs_mixed[:, 2 * (d_s // 3):] = np.random.default_rng(16).standard_normal(
+        (n_s, d_s - 2 * (d_s // 3))).astype(np.float32)
+    Xs_log = np.log1p(Xs)
+    Xs_log = ((Xs_log - Xs_log.mean(0)) / Xs_log.std(0)).astype(np.float32)
+    sp_s, _ = sparse_counts(n_s, d_s, DENSITY, 12, dev)
+    sp_s.batch(b_s, drop_remainder=True)
+
+    def plain_model(cls, data, **kw):
+        return cls(latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
+                   u_tau_scale=1.0 / np.sqrt(n_s * d_s), dtype="float64",
+                   device="cpu", fused_likelihood=False, data=data, **kw)
+
+    def dense_data(x):
+        return ArrayDataset({"counts": x}).batch(b_s)
+
+    plain_pool = ThreadPoolExecutor(2)
+    plain = {tag: plain_pool.submit(plain_model, cls, data, **kw)
+             for tag, cls, data, kw in (
+        ("poisson", PoissonFactorization, dense_data(Xs), {}),
+        ("blocked", PoissonFactorization,
+         sp_s.to_device(block_rows=128, dtype="float64", device="cpu"),
+         dict(log_transform=True)),
+        ("B mixed", MixedFactorization, dense_data(Xs_mixed),
+         dict(column_types=types_s, scale_columns=False)),
+        ("B bernoulli", BernoulliFactorization,
+         dense_data(np.minimum(Xs, 1.0)), {}),
+        ("B gaussian normal", GaussianFactorization, dense_data(Xs_log),
+         dict(observation_model="normal", scale_columns=False,
+              scale_rows=False)))}
+    plain_pool.shutdown(wait=False)
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
         for f in [pool.submit(tfp._lib), pool.submit(tig._lib),
@@ -475,6 +542,14 @@ def main():
                   if "spill" in ln and "0 bytes spill stores" not in ln]
         say(2, f"{lib}: {len(regs)} kernels, registers {sorted(regs)}, "
                f"spilling kernels: {spills or 'none'}")
+        check(lib != "fused_poisson" or not spills,
+              f"fused_poisson spills registers: {spills}")
+    for kind in ("stats", "row_ll", "expsum"):
+        geom = tfp.launch_geometry(kind, S, 4096, K, D)
+        check(geom.smem_bytes == tfp._lib().poisson_smem_bytes(
+            int(kind == "row_ll"), K),
+            f"{kind}: launch_geometry and the library disagree on shared "
+            f"memory ({geom})")
 
     #: launch counters by kernel, as the JSON line names them
     counters = {"stats": (tfp.LAUNCHES, "stats"),
@@ -496,12 +571,17 @@ def main():
     errs = {}
     # ---- 3: K1 / K2 at the main-path shape
     B = 1024
-    for rescue in (False, True):
-        args = stats_inputs(B, dev, seed=1, rescue=rescue)
+    # (rows, latent dimension, link, rescue batch): the main-path shape and
+    # the ragged one, each under both links
+    for b_3, k_3, log_3, rescue in ((B, K, False, False), (B, K, False, True),
+                                    (B, K, True, False), (B, K, True, True),
+                                    (B_RAGGED, K_RAGGED, False, True),
+                                    (B_RAGGED, K_RAGGED, True, False)):
+        args = stats_inputs(b_3, dev, seed=1, rescue=rescue, k=k_3)
         for static in (False, True):
-            out_k = tfp._kernel_stats(*args, False, static)
+            out_k = tfp._kernel_stats(*args, log_3, static)
             out_t = tfp.stats_twin(*[a.double() for a in args],
-                                   static=static)
+                                   log_transform=log_3, static=static)
             torch.cuda.synchronize()
             e_sum = rel_elem(out_k[0], out_t[0])
             e_grad = max(rel_max(k, t) for k, t in zip(out_k[3:], out_t[3:]))
@@ -512,9 +592,10 @@ def main():
             e_min = rel_elem(out_k[2], out_t[2]) if not static else 0.0
             check(e_min < 1e-6, f"K1 gmin rel err {e_min}")
             key = "static" if static else "stats"
-            if not rescue:
+            if not rescue and b_3 == B:
                 errs[key] = abs_max(zip(out_k[3:], out_t[3:]))
-            say(3, f"{'K2' if static else 'K1'} rescue={rescue}: sums rel "
+            say(3, f"{'K2' if static else 'K1'} B={b_3} K={k_3} "
+                   f"log_transform={log_3} rescue={rescue}: sums rel "
                    f"{e_sum:.2e}, counts {out_k[1].tolist()}, gmin rel "
                    f"{e_min:.2e}, grads rel-of-max {e_grad:.2e}")
 
@@ -544,17 +625,36 @@ def main():
                f"lq rel {e_lq:.2e}, ga/gb rel-of-max {e_g:.2e}")
 
     # ---- 5: K4 / K5 at the main-path shape
-    theta, v, phi, x, eta = stats_inputs(B, dev, seed=7)
     errs["row_ll"] = 0.0
-    for log_transform in (False, True):
-        out_k = tfp._kernel_row_ll(theta, v, phi, x, eta, log_transform)
-        out_t = tfp.row_loglik_twin(theta.double(), v.double(), phi.double(),
-                                    x.double(), eta.double(), log_transform)
+    for b_5, k_5 in ((B_RAGGED, K_RAGGED), (B, K)):
+        theta, v, phi, x, eta = stats_inputs(b_5, dev, seed=7, k=k_5)
+        for log_transform in (False, True):
+            out_k = tfp._kernel_row_ll(theta, v, phi, x, eta, log_transform)
+            again = tfp._kernel_row_ll(theta, v, phi, x, eta, log_transform)
+            out_t = tfp.row_loglik_twin(
+                theta.double(), v.double(), phi.double(), x.double(),
+                eta.double(), log_transform)
+            torch.cuda.synchronize()
+            e_row = rel_elem(out_k, out_t)
+            check(e_row < 1e-5, f"K4 row sums rel err {e_row}")
+            check(torch.equal(out_k, again),
+                  "K4: two launches gave different bits")
+            if b_5 == B:
+                errs["row_ll"] = max(errs["row_ll"],
+                                     abs_max([(out_k, out_t)]))
+            say(5, f"K4 B={b_5} K={k_5} log_transform={log_transform}: row "
+                   f"sums rel {e_row:.2e}, two launches bit-equal")
+        if b_5 == B:
+            continue
+        out_k = tfp._kernel_expsum(theta, v, eta)
+        out_t = tfp.expsum_twin(theta.double(), v.double(), eta.double())
         torch.cuda.synchronize()
-        e_row = rel_elem(out_k, out_t)
-        check(e_row < 1e-5, f"K4 row sums rel err {e_row}")
-        errs["row_ll"] = max(errs["row_ll"], abs_max([(out_k, out_t)]))
-        say(5, f"K4 log_transform={log_transform}: row sums rel {e_row:.2e}")
+        e_sum = rel_elem(out_k[0], out_t[0])
+        e_grad = max(rel_max(k, t) for k, t in zip(out_k[1:], out_t[1:]))
+        check(e_sum < 1e-5, f"K5 ragged sums rel err {e_sum}")
+        check(e_grad < 1e-4, f"K5 ragged grads rel err {e_grad}")
+        say(5, f"K5 B={b_5} K={k_5}: sums rel {e_sum:.2e}, grads "
+               f"rel-of-max {e_grad:.2e}")
     phi_r, theta_r = phi.clone(), theta.clone()
     phi_r[:, :, 7] = -1e-3        # column 7 of every sample: a negative
     theta_r[:, ::97] = 0.0        # intercept, the rate of these rows there
@@ -702,6 +802,36 @@ def main():
                     lik_errs.get((lname, "row_ll"), 0.0), e_row)
                 say("lik", f"K4 {lname} log_transform={log_transform}: row "
                            f"sums rel {e_row:.2e}")
+        # the ragged shape, both links: K1, K2 and K4 at the same tolerances
+        for log_transform in (False, True):
+            args, codes = likelihood_inputs(lname, B_RAGGED, dev, seed=23,
+                                            k=K_RAGGED)
+            args64 = [t.double() for t in args]
+            what = (f"{lname} B={B_RAGGED} K={K_RAGGED} "
+                    f"log={log_transform}")
+            for static in (False, True):
+                out_k = tfp._kernel_stats(*args, log_transform, static, lik,
+                                          codes)
+                out_t = tfp.stats_twin(*args64, log_transform, static, lik,
+                                       codes)
+                torch.cuda.synchronize()
+                e_sum = rel_elem(out_k[0], out_t[0])
+                e_grad = max(rel_max(k, t)
+                             for k, t in zip(out_k[3:], out_t[3:]))
+                e_min = rel_elem(out_k[2], out_t[2]) if not static else 0.0
+                check(e_sum < 1e-5 and e_grad < 1e-4 and e_min < 1e-6
+                      and torch.equal(out_k[1].cpu(), out_t[1].cpu()),
+                      f"{'K2' if static else 'K1'} {what}: sums {e_sum}, "
+                      f"grads {e_grad}, gmin {e_min}, counts "
+                      f"{out_k[1].tolist()} vs {out_t[1].tolist()}")
+            out_k = tfp._kernel_row_ll(*args, log_transform, lik, codes)
+            out_t = tfp.row_loglik_twin(*args64, log_transform, lik, codes)
+            torch.cuda.synchronize()
+            e_row = rel_elem(out_k, out_t)
+            check(e_row < 1e-5, f"K4 {what} rows rel err {e_row}")
+            say("lik", f"{what}: K1/K2 sums rel {e_sum:.2e}, grads "
+                       f"rel-of-max {e_grad:.2e}; K4 row sums rel "
+                       f"{e_row:.2e}")
         if soft:
             # sample 0 alone has an underflowed rate, in column 7: its rows
             # are -inf (x > 0 there) or NaN (x = 0), the others finite
@@ -729,7 +859,7 @@ def main():
     del args, args64, codes, out_k, out_t
 
     # ---- 6: the dense slice through the normal entry point
-    N = 16384
+    N = 8192    # two steps an epoch: depth cut to keep the script short
     gx = torch.Generator(device=dev).manual_seed(3)
     X = torch.poisson(torch.ones(N, D, device=dev), generator=gx).cpu().numpy()
     ds = ArrayDataset({"counts": X, "indices": np.arange(N)}).batch(4096)
@@ -769,17 +899,11 @@ def main():
 
     # one step at a small size, same draws: kernels (f32, card) vs the plain
     # float64 path (unfused, WH 'fast' sampler fed the same draws)
-    n_s, d_s, k_s, b_s = 512, 3000, 16, 256
-    Xs = np.random.default_rng(4).poisson(1.0, (n_s, d_s)).astype(np.float32)
-    small = {}
-    for tag, kw in (("kernel", dict(dtype="float32", device="cuda",
-                                    fused_likelihood=True)),
-                    ("plain", dict(dtype="float64", device="cpu",
-                                   fused_likelihood=False))):
-        small[tag] = PoissonFactorization(
-            latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
-            u_tau_scale=1.0 / np.sqrt(n_s * d_s),
-            data=ArrayDataset({"counts": Xs}).batch(b_s), **kw)
+    small = {"kernel": PoissonFactorization(
+        latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
+        u_tau_scale=1.0 / np.sqrt(n_s * d_s), dtype="float32", device="cuda",
+        fused_likelihood=True, data=dense_data(Xs)),
+        "plain": plain["poisson"].result()}
     p0 = perturbed_init(small["plain"], 5)
     draws = numpy_draws(small["plain"], 5)
     res = {}
@@ -831,24 +955,20 @@ def main():
              f"(K6f: {steps_a} steps + 1 initial loss + {calib} for the "
              f"posterior means; K6b: one per step)")
 
-    def small_step_check(tag, cls, Xs, seed, signed_vw=False, **kw):
+    def small_step_check(tag, cls, Xs, seed, plain_side, signed_vw=False,
+                         **kw):
         """One ELBO step at a small size through every kernel (float32 on
-        the card, both samplers fused) against the plain float64 path (CPU,
-        unfused, the WH 'fast' sampler) fed the same Philox draws.
+        the card, both samplers fused) against ``plain_side``, the plain
+        float64 model of the same arguments (CPU, unfused, the WH 'fast'
+        sampler), fed the same Philox draws.
         ``signed_vw``: start v and w near 0 (see ``start_vw_near_zero``).
         Tolerances as the small step above: loss 1e-4, gradients 1e-3 of
         the largest entry."""
-        pair = {}
-        for side, skw in (("kernel", dict(dtype="float32", device="cuda",
-                                          fused_likelihood=True,
-                                          gamma_sampler="fused")),
-                          ("plain", dict(dtype="float64", device="cpu",
-                                         fused_likelihood=False,
-                                         gamma_sampler="fast"))):
-            pair[side] = cls(
-                latent_dim=k_s, feature_dim=d_s,
-                u_tau_scale=1.0 / np.sqrt(n_s * d_s),
-                data=ArrayDataset({"counts": Xs}).batch(b_s), **kw, **skw)
+        pair = {"kernel": cls(
+            latent_dim=k_s, feature_dim=d_s,
+            u_tau_scale=1.0 / np.sqrt(n_s * d_s), data=dense_data(Xs),
+            dtype="float32", device="cuda", fused_likelihood=True,
+            gamma_sampler="fused", **kw), "plain": plain_side}
         pair["kernel"]._surrogate.fused_normals = True
         p0 = perturbed_init(pair["plain"], seed)
         if signed_vw:
@@ -878,7 +998,8 @@ def main():
                  f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
                  f"{e_grad:.2e}")
 
-    small_step_check("A", PoissonFactorization, Xs, 15)
+    small_step_check("A", PoissonFactorization, Xs, 15,
+                     plain["poisson"].result())
 
     # the A/B this kernel exists for: the same model and batch with and
     # without fused_normals, in turns
@@ -949,19 +1070,13 @@ def main():
 
     # one blocked-COO step at a small size through the kernels (log link:
     # K5), against the plain float64 path on the same batch and draws
-    sp_s, _ = sparse_counts(n_s, d_s, DENSITY, 12, dev)
-    sp_s.batch(b_s, drop_remainder=True)
-    small = {}
-    for tag, kw in (("kernel", dict(dtype="float32", device="cuda",
-                                    fused_likelihood=True)),
-                    ("plain", dict(dtype="float64", device="cpu",
-                                   fused_likelihood=False))):
-        data = sp_s.to_device(block_rows=128, dtype=kw["dtype"],
-                              device=kw["device"])
-        small[tag] = (PoissonFactorization(
-            latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
-            log_transform=True, u_tau_scale=1.0 / np.sqrt(n_s * d_s),
-            data=data, **kw), next(iter(data)))
+    data = sp_s.to_device(block_rows=128, dtype="float32", device="cuda")
+    small = {"kernel": PoissonFactorization(
+        latent_dim=k_s, feature_dim=d_s, gamma_sampler="fast",
+        log_transform=True, u_tau_scale=1.0 / np.sqrt(n_s * d_s),
+        dtype="float32", device="cuda", fused_likelihood=True, data=data),
+        "plain": plain["blocked"].result()}
+    small = {tag: (m, next(iter(m.data()))) for tag, m in small.items()}
     p0 = perturbed_init(small["plain"][0], 6)
     draws = numpy_draws(small["plain"][0], 6)
     res = {}
@@ -1124,21 +1239,14 @@ def main():
              f"{launches}")
 
     # one small step per family through K1 (its likelihood), K3 and K6
-    rng = np.random.default_rng(16)
-    types_s = [t for t in ("poisson", "bernoulli", "normal")
-               for _ in range(d_s // 3)]
-    Xs_mixed = Xs.copy()
-    Xs_mixed[:, d_s // 3:2 * (d_s // 3)] %= 2
-    Xs_mixed[:, 2 * (d_s // 3):] = rng.standard_normal(
-        (n_s, d_s - 2 * (d_s // 3))).astype(np.float32)
-    Xs_log = np.log1p(Xs)
-    Xs_log = ((Xs_log - Xs_log.mean(0)) / Xs_log.std(0)).astype(np.float32)
     small_step_check("B mixed", MixedFactorization, Xs_mixed, 17,
-                     signed_vw=True, column_types=types_s,
-                     scale_columns=False)
+                     plain["B mixed"].result(), signed_vw=True,
+                     column_types=types_s, scale_columns=False)
     small_step_check("B bernoulli", BernoulliFactorization,
-                     np.minimum(Xs, 1.0), 18, signed_vw=True)
+                     np.minimum(Xs, 1.0), 18, plain["B bernoulli"].result(),
+                     signed_vw=True)
     small_step_check("B gaussian normal", GaussianFactorization, Xs_log, 19,
+                     plain["B gaussian normal"].result(),
                      observation_model="normal", scale_columns=False,
                      scale_rows=False)
     mixed_model = fitted["mixed"]
@@ -1206,6 +1314,28 @@ def main():
                f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
                f"of it) (float32, {sizes.get(key, 'B=' + str(B))}, S={S}; "
                f"{smi})")
+
+    # K1 and K4 at the other dense arm, B=32768, and what the build and the
+    # occupancy API say of them
+    big = stats_inputs(32768, dev, seed=6)
+    bd_big = bounds(32768, IG_TOTAL, N_TOTAL)
+    for key, fn in (("stats", lambda: tfp._kernel_stats(*big, False, False)),
+                    ("row_ll", lambda: tfp._kernel_row_ll(*big, True))):
+        k_ms = cuda_ms(fn, iters=5, warmup=1)
+        say(9, f"{key} at B=32768: kernel {k_ms:.3f} ms, bound "
+               f"{bd_big[key][0]:.3f} ms ({bd_big[key][1]}; "
+               f"{bd_big[key][0] / k_ms:.1%} of it) (float32, S={S}; {smi})")
+    del big
+    for kind in ("stats", "row_ll"):
+        info = tfp.kernel_info(kind, K)
+        say(9, f"{kind}_kernel (Poisson, identity link, K={K}): "
+               f"{info['registers']} registers a thread, "
+               f"{info['smem_bytes']} + {info['static_smem_bytes']} bytes of "
+               f"shared memory a block, {info['blocks_per_sm']} blocks an SM "
+               f"(occupancy API); grid "
+               f"{tfp.launch_geometry(kind, S, B, K, D).grid} blocks at "
+               f"B={B}, {tfp.launch_geometry(kind, S, 32768, K, D).grid} at "
+               f"B=32768")
 
     # K1 and K4 at the other likelihoods (identity link for K1, log link for
     # K4, as their Poisson rows above), and the mixed training step

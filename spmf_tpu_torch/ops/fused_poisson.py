@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import typing
 
 import numpy as np
 import torch
@@ -48,9 +49,10 @@ from spmf_tpu_torch.bijectors import softplus as _softplus
 from spmf_tpu_torch.ops import _build
 
 __all__ = ["CODE_BERNOULLI", "CODE_NORMAL", "CODE_POISSON", "FLOOR",
-           "LAUNCHES", "bernoulli_loglik_reference", "expsum_twin",
-           "fused_exp_rate_sum", "fused_poisson_loglik",
-           "fused_poisson_row_loglik", "normal_loglik_reference",
+           "LAUNCHES", "LaunchGeometry", "bernoulli_loglik_reference",
+           "expsum_twin", "fused_exp_rate_sum", "fused_poisson_loglik",
+           "fused_poisson_row_loglik", "kernel_info", "launch_geometry",
+           "lgamma_table", "normal_loglik_reference",
            "poisson_loglik_reference", "row_loglik_twin", "stats_twin"]
 
 FLOOR = -1e27  # static clip-bound floor (see _floor_min_val)
@@ -274,32 +276,121 @@ def expsum_twin(theta, v, eta):
 
 # ---------------------------------------------------------------- kernels
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"poisson_stats": [_P] * 12 + [_I] * 7 + [_F] * 2 + [_P],
-               "poisson_row_ll": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
-               "poisson_expsum": [_P] * 6 + [_I] * 4 + [_P]}
-_TB, _TD = 128, 64          # must match csrc/fused_poisson.cu
+_SIGNATURES = {"poisson_stats": [_P] * 13 + [_I] * 7 + [_F] * 2 + [_P],
+               "poisson_row_ll": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
+               "poisson_expsum": [_P] * 6 + [_I] * 4 + [_P],
+               "poisson_smem_bytes": [_I, _I],
+               "poisson_kernel_info": [_I, _I, _P]}
+# The tiling of csrc/fused_poisson.cu (its constants of the same names; the
+# GPU tests hold launch_geometry to the library's poisson_smem_bytes).
+_THREADS, _TB, _TD, _K_STEP = 256, 128, 64, 4
+_TBP, _TP, _NLANE, _TABLE_N = _TB + 4, _TD + 4, 3, 64
+_STATIC_SMEM = {"stats": 128, "expsum": 128, "row_ll": 8 * _TB}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
+_SMEM_PER_SM = 233472       # ... and an SM holds, each block reserving 1 KB
+
+
+class LaunchGeometry(typing.NamedTuple):
+    """How one launch of a fused_poisson.cu kernel is cut into blocks."""
+    kind: str            # 'stats' (K1/K2), 'row_ll' (K4) or 'expsum' (K5)
+    samples: int
+    rows: int
+    threads: int         # per block
+    row_tile: int        # rows a block owns
+    col_tile: int        # columns per step of a block's loop
+    k_step: int
+    k_padded: int        # K padded with zeros to a multiple of k_step
+    stages: int          # tile buffers of x and of v in shared memory
+    smem_bytes: int      # dynamic shared memory per block
+    static_smem_bytes: int
+    blocks_per_sm: int   # resident blocks an SM's shared memory allows
+    row_tiles: int
+    col_tiles: int
+    grid: int            # blocks: samples * row_tiles
+
+    def block(self, i):
+        """(sample, first row, one past the last row) of block ``i``:
+        samples of one row tile are adjacent in the grid."""
+        r0 = (i // self.samples) * self.row_tile
+        return i % self.samples, r0, min(r0 + self.row_tile, self.rows)
+
+
+def launch_geometry(kind, S, B, K, D):
+    """The launch geometry of K1/K2 (``'stats'``), K4 (``'row_ll'``) or K5
+    (``'expsum'``) at theta (S, B, K) and D features; raises ``ValueError``
+    for a latent dimension whose tiles do not fit a block's shared memory.
+    Plain arithmetic on the tiling constants: no card needed."""
+    if kind not in _STATIC_SMEM:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    kp = -(-K // _K_STEP) * _K_STEP
+    v_tile = (kp + _NLANE) * _TP          # v rows, then eta, phi, codes
+    if kind == "row_ll":                  # theta^T, 2 x (v, x), the table
+        stages = 2
+        floats = kp * _TBP + 2 * v_tile + 2 * _TB * _TD + _TABLE_N
+    else:       # theta^T, dtheta, v, x, dtv, dphi, the table
+        stages = 1
+        floats = (kp * _TBP + _TB * kp + v_tile + _TB * _TD + _TB * _TP
+                  + _TD + _TABLE_N)
+    smem, static = 4 * floats, _STATIC_SMEM[kind]
+    if smem + static > _SMEM_LIMIT:
+        raise ValueError(
+            f"latent dim K={K} is too wide for the {kind} kernel's "
+            f"shared-memory tiles ({smem + static} bytes of {_SMEM_LIMIT})")
+    row_tiles = -(-B // _TB)
+    return LaunchGeometry(
+        kind=kind, samples=S, rows=B, threads=_THREADS, row_tile=_TB,
+        col_tile=_TD, k_step=_K_STEP, k_padded=kp, stages=stages,
+        smem_bytes=smem, static_smem_bytes=static,
+        blocks_per_sm=_SMEM_PER_SM // (smem + static + 1024),
+        row_tiles=row_tiles, col_tiles=-(-D // _TD), grid=S * row_tiles)
+
+
+def lgamma_table():
+    """lgamma(n + 1) for n = 0..63, float64 values rounded to float32: what
+    the kernels look up for integer counts below 64 (their Stirling series,
+    the JAX package's ``_lgamma_xp1``, serves every other x)."""
+    n = torch.arange(_TABLE_N, dtype=torch.float64)
+    return torch.lgamma(n + 1.0).to(torch.float32)
+
+
+_TABLES: dict = {}   # the table on each card, made at first use
+
+
+def _device_table(device):
+    if device not in _TABLES:
+        _TABLES[device] = lgamma_table().to(device)
+    return _TABLES[device]
 
 
 def _lib():
     return _build.load_library("fused_poisson", _SIGNATURES)
 
 
-def _check_cuda(what, theta, tensors, smem_floats):
+def kernel_info(kind, K):
+    """What the built library reports for the Poisson identity-link instance
+    of K1 (``'stats'``) or K4 (``'row_ll'``) at latent dimension K:
+    registers per thread, static and dynamic shared memory per block, and
+    resident blocks per SM (the occupancy API's). Needs the card."""
+    info = (ctypes.c_int * 4)()
+    err = _lib().poisson_kernel_info(int(kind == "row_ll"), K, info)
+    _build.check(err, "poisson_kernel_info")
+    return dict(zip(("registers", "static_smem_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
+
+
+def _check_cuda(kind, theta, tensors, D):
     """Raise unless every (name, tensor, shape) is a contiguous float32 CUDA
-    tensor of that shape on theta's device, and the block's shared-memory
-    tiles fit."""
+    tensor of that shape on theta's device and the block's shared-memory
+    tiles fit; the launch geometry otherwise."""
     for name, t, shape in tensors:
         if (not t.is_cuda or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != shape
                 or t.device != theta.device):
             raise ValueError(
-                f"{what} kernel: {name} must be a contiguous float32 CUDA "
+                f"{kind} kernel: {name} must be a contiguous float32 CUDA "
                 f"tensor of shape {shape} on {theta.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if 4 * smem_floats > _SMEM_LIMIT:
-        raise ValueError(f"latent dim K={theta.shape[-1]} is too wide for "
-                         f"the {what} kernel's shared-memory tiles")
+    return launch_geometry(kind, *theta.shape, D)
 
 
 def _kernel_selector(likelihood, codes, D, device):
@@ -318,13 +409,12 @@ def _kernel_stats(theta, v, phi, x, eta, log_transform, static,
     D = x.shape[-1]
     lik, inv_scale, norm_const, codes = _kernel_selector(
         likelihood, codes, D, theta.device)
-    _check_cuda("fused likelihood", theta,
-                (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
-                 ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
-                 ("eta", eta, (1, D)), ("codes", codes, (1, D))),
-                2 * _TB * K + K * (_TD + 1) + _TB * (_TD + 1) + 2 * _TD)
+    geom = _check_cuda("stats", theta,
+                       (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
+                        ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
+                        ("eta", eta, (1, D)), ("codes", codes, (1, D))), D)
     dev = theta.device
-    nrb = -(-B // _TB)
+    nrb = geom.row_tiles
     psum = torch.empty((S, nrb), dtype=torch.float64, device=dev)
     pcnt = torch.zeros((S, nrb), dtype=torch.int32, device=dev)
     pmin = torch.zeros((S, nrb), dtype=torch.float32, device=dev)
@@ -333,10 +423,11 @@ def _kernel_stats(theta, v, phi, x, eta, log_transform, static,
     dphi = torch.zeros((S, 1, D), dtype=torch.float32, device=dev)
     err = _lib().poisson_stats(
         theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
-        eta.data_ptr(), codes.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
-        pmin.data_ptr(), dtheta.data_ptr(), dv.data_ptr(), dphi.data_ptr(),
-        S, B, K, D, int(bool(log_transform)), int(bool(static)), lik,
-        inv_scale, norm_const, torch.cuda.current_stream(dev).cuda_stream)
+        eta.data_ptr(), codes.data_ptr(), _device_table(dev).data_ptr(),
+        psum.data_ptr(), pcnt.data_ptr(), pmin.data_ptr(), dtheta.data_ptr(),
+        dv.data_ptr(), dphi.data_ptr(), S, B, K, D, int(bool(log_transform)),
+        int(bool(static)), lik, inv_scale, norm_const,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "poisson_stats")
     LAUNCHES["static" if static else "stats"] += 1
     return (psum.sum(1).to(torch.float32), pcnt.sum(1, dtype=torch.int32),
@@ -349,18 +440,17 @@ def _kernel_row_ll(theta, v, phi, x, eta, log_transform,
     D = x.shape[-1]
     lik, inv_scale, norm_const, codes = _kernel_selector(
         likelihood, codes, D, theta.device)
-    # dynamic tiles plus the kernel's static (2, TB) double row buffer
-    _check_cuda("row log-likelihood", theta,
+    _check_cuda("row_ll", theta,
                 (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
                  ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
-                 ("eta", eta, (1, D)), ("codes", codes, (1, D))),
-                _TB * K + K * (_TD + 1) + 2 * _TD + 4 * _TB)
-    out = torch.empty((S, B), dtype=torch.float32, device=theta.device)
+                 ("eta", eta, (1, D)), ("codes", codes, (1, D))), D)
+    dev = theta.device
+    out = torch.empty((S, B), dtype=torch.float32, device=dev)
     err = _lib().poisson_row_ll(
         theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
-        eta.data_ptr(), codes.data_ptr(), out.data_ptr(), S, B, K, D,
-        int(bool(log_transform)), lik, inv_scale, norm_const,
-        torch.cuda.current_stream(theta.device).cuda_stream)
+        eta.data_ptr(), codes.data_ptr(), _device_table(dev).data_ptr(),
+        out.data_ptr(), S, B, K, D, int(bool(log_transform)), lik,
+        inv_scale, norm_const, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "poisson_row_ll")
     LAUNCHES["row_ll"] += 1
     return out
@@ -369,12 +459,11 @@ def _kernel_row_ll(theta, v, phi, x, eta, log_transform,
 def _kernel_expsum(theta, v, eta):
     S, B, K = theta.shape
     D = v.shape[-1]
-    _check_cuda("exp-rate sum", theta,
-                (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
-                 ("eta", eta, (1, D))),
-                2 * _TB * K + K * (_TD + 1) + _TB * (_TD + 1) + _TD)
+    geom = _check_cuda("expsum", theta,
+                       (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
+                        ("eta", eta, (1, D))), D)
     dev = theta.device
-    psum = torch.empty((S, -(-B // _TB)), dtype=torch.float64, device=dev)
+    psum = torch.empty((S, geom.row_tiles), dtype=torch.float64, device=dev)
     dtheta = torch.empty((S, B, K), dtype=torch.float32, device=dev)
     dv = torch.zeros((S, K, D), dtype=torch.float32, device=dev)
     err = _lib().poisson_expsum(

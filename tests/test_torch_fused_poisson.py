@@ -135,3 +135,105 @@ def test_other_likelihoods_and_clip_modes_raise():
         tfp.fused_poisson_loglik(*t, likelihood=("mixed", 1.0))
     with pytest.raises(ValueError):
         tfp.fused_poisson_loglik(*t, clip="dynamic")
+
+
+# ------------------------------------------------ the kernels' launch geometry
+GEOMETRY_SHAPES = [(8, 4096, 32, 20000), (8, 32768, 32, 20000),
+                   (3, 200, 8, 1000), (2, 37, 5, 130), (8, 1000, 20, 20000)]
+
+
+@pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_launch_geometry_covers_the_batch(shape, kind):
+    """Padded K is a multiple of the k-step and >= K, the tiles fit a
+    Hopper block's shared memory, and the grid's blocks own every (sample,
+    row) exactly once and every column through their tile loop."""
+    S, B, K, D = shape
+    g = tfp.launch_geometry(kind, S, B, K, D)
+    assert g.k_padded % g.k_step == 0 and K <= g.k_padded < K + g.k_step
+    assert g.smem_bytes + g.static_smem_bytes <= 232448
+    assert g.blocks_per_sm >= 1
+    assert g.threads == 256 and g.stages == (2 if kind == "row_ll" else 1)
+    assert g.grid == S * g.row_tiles
+    assert g.col_tiles * g.col_tile >= D > (g.col_tiles - 1) * g.col_tile
+    owned = np.zeros((S, B), np.int64)
+    for i in range(g.grid):
+        s, r0, r1 = g.block(i)
+        assert 0 <= s < S and 0 <= r0 < r1 <= B and r1 - r0 <= g.row_tile
+        owned[s, r0:r1] += 1
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
+def test_launch_geometry_at_the_model_widths(kind):
+    """K = 16 and K = 32 leave room for two blocks on an SM (233,472 bytes,
+    1 KB reserved per block); a latent dimension whose tiles cannot fit one
+    block raises instead of launching."""
+    for K in (16, 32):
+        g = tfp.launch_geometry(kind, 8, 4096, K, 20000)
+        assert g.blocks_per_sm == 2
+        assert 2 * (g.smem_bytes + g.static_smem_bytes + 1024) <= 233472
+    wide = tfp.launch_geometry(kind, 8, 4096, 64, 20000)
+    assert wide.blocks_per_sm == 1
+    with pytest.raises(ValueError, match="too wide"):
+        tfp.launch_geometry(kind, 8, 4096, 512, 20000)
+    with pytest.raises(ValueError, match="unknown kernel kind"):
+        tfp.launch_geometry("k7", 8, 4096, 32, 20000)
+
+
+def test_lgamma_table_is_the_rounded_float64_value():
+    """The table the kernels look up: 64 entries, lgamma(n + 1) in float64
+    rounded to float32, bit for bit."""
+    tab = tfp.lgamma_table()
+    assert tab.shape == (64,) and tab.dtype == torch.float32
+    n = torch.arange(64, dtype=torch.float64)
+    assert torch.equal(tab, torch.lgamma(n + 1.0).to(torch.float32))
+    assert float(tab[0]) == 0.0 and float(tab[1]) == 0.0
+    np.testing.assert_allclose(float(tab[5]), np.log(120.0), rtol=1e-7)
+
+
+def test_lgamma_table_agrees_with_the_stirling_series():
+    """Against the series the kernels keep for every other x (the JAX
+    package's ``_lgamma_xp1``), evaluated in float64: 2e-7 relative (the
+    float32 rounding of the table; the series itself is exact to 1e-10
+    there), with 1e-9 absolute for the two zeros, lgamma(1) and lgamma(2)."""
+    n = np.arange(64, dtype=np.float64)
+    series = np.asarray(jfp._lgamma_xp1(jnp.asarray(n)))
+    assert series.dtype == np.float64
+    np.testing.assert_allclose(tfp.lgamma_table().double().numpy(), series,
+                               rtol=2e-7, atol=1e-9)
+
+
+# ------------------------------------- ragged latent dimensions, float64
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("latent", [20, 33])
+def test_twin_at_ragged_latent_dims_f64(latent, log_transform):
+    """K = 20 and K = 33 (not multiples of the kernels' k-step or tile) with
+    B = 37, D = 130: the twin's combined value and its explicit gradients
+    against the plain JAX reference and its autodiff in float64, 1e-9 (healthy
+    data: no cell on the clip bound, so the reference's gradient is the
+    unit-cotangent gradient of the sum)."""
+    rng = np.random.default_rng(latent)
+    Sr, Br, Dr = 2, 37, 130
+    args = (rng.uniform(0.0, 0.5, (Sr, Br, latent)),
+            rng.uniform(0.0, 0.1, (Sr, latent, Dr)),
+            rng.uniform(0.05, 0.5, (Sr, 1, Dr)),
+            rng.poisson(1.0, (Br, Dr)).astype(float),
+            rng.uniform(0.5, 2.0, (1, Dr)))
+    j = [jnp.asarray(a) for a in args]
+
+    def ref(theta, v, phi):
+        return jnp.sum(jfp.poisson_loglik_reference(
+            theta, v, phi, j[3], j[4], log_transform=log_transform))
+
+    val_j = jfp.poisson_loglik_reference(*j, log_transform=log_transform)
+    grads_j = jax.grad(ref, argnums=(0, 1, 2))(*j[:3])
+    ssum, cnt, gmin, *grads = tfp.stats_twin(
+        *[torch.tensor(a) for a in args], log_transform=log_transform)
+    assert ssum.dtype == torch.float64 and int(cnt.sum()) == 0
+    np.testing.assert_allclose(_combine(ssum, cnt, gmin, torch.float64),
+                               np.asarray(val_j), rtol=1e-9)
+    for g, gj in zip(grads, grads_j):
+        gj = np.asarray(gj)
+        np.testing.assert_allclose(g.numpy(), gj, rtol=1e-9,
+                                   atol=1e-9 * np.abs(gj).max())

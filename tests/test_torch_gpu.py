@@ -45,6 +45,13 @@ def _stats_inputs(S, B, K, D, dev, seed=0, rescue=False):
     return [t.to(dev) for t in (theta, v, phi, x, eta)]
 
 
+#: (S, B, K, D): B and D no multiples of the kernels' 128 x 64 tiles, K = 5 and
+#: 33 no multiples of their k-step, K = 20 five k-groups (no power of two), D =
+#: 130 and 257 rows of x that do not start on 16 bytes, and the least shape
+SHAPES = [(3, 200, 8, 1000), (2, 37, 5, 130), (2, 300, 20, 1000),
+          (3, 129, 33, 257), (1, 1, 1, 1)]
+
+
 def _rel_max(a, b):
     return float((a.double() - b.double()).abs().max()
                  / b.double().abs().max().clamp_min(1e-300))
@@ -52,7 +59,7 @@ def _rel_max(a, b):
 
 @pytest.mark.parametrize("log_transform", [False, True])
 @pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("shape", [(3, 200, 8, 1000), (2, 37, 5, 130)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_stats_kernel_matches_twin(cuda, shape, static, log_transform):
     args = _stats_inputs(*shape, cuda)
     out_k = tfp._kernel_stats(*args, log_transform, static)
@@ -117,7 +124,7 @@ def test_ig_kernels_match_twin(cuda, total, antithetic):
 
 
 @pytest.mark.parametrize("log_transform", [False, True])
-@pytest.mark.parametrize("shape", [(3, 200, 8, 1000), (2, 37, 5, 130)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_row_ll_kernel_matches_twin(cuda, shape, log_transform):
     args = _stats_inputs(*shape, cuda, seed=3)
     out_k = tfp._kernel_row_ll(*args, log_transform)
@@ -126,6 +133,47 @@ def test_row_ll_kernel_matches_twin(cuda, shape, log_transform):
     torch.cuda.synchronize()
     np.testing.assert_allclose(out_k.cpu().numpy(), out_t.cpu().numpy(),
                                rtol=1e-5)
+
+
+def test_row_ll_kernel_is_deterministic(cuda):
+    """Each row sum is one plain store of a fixed-order sum: two launches
+    give the same bits (K1's atomics do not)."""
+    args = _stats_inputs(4, 300, 20, 3000, cuda, seed=8)
+    for log_transform in (False, True):
+        first = tfp._kernel_row_ll(*args, log_transform)
+        second = tfp._kernel_row_ll(*args, log_transform)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
+def test_launch_geometry_matches_the_library(cuda, kind):
+    """The wrapper's shared-memory arithmetic is the built library's, and
+    the occupancy API grants the two blocks an SM the tiling was chosen
+    for, at the registers the build log reports."""
+    for latent in (1, 5, 16, 20, 32, 33, 64):
+        geom = tfp.launch_geometry(kind, 8, 4096, latent, 20000)
+        assert geom.smem_bytes == tfp._lib().poisson_smem_bytes(
+            int(kind == "row_ll"), latent)
+    if kind != "expsum":
+        info = tfp.kernel_info(kind, 32)
+        geom = tfp.launch_geometry(kind, 8, 4096, 32, 20000)
+        assert info["smem_bytes"] == geom.smem_bytes
+        assert info["static_smem_bytes"] <= geom.static_smem_bytes
+        assert info["blocks_per_sm"] == geom.blocks_per_sm == 2
+        assert info["registers"] <= 128
+
+
+def test_kernels_refuse_a_latent_dim_too_wide(cuda):
+    """A K whose tiles do not fit a block's shared memory raises in the
+    wrapper; nothing falls back to the twin."""
+    args = _stats_inputs(1, 8, 512, 16, cuda)
+    with pytest.raises(ValueError, match="too wide"):
+        tfp._kernel_stats(*args, False, False)
+    with pytest.raises(ValueError, match="too wide"):
+        tfp._kernel_row_ll(*args, False)
+    with pytest.raises(ValueError, match="too wide"):
+        tfp._kernel_expsum(args[0], args[1], args[4])
 
 
 def test_row_ll_kernel_rescue_rows_are_nan(cuda):
@@ -140,7 +188,7 @@ def test_row_ll_kernel_rescue_rows_are_nan(cuda):
     np.testing.assert_allclose(out_k[~nan_t], out_t[~nan_t], rtol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(3, 200, 8, 1000), (2, 37, 5, 130)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_expsum_kernel_matches_twin(cuda, shape):
     theta, v, _, _, eta = _stats_inputs(*shape, cuda, seed=5)
     out_k = tfp._kernel_expsum(theta, v, eta)
@@ -257,7 +305,10 @@ def _likelihood_inputs(name, S, B, K, D, dev, seed=0, rescue=False):
     rates of -2000 in some columns, whose softplus underflows to 0."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     theta = torch.randn(S, B, K, generator=g) * 0.4
-    v = torch.randn(S, K, D, generator=g) * 0.3
+    # theta . v keeps the spread it has at K = 8 for wider latent dimensions
+    # (under the log link a wider one reaches rates whose float32 rounding
+    # alone passes the 1e-6 of the minimum)
+    v = torch.randn(S, K, D, generator=g) * 0.3 * min(1.0, (8.0 / K) ** 0.5)
     phi = torch.randn(S, 1, D, generator=g) * 0.3
     eta = torch.rand(1, D, generator=g) * 1.5 + 0.5
     counts = torch.poisson(torch.ones(B, D), generator=g)
@@ -286,7 +337,7 @@ def _likelihood_inputs(name, S, B, K, D, dev, seed=0, rescue=False):
 def test_stats_kernel_likelihoods_match_twin(cuda, name, static,
                                              log_transform):
     lik = SELECTORS[name]
-    for shape in ((3, 200, 8, 1000), (2, 37, 5, 130)):
+    for shape in SHAPES:
         args, codes = _likelihood_inputs(name, *shape, cuda)
         out_k = tfp._kernel_stats(*args, log_transform, static, lik, codes)
         out_t = tfp.stats_twin(*[a.double() for a in args],
@@ -306,7 +357,7 @@ def test_stats_kernel_likelihoods_match_twin(cuda, name, static,
 @pytest.mark.parametrize("name", list(SELECTORS))
 def test_row_ll_kernel_likelihoods_match_twin(cuda, name, log_transform):
     lik = SELECTORS[name]
-    for shape in ((3, 200, 8, 1000), (2, 37, 5, 130)):
+    for shape in SHAPES:
         args, codes = _likelihood_inputs(name, *shape, cuda, seed=3)
         out_k = tfp._kernel_row_ll(*args, log_transform, lik, codes)
         out_t = tfp.row_loglik_twin(*[a.double() for a in args],

@@ -291,3 +291,42 @@ def test_selector_validation():
                                  codes=tfp.CODE_BERNOULLI).numpy(),
         tfp.fused_poisson_loglik(*tb, likelihood="bernoulli").numpy(),
         rtol=1e-6)
+
+
+@pytest.mark.parametrize("latent", [20, 33])
+@pytest.mark.parametrize("name,obs_scale", [("bernoulli", None),
+                                            ("normal", 0.8)])
+def test_twin_at_ragged_latent_dims_f64(name, obs_scale, latent):
+    """K = 20 and K = 33 with B = 37, D = 130 (no multiple of the kernels'
+    k-step or tiles): the twin's combined value against spmf_tpu's plain
+    reference, and its explicit gradients against that reference's autodiff,
+    in float64 at 1e-9."""
+    rng = np.random.default_rng(latent)
+    args = (rng.normal(0.0, 0.3, (S, 37, latent)),
+            rng.normal(0.0, 0.3, (S, latent, 130)),
+            rng.normal(0.0, 0.3, (S, 1, 130)),
+            (rng.integers(0, 2, (37, 130)).astype(np.float64)
+             if name == "bernoulli" else rng.normal(0.5, 1.0, (37, 130))),
+            rng.uniform(0.5, 2.0, (1, 130)))
+    j = [jnp.asarray(a) for a in args]
+    if name == "bernoulli":
+        lik = "bernoulli"
+
+        def ref(theta, v, phi):
+            return jfp.bernoulli_loglik_reference(theta, v, phi, j[3], j[4])
+    else:
+        lik = ("normal", obs_scale)
+
+        def ref(theta, v, phi):
+            return jfp.normal_loglik_reference(theta, v, phi, j[3], j[4],
+                                               obs_scale)
+
+    grads_j = jax.grad(lambda *a: jnp.sum(ref(*a)), argnums=(0, 1, 2))(*j[:3])
+    ssum, cnt, gmin, *grads = tfp.stats_twin(
+        *[torch.tensor(a) for a in args], likelihood=lik)
+    np.testing.assert_allclose(_combine(ssum, cnt, gmin).numpy(),
+                               np.asarray(ref(*j[:3])), rtol=1e-9)
+    for g, gj in zip(grads, grads_j):
+        gj = np.asarray(gj)
+        np.testing.assert_allclose(g.numpy(), gj, rtol=1e-9,
+                                   atol=1e-9 * np.abs(gj).max())

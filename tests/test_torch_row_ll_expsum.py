@@ -118,3 +118,48 @@ def test_row_ll_is_evaluation_only_and_poisson_only():
     assert out.shape == t[0].shape[:2] and not out.requires_grad
     with pytest.raises(ValueError, match="unknown likelihood"):
         tfp.fused_poisson_row_loglik(*t, likelihood="gamma")
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("latent", [20, 33])
+def test_row_ll_twin_at_ragged_latent_dims_f64(latent, log_transform):
+    """K = 20 and K = 33 with B = 37, D = 130 (no multiple of the kernels'
+    k-step or tiles): the float64 twin against the per-row formula through
+    jax's gammaln, 1e-9, so it is a trusted reference at those shapes."""
+    rng = np.random.default_rng(latent)
+    theta = rng.uniform(0.0, 0.5, (S, 37, latent))
+    v = rng.uniform(0.0, 0.1, (S, latent, 130))
+    phi = rng.uniform(0.05, 0.5, (S, 1, 130))
+    x = rng.poisson(1.0, (37, 130)).astype(float)
+    eta = rng.uniform(0.5, 2.0, (1, 130))
+    tv = jnp.matmul(jnp.asarray(theta), jnp.asarray(v))
+    rate = (jnp.exp(tv * eta) - 1.0 + phi) if log_transform else tv * eta + phi
+    ref = np.asarray((x * jnp.log(rate) - rate - gammaln(x + 1.0)).sum(-1))
+    out = tfp.row_loglik_twin(*(torch.tensor(a) for a in
+                                (theta, v, phi, x, eta)),
+                              log_transform=log_transform)
+    assert out.shape == (S, 37) and out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-9)
+
+
+@pytest.mark.parametrize("latent", [20, 33])
+def test_expsum_twin_at_ragged_latent_dims_f64(latent):
+    """The same shapes for K5's twin: value and gradients against jax's
+    direct sum and its autodiff in float64, 1e-9."""
+    rng = np.random.default_rng(latent)
+    theta = rng.normal(0.1, 0.2, (S, 37, latent))
+    v = np.abs(rng.normal(0.05, 0.05, (S, latent, 130)))
+    eta = np.abs(rng.normal(1.0, 0.1, (1, 130)))
+
+    def direct(t, vv):
+        return jnp.sum(jnp.exp(jnp.matmul(t, vv) * eta), axis=(-1, -2))
+
+    ref = direct(jnp.asarray(theta), jnp.asarray(v))
+    gref = jax.grad(lambda t, vv: jnp.sum(direct(t, vv)), (0, 1))(
+        jnp.asarray(theta), jnp.asarray(v))
+    r, dth, dv = tfp.expsum_twin(*(torch.tensor(a) for a in (theta, v, eta)))
+    np.testing.assert_allclose(r.numpy(), np.asarray(ref), rtol=1e-9)
+    for a, b in zip((dth, dv), gref):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-9,
+                                   atol=1e-9 * np.abs(b).max())

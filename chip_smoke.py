@@ -7,20 +7,24 @@ Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
   2 build    nvcc builds csrc/*.cu for sm_90a, one process per source, at once
              (two threads meanwhile set up the small float64 CPU models of
-             the plain path); a register spill in fused_poisson's build log
-             fails the run
+             the plain path); a register spill in fused_poisson's or
+             fused_ig's build log fails the run
   3 K1/K2    fused Poisson kernel vs its twin (float64 on the card) at the
              main-path shape S=8, B=1024, D=20000, K=32, with and without a
              rescue batch, and at a ragged one (B=1000, K=20: no multiple of
              the row tile or the k-step), both links each
-  4 K3f/K3b  fused IG sampler vs its twin at total=1,400,064, S=8, both modes
+  4 K3f/K3b  fused IG sampler vs its float64 twin in its three modes
+             (independent, antithetic, stratified) at total=1,400,064, S=8,
+             and at a ragged total at S=6 and S=2, plus independent S=5
   5 K4/K5    row log-likelihood kernel (both links, and a rescue batch whose
              NaN rows must match) and exp-rate-sum kernel vs their float64
              twins at S=8, B=1024, D=20000, K=32 and at the ragged shape;
              two K4 launches give the same bits
   6 dense    PoissonFactorization(latent_dim=32, feature_dim=20000).fit(...)
-             through the kernels, with launch counters; one step at a small
-             size checked against the plain float64 path on the same draws
+             through the kernels, with launch counters, also with
+             antithetic='stratified' at S=8 and S=4; one step at a small
+             size checked against the plain float64 path on the same draws,
+             and one stratified step on the same Philox and lattice draws
   7 sparse   scRNA-like counts (N=32768 x D=20000 at 3%), configured as the
              scRNA CLI does (log link, column means as norms); one epoch each
              of the blocked COO energy (K5), the flat COO energy (K5) and the
@@ -51,11 +55,13 @@ Phases, each printing lines; any failure raises and exits non-zero:
              standardised log counts with fused_normals = True; one small
              step per family against the plain float64 path
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
-             and a torch.profiler breakdown (device-busy share, costliest
-             kernels) of the dense and the three sparse steps;
-             log_likelihood rows/s; K1 and K4 per likelihood and at B=32768,
-             with their registers, shared memory and blocks per SM; the
-             mixed step
+             and a torch.profiler breakdown (device-busy share, device
+             kernels per step, costliest kernels) of the dense and the three
+             sparse steps, and of the dense S4 antithetic and S4 stratified
+             arms; log_likelihood rows/s; K1 and K4 per likelihood and at
+             B=32768, with their registers, shared memory and blocks per SM;
+             K3f / K3b and the twin in each mode, the bound per pipe, their
+             registers, shared memory and blocks per SM; the mixed step
 Then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -80,6 +86,15 @@ N_SPARSE, DENSITY, B_SPARSE = 32768, 0.03, 4096
 # Peak rates from NVIDIA's H100 SXM data sheet
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# ... and per pipe, at the clock that data-sheet rate implies (128 float32
+# multiply-adds a clock on each of 132 SMs): the special-function unit's
+# transcendentals, 16 a clock and SM, and the 32-bit integer multiplies,
+# 64 a clock and SM (CUDA programming guide, arithmetic instructions, 9.0)
+SM_CLOCKS_PER_S = PEAK_F32_OPS_PER_S / 2 / 128
+PEAK_FMA_PER_S = 128 * SM_CLOCKS_PER_S
+PEAK_MUFU_PER_S = 16 * SM_CLOCKS_PER_S
+PEAK_IMUL_PER_S = 64 * SM_CLOCKS_PER_S
+IG_MODES = (False, True, "stratified")
 
 
 _START = time.perf_counter()
@@ -153,9 +168,7 @@ def bounds(B, total, n_total):
     link: exp and log; K5: exp), plus lgamma(x+1)'s 3 logs and 1 reciprocal
     once per cell of x for K1/K2 and K4 (it does not depend on the sample:
     the least any implementation must do); for
-    K3, about 600 operations per element and sample in the forward (30
-    Philox rounds of 8 integer operations, erfinv, 8 logs, the gamma and 2
-    softplus) and 700 in the backward, counted from csrc/fused_ig.cu; for
+    K3 the least work per pipe (``ig_bound``, independent mode); for
     K6, about 150 per element and sample each way (10 Philox rounds of 8,
     erfinv, two softplus or sigmoids, a log), counted from
     csrc/fused_normal.cu."""
@@ -169,15 +182,54 @@ def bounds(B, total, n_total):
                            cells * (2 * K + 2) + lgamma_ops),
            "expsum": bound(4 * (2 * theta + 2 * v + D + S),
                            cells * (6 * K + 1)),
-           "fwd": bound(4 * (4 * total + S * total) + 8 * S,
-                        600 * S * total),
-           "bwd": bound(4 * (4 * total + S * total + S + 2 * total),
-                        700 * S * total),
+           "fwd": ig_bound("fwd", total, S, False)[:2],
+           "bwd": ig_bound("bwd", total, S, False)[:2],
            "nfwd": bound(4 * (3 * n_total + S * n_total) + 8 * S,
                          150 * S * n_total),
            "nbwd": bound(4 * (3 * n_total + S * n_total + S + 2 * n_total),
                          150 * S * n_total)}
     return out
+
+
+def ig_bound(kind, total, n_samples, antithetic):
+    """(ms, 'bytes' | 'operations', what bounds it) of K3f (``'fwd'``) or
+    K3b (``'bwd'``) at ``total`` elements and ``n_samples`` samples in a
+    mode: the least work of each pipe at that pipe's rate, the slowest pipe
+    (or the bytes) bounding.
+    Integer multiplies: 120 a Philox stream (3 calls of 10 rounds, 2 mul.hi
+    and 2 mul.lo each); a stream per sample (independent), per pair
+    (antithetic) or per element (stratified).
+    Transcendentals, one special-function operation each: per sample the 8
+    logs of the boost uniforms, exp(s1), log g, exp(-x), and log1p and 1/g
+    in the forward, 1/g, 1/(1 + exp(-x)) and 1/max(c, 0.05) in the
+    backward; one erfinv per draw (the mirror negates it); per element 12
+    in the forward (log b, lgamma, the 8 weights, sqrt, 1/(9(a+8))) and 20
+    in the backward (log b, digamma's log and up to 6 reciprocals, the 8
+    weights, sqrt and the other reciprocals).
+    Float32 operations: 45 per sample in the forward (the uniforms, the
+    Stuart sum, the cube, the softplus pair, log q), 60 in the backward
+    (also s2 and the derivatives); the transcendentals' polynomials are not
+    counted.
+    Bytes: a and b read and y written (forward); a, b and the cotangent gy
+    read and ga, gb written (backward)."""
+    S_ = n_samples
+    mode = IG_MODES.index(antithetic)
+    streams = (S_, S_ / 2, 1)[mode]
+    draws = S_ if mode == 0 else S_ / 2
+    if kind == "fwd":
+        mufu, fma = 13 * S_ + draws + 12, 45 * S_
+        n_bytes = 4 * (2 * total + S_ * total) + 8 * S_
+    else:
+        mufu, fma = 14 * S_ + draws + 20, 60 * S_
+        n_bytes = 4 * (4 * total + S_ * total + S_)
+    times = {"integer multiplies": 120 * streams * total / PEAK_IMUL_PER_S,
+             "transcendentals": mufu * total / PEAK_MUFU_PER_S,
+             "float32": fma * total / PEAK_FMA_PER_S}
+    pipe = max(times, key=times.get)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    if t_b >= times[pipe] * 1e3:
+        return t_b, "bytes", "memory"
+    return times[pipe] * 1e3, "operations", pipe
 
 
 #: a full-width shape no tile divides: B is no multiple of the kernels' row
@@ -322,36 +374,53 @@ def numpy_draws(model, seed):
             "ig_u": rng.uniform(1e-6, 1.0, (8, S, tot_g))}
 
 
-def philox_draws(model, seed, dev):
+def philox_draws(model, seed, dev, stratified=False):
     """The base draws that one sample_and_log_prob call of a model with both
     fused samplers makes from a generator seeded with ``seed`` on ``dev``
     (the Normal block's Philox seed is drawn first, then the IG block's), in
     float64, in the form the plain samplers take: K6's standard normals,
-    and K3's eps and 8 uniforms for the WH 'fast' sampler."""
+    and K3's eps and 8 uniforms for the WH 'fast' sampler. ``stratified``:
+    those of antithetic='stratified', where the Normal block draws its
+    lattice's base integers from the generator (K6 takes no antithetic
+    mode) and K3 its stratified stream."""
     import torch
 
     from spmf_tpu_torch.ops import fused_ig as tig
     from spmf_tpu_torch.ops import fused_normal as tfn
+    from spmf_tpu_torch.ops.gamma import lattice_uniform
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    seeds = [int(torch.randint(0, 2**31 - 1, (1,), generator=g,
-                               dtype=torch.int32, device=dev))
-             for _ in range(2)]
     sur = model._surrogate
     tot_n = sum(sur._sizes[n] for n in sur._normal_names)
     tot_g = sum(sur._sizes[n] for n in sur._ig_names)
     f64 = torch.float64
-    u = torch.stack([tig.uniforms(tot_g, s, seeds[1], f64, dev)
-                     for s in range(S)], dim=1)          # (9, S, tot_g)
-    return {"normal_eps": torch.stack(
-                [tfn.draw_eps(tot_n, s, seeds[0], f64, dev)
-                 for s in range(S)]).cpu().numpy(),
+    half = S // 2
+    if stratified:
+        base = torch.randint(0, 1 << 23, (tot_n,), generator=g,
+                             dtype=torch.int64, device=dev)
+        eps_h = torch.special.ndtri(lattice_uniform(None, half, (tot_n,),
+                                                    f64, dev, bits=base))
+        normal_eps = torch.cat([eps_h, -eps_h])
+    seeds = [int(torch.randint(0, 2**31 - 1, (1,), generator=g,
+                               dtype=torch.int32, device=dev))
+             for _ in range(1 if stratified else 2)]
+    if stratified:
+        u = torch.stack([tig.uniforms(tot_g, 0, seeds[0], f64, dev,
+                                      pair=s % half, half=half)
+                         for s in range(S)], dim=1)      # (9, S, tot_g)
+        u[:, half:] = 1.0 - u[:, half:]
+    else:
+        u = torch.stack([tig.uniforms(tot_g, s, seeds[1], f64, dev)
+                         for s in range(S)], dim=1)
+        normal_eps = torch.stack([tfn.draw_eps(tot_n, s, seeds[0], f64, dev)
+                                  for s in range(S)])
+    return {"normal_eps": normal_eps.cpu().numpy(),
             "ig_eps": (2.0 ** 0.5 * torch.erfinv(2.0 * u[0] - 1.0)
                        ).cpu().numpy(),
             "ig_u": u[1:].cpu().numpy()}
 
 
-def step_grads(model, p0, batch, draws, generator=None):
+def step_grads(model, p0, batch, draws, generator=None, antithetic=False):
     """(loss, flat gradients) of one ELBO step of ``model`` from params p0
     on ``batch`` with injected base draws, or with ``generator``'s."""
     import torch
@@ -364,14 +433,14 @@ def step_grads(model, p0, batch, draws, generator=None):
         for t in sub.values():
             t.requires_grad_(True)
     loss = elbo_loss(model._surrogate, model._energy, params, batch,
-                     generator, S, draws=draws)
+                     generator, S, antithetic=antithetic, draws=draws)
     loss.backward()
     grads = torch.cat([t.grad.reshape(-1).double().cpu()
                        for sub in params.values() for t in sub.values()])
     return float(loss.detach()), grads
 
 
-def step_timer(model, batch):
+def step_timer(model, batch, sample_size=S, antithetic=False):
     """A function running one full training step (sample, energy, backward,
     clip, Adam) of ``model`` on ``batch`` from a copy of its params."""
     import torch
@@ -387,7 +456,7 @@ def step_timer(model, batch):
     def step():
         opt.zero_grad(set_to_none=True)
         loss = elbo_loss(model._surrogate, model._energy, params, batch, gen,
-                         S)
+                         sample_size, antithetic=antithetic)
         loss.backward()
         clip_and_step(opt, 5.0)
 
@@ -415,7 +484,8 @@ def time_steps(step, n=13, skip=3):
 def profile_steps(step, n=5):
     """torch.profiler over ``n`` steps after one warm-up: (wall ms/step,
     device-busy ms/step, the six costliest device kernels as (name,
-    ms/step)); busy is None when the profiler saw no device time."""
+    ms/step), device kernels launched per step); busy is None when the
+    profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -440,15 +510,17 @@ def profile_steps(step, n=5):
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e3 / n
     top = sorted(events, key=dev_us, reverse=True)[:6]
+    count = sum(e.count for e in events) / n
     return wall, (busy or None), [(e.key[:70], dev_us(e) / 1e3 / n)
-                                  for e in top]
+                                  for e in top], count
 
 
 def say_profile(tag, prof, smi):
-    wall, busy, top = prof
+    wall, busy, top, count = prof
     share = f"{busy:.2f} ms/step busy ({busy / wall:.1%})" if busy else \
         "device time not measured (the profiler saw none)"
-    say(9, f"profile {tag}: {wall:.2f} ms/step wall, {share}; top "
+    say(9, f"profile {tag}: {wall:.2f} ms/step wall, {share}, {count:.0f} "
+           f"device kernels a step; top "
            + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top) + f" ({smi})")
 
 
@@ -542,8 +614,8 @@ def main():
                   if "spill" in ln and "0 bytes spill stores" not in ln]
         say(2, f"{lib}: {len(regs)} kernels, registers {sorted(regs)}, "
                f"spilling kernels: {spills or 'none'}")
-        check(lib != "fused_poisson" or not spills,
-              f"fused_poisson spills registers: {spills}")
+        check(lib == "fused_normal" or not spills,
+              f"{lib} spills registers: {spills}")
     for kind in ("stats", "row_ll", "expsum"):
         geom = tfp.launch_geometry(kind, S, 4096, K, D)
         check(geom.smem_bytes == tfp._lib().poisson_smem_bytes(
@@ -599,30 +671,46 @@ def main():
                    f"{e_sum:.2e}, counts {out_k[1].tolist()}, gmin rel "
                    f"{e_min:.2e}, grads rel-of-max {e_grad:.2e}")
 
-    # ---- 4: K3f / K3b at the IG block of D=20000, K=32
+    # ---- 4: K3f / K3b at the IG block of D=20000, K=32, in the three modes,
+    # and at a ragged total (no multiple of the 256-thread block) with S=6
+    # (3 pairs, no power of two), S=2 and, independent only, S=5. The kernel
+    # and the float64 twin draw the same Philox bits: y and log q 1e-5
+    # relative (erfinvf / logf against float64 in the tails of a 23-bit
+    # uniform), gradients 1e-4 of their largest entry
     g = torch.Generator(device=dev).manual_seed(2)
     a = torch.rand(IG_TOTAL, generator=g, device=dev) * 5 + 0.3
     b = torch.rand(IG_TOTAL, generator=g, device=dev) * 3 + 0.1
     seed = torch.tensor([987654], dtype=torch.int32, device=dev)
     gy = torch.randn(S, IG_TOTAL, generator=g, device=dev)
     glq = torch.randn(S, generator=g, device=dev)
+    ragged = IG_TOTAL - 101
+    ig_cases = ([(IG_TOTAL, S, m) for m in IG_MODES]
+                + [(ragged, n, m) for n in (6, 2) for m in IG_MODES]
+                + [(ragged, 5, False)])
     errs["fwd"] = errs["bwd"] = 0.0
-    for anti in (False, True):
-        y_k, lq_k = tig._kernel_fwd(a, b, seed, S, anti)
-        y_t, lq_t = tig.ig_twin_fwd(a.double(), b.double(), seed, S, anti)
-        ga_k, gb_k = tig._kernel_bwd(a, b, seed, S, anti, gy, glq)
-        ga_t, gb_t = tig.ig_twin_bwd(a.double(), b.double(), seed, S, anti,
-                                     gy.double(), glq.double())
+    for n_el, s_c, anti in ig_cases:
+        a_c, b_c = a[:n_el], b[:n_el]
+        gy_c, glq_c = gy[:s_c, :n_el].contiguous(), glq[:s_c].contiguous()
+        y_k, lq_k = tig._kernel_fwd(a_c, b_c, seed, s_c, anti)
+        y_t, lq_t = tig.ig_twin_fwd(a_c.double(), b_c.double(), seed, s_c,
+                                    anti)
+        ga_k, gb_k = tig._kernel_bwd(a_c, b_c, seed, s_c, anti, gy_c, glq_c)
+        ga_t, gb_t = tig.ig_twin_bwd(a_c.double(), b_c.double(), seed, s_c,
+                                     anti, gy_c.double(), glq_c.double())
         torch.cuda.synchronize()
         e_y, e_lq = rel_elem(y_k, y_t), rel_elem(lq_k, lq_t)
         e_g = max(rel_max(ga_k, ga_t), rel_max(gb_k, gb_t))
-        check(e_y < 1e-5, f"K3f y rel err {e_y}")
-        check(e_lq < 1e-5, f"K3f lq rel err {e_lq}")
-        check(e_g < 1e-4, f"K3b grads rel err {e_g}")
-        errs["fwd"] = max(errs["fwd"], abs_max([(y_k, y_t)]))
-        errs["bwd"] = max(errs["bwd"], abs_max([(ga_k, ga_t), (gb_k, gb_t)]))
-        say(4, f"K3 total={IG_TOTAL} antithetic={anti}: y rel {e_y:.2e}, "
-               f"lq rel {e_lq:.2e}, ga/gb rel-of-max {e_g:.2e}")
+        what = f"K3 total={n_el} S={s_c} antithetic={anti!r}"
+        check(e_y < 1e-5, f"{what}: y rel err {e_y}")
+        check(e_lq < 1e-5, f"{what}: lq rel err {e_lq}")
+        check(e_g < 1e-4, f"{what}: grads rel err {e_g}")
+        if n_el == IG_TOTAL:
+            errs["fwd"] = max(errs["fwd"], abs_max([(y_k, y_t)]))
+            errs["bwd"] = max(errs["bwd"],
+                              abs_max([(ga_k, ga_t), (gb_k, gb_t)]))
+        say(4, f"{what}: y rel {e_y:.2e}, lq rel {e_lq:.2e}, ga/gb "
+               f"rel-of-max {e_g:.2e}")
+    del y_k, y_t, ga_t, gb_t, gy_c
 
     # ---- 5: K4 / K5 at the main-path shape
     errs["row_ll"] = 0.0
@@ -858,6 +946,57 @@ def main():
                + ", ".join(f"{k}: {v:.2e}" for k, v in lik_errs.items()))
     del args, args64, codes, out_k, out_t
 
+    def small_step_check(tag, cls, Xs, seed, plain_side, signed_vw=False,
+                         stratified=False, **kw):
+        """One ELBO step at a small size through every kernel (float32 on
+        the card, both samplers fused) against ``plain_side``, the plain
+        float64 model of the same arguments (CPU, unfused, the WH 'fast'
+        sampler), fed the same Philox draws.
+        ``signed_vw``: start v and w near 0 (see ``start_vw_near_zero``).
+        ``stratified``: the step with antithetic='stratified' (K3's
+        stratified stream; the Normal block's lattice from the generator,
+        since K6 takes no antithetic mode).
+        Tolerances as phase 6's first small step: loss 1e-4, gradients
+        1e-3 of the largest entry."""
+        pair = {"kernel": cls(
+            latent_dim=k_s, feature_dim=d_s,
+            u_tau_scale=1.0 / np.sqrt(n_s * d_s), data=dense_data(Xs),
+            dtype="float32", device="cuda", fused_likelihood=True,
+            gamma_sampler="fused", **kw), "plain": plain_side}
+        pair["kernel"]._surrogate.fused_normals = True
+        p0 = perturbed_init(pair["plain"], seed)
+        if signed_vw:
+            rng = np.random.default_rng(seed)
+            for name in ("v", "w"):
+                p0[name]["loc"] = 0.05 * rng.standard_normal(
+                    p0[name]["loc"].shape)
+        anti = "stratified" if stratified else False
+        before = read_launches()
+        res_k = step_grads(
+            pair["kernel"], p0,
+            {"counts": torch.as_tensor(Xs[:b_s], device=dev).float()}, None,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            antithetic=anti)
+        after = read_launches()
+        ran = [k for k in kernels if after[k] == before[k] + 1]
+        check(ran == ["stats", "fwd", "bwd"] + ([] if stratified
+                                                else ["nfwd", "nbwd"]),
+              f"{tag}: small step launched {ran}")
+        check(pair["kernel"].fusion_active, f"{tag}: small step unfused")
+        res_p = step_grads(pair["plain"], p0,
+                           {"counts": torch.as_tensor(Xs[:b_s]).double()},
+                           philox_draws(pair["plain"], seed, dev, stratified),
+                           antithetic=anti)
+        e_loss = abs(res_k[0] - res_p[0]) / abs(res_p[0])
+        e_grad = rel_max(res_k[1], res_p[1])
+        check(e_loss < 1e-4, f"{tag}: small-step loss rel err {e_loss}")
+        check(e_grad < 1e-3, f"{tag}: small-step grads rel err {e_grad}")
+        say(tag, f"small step (antithetic={anti!r}) through K1, K3"
+                 f"{'' if stratified else ', K6'} vs float64 plain path on "
+                 f"the same draws: loss {res_k[0]:.6f} vs "
+                 f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
+                 f"{e_grad:.2e}")
+
     # ---- 6: the dense slice through the normal entry point
     N = 8192    # two steps an epoch: depth cut to keep the script short
     gx = torch.Generator(device=dev).manual_seed(3)
@@ -896,6 +1035,28 @@ def main():
     say(6, f"fit: {sum(steps.values())} steps in {fit_s:.1f} s; losses "
            f"{ {k: [round(x, 4) for x in v] for k, v in losses.items()} }; "
            f"launches {launches}")
+    # antithetic='stratified' at S=8 and at S=4 (the arm of
+    # docs/stratified_experiment.json), one epoch each from the fitted model
+    for s_arm in (S, 4):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = models["reference"].fit(num_steps=1, learning_rate=0.01,
+                                       sample_size=s_arm,
+                                       antithetic="stratified",
+                                       verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = path_launches[f"dense stratified S={s_arm}"] = \
+            read_launches()
+        n_steps = N // 4096
+        check(np.isfinite(loss).all(), f"stratified S={s_arm}: losses {loss}")
+        check(launches["fwd"] >= n_steps and launches["bwd"] >= n_steps
+              and launches["stats"] >= n_steps,
+              f"stratified S={s_arm}: launches {launches}")
+        say(6, f"fit(antithetic='stratified', sample_size={s_arm}): "
+               f"{n_steps} steps in {fit_s:.1f} s; losses "
+               f"{[round(x, 4) for x in loss]}; launches {launches}")
 
     # one step at a small size, same draws: kernels (f32, card) vs the plain
     # float64 path (unfused, WH 'fast' sampler fed the same draws)
@@ -921,6 +1082,8 @@ def main():
     say(6, f"small step vs float64 plain path: loss {res['kernel'][0]:.6f} vs "
            f"{res['plain'][0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
            f"{e_grad:.2e}")
+    small_step_check(6, PoissonFactorization, Xs, 14,
+                     plain["poisson"].result(), stratified=True)
     dense_model = models["reference"]
     del models, small
 
@@ -954,49 +1117,6 @@ def main():
              f"losses {[round(x, 4) for x in loss_a]}; launches {launches} "
              f"(K6f: {steps_a} steps + 1 initial loss + {calib} for the "
              f"posterior means; K6b: one per step)")
-
-    def small_step_check(tag, cls, Xs, seed, plain_side, signed_vw=False,
-                         **kw):
-        """One ELBO step at a small size through every kernel (float32 on
-        the card, both samplers fused) against ``plain_side``, the plain
-        float64 model of the same arguments (CPU, unfused, the WH 'fast'
-        sampler), fed the same Philox draws.
-        ``signed_vw``: start v and w near 0 (see ``start_vw_near_zero``).
-        Tolerances as the small step above: loss 1e-4, gradients 1e-3 of
-        the largest entry."""
-        pair = {"kernel": cls(
-            latent_dim=k_s, feature_dim=d_s,
-            u_tau_scale=1.0 / np.sqrt(n_s * d_s), data=dense_data(Xs),
-            dtype="float32", device="cuda", fused_likelihood=True,
-            gamma_sampler="fused", **kw), "plain": plain_side}
-        pair["kernel"]._surrogate.fused_normals = True
-        p0 = perturbed_init(pair["plain"], seed)
-        if signed_vw:
-            rng = np.random.default_rng(seed)
-            for name in ("v", "w"):
-                p0[name]["loc"] = 0.05 * rng.standard_normal(
-                    p0[name]["loc"].shape)
-        before = read_launches()
-        res_k = step_grads(
-            pair["kernel"], p0,
-            {"counts": torch.as_tensor(Xs[:b_s], device=dev).float()}, None,
-            generator=torch.Generator(device=dev).manual_seed(seed))
-        after = read_launches()
-        ran = [k for k in kernels if after[k] == before[k] + 1]
-        check(ran == ["stats", "fwd", "bwd", "nfwd", "nbwd"],
-              f"{tag}: small step launched {ran}")
-        check(pair["kernel"].fusion_active, f"{tag}: small step unfused")
-        res_p = step_grads(pair["plain"], p0,
-                           {"counts": torch.as_tensor(Xs[:b_s]).double()},
-                           philox_draws(pair["plain"], seed, dev))
-        e_loss = abs(res_k[0] - res_p[0]) / abs(res_p[0])
-        e_grad = rel_max(res_k[1], res_p[1])
-        check(e_loss < 1e-4, f"{tag}: small-step loss rel err {e_loss}")
-        check(e_grad < 1e-3, f"{tag}: small-step grads rel err {e_grad}")
-        say(tag, f"small step through K1, K3, K6 vs float64 plain path on "
-                 f"the same Philox draws: loss {res_k[0]:.6f} vs "
-                 f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
-                 f"{e_grad:.2e}")
 
     small_step_check("A", PoissonFactorization, Xs, 15,
                      plain["poisson"].result())
@@ -1262,6 +1382,18 @@ def main():
         say(9, f"dense step B={Bt}: {ms:.2f} ms/step, {Bt / ms * 1e3:.0f} "
                f"rows/s, peak {mem:.2f} GB (median of 10; {smi})")
         say_profile(f"dense B={Bt}", profile_steps(step), smi)
+        if Bt == B:
+            # the sampler arms of docs/stratified_experiment.json at S=4
+            for s_arm, anti in ((4, True), (4, "stratified")):
+                arm = step_timer(dense_model, {
+                    "counts": xb, "indices": torch.arange(Bt, device=dev)},
+                    sample_size=s_arm, antithetic=anti)
+                ms, mem = time_steps(arm)
+                tag = f"dense B={Bt} S={s_arm} antithetic={anti!r}"
+                say(9, f"{tag}: {ms:.2f} ms/step, {Bt / ms * 1e3:.0f} "
+                       f"rows/s, peak {mem:.2f} GB (median of 10; {smi})")
+                say_profile(tag, profile_steps(arm), smi)
+                del arm
         del xb, step
     del dense_model
     for tag, m in sparse.items():
@@ -1291,12 +1423,43 @@ def main():
     th, vv, ee = args[0], args[1], args[4]
     kt["expsum"] = (cuda_ms(lambda: tfp._kernel_expsum(th, vv, ee)),
                     cuda_ms(lambda: tfp.expsum_twin(th, vv, ee)))
-    kt["fwd"] = (cuda_ms(lambda: tig._kernel_fwd(a, b, seed, S, False)),
-                 cuda_ms(lambda: tig.ig_twin_fwd(a, b, seed, S, False)))
-    kt["bwd"] = (cuda_ms(lambda: tig._kernel_bwd(a, b, seed, S, False, gy,
-                                                 glq)),
-                 cuda_ms(lambda: tig.ig_twin_bwd(a, b, seed, S, False, gy,
-                                                 glq)))
+    # K3 in its three modes at S=8 (the JSON line's entry: independent, the
+    # fit() default); twins beyond it timed 3 times after 1 warm-up
+    for anti in IG_MODES:
+        quick = dict(iters=3, warmup=1) if anti else {}
+        ig_t = {
+            "fwd": (cuda_ms(lambda: tig._kernel_fwd(a, b, seed, S, anti)),
+                    cuda_ms(lambda: tig.ig_twin_fwd(a, b, seed, S, anti),
+                            **quick)),
+            "bwd": (cuda_ms(lambda: tig._kernel_bwd(a, b, seed, S, anti, gy,
+                                                    glq)),
+                    cuda_ms(lambda: tig.ig_twin_bwd(a, b, seed, S, anti, gy,
+                                                    glq), **quick))}
+        if not anti:
+            kt.update(ig_t)
+        for kind, (k_ms, t_ms) in ig_t.items():
+            ms_b, by, pipe = ig_bound(kind, IG_TOTAL, S, anti)
+            old = (600 if kind == "fwd" else 700) * S * IG_TOTAL \
+                / PEAK_F32_OPS_PER_S * 1e3
+            info = tig.kernel_info(kind, anti, S)
+            say(9, f"K3{kind[0]} antithetic={anti!r}: kernel {k_ms:.3f} ms, "
+                   f"twin {t_ms:.3f} ms, bound {ms_b:.3f} ms ({by}: {pipe}; "
+                   f"{ms_b / k_ms:.1%} of it; {old:.3f} ms as 600 / 700 "
+                   f"float32 operations an element and sample); "
+                   f"{info['registers']} registers a "
+                   f"thread, {info['smem_bytes']} + "
+                   f"{info['static_smem_bytes']} bytes of shared memory a "
+                   f"block, {info['blocks_per_sm']} blocks an SM (occupancy "
+                   f"API) (float32, total={IG_TOTAL}, S={S}; {smi})")
+    for anti in (True, "stratified"):
+        k_f = cuda_ms(lambda: tig._kernel_fwd(a, b, seed, 4, anti))
+        k_b = cuda_ms(lambda: tig._kernel_bwd(a, b, seed, 4, anti, gy[:4],
+                                              glq[:4]))
+        b_f, b_b = (ig_bound(kind, IG_TOTAL, 4, anti)[0]
+                    for kind in ("fwd", "bwd"))
+        say(9, f"K3 S=4 antithetic={anti!r}: K3f {k_f:.3f} ms (bound "
+               f"{b_f:.3f}), K3b {k_b:.3f} ms (bound {b_b:.3f}) (float32, "
+               f"total={IG_TOTAL}; {smi})")
     mask = masks["gaussian"]
     kt["nfwd"] = (
         cuda_ms(lambda: tfn._kernel_fwd(n_loc, n_rs, mask, n_seed, S)),

@@ -33,11 +33,17 @@ __device__ __forceinline__ U4 philox4x32_10(U4 c, uint32_t k0, uint32_t k1) {
   return c;
 }
 
-// U = (bits >> 9) 2^-23 + 2^-24 lies on [2^-24, 1 - 2^-24]: log U is finite
-// and 1 - U is exact, so 2(1-U)-1 is the exact negation of 2U-1.
-__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
-  return __fadd_rn(__fmul_rn((float)(bits >> 9), 1.1920928955078125e-07f),
+// U = m 2^-23 + 2^-24 for a 23-bit integer m lies on [2^-24, 1 - 2^-24]:
+// log U is finite and 1 - U is exact, so 2(1-U)-1 is the exact negation of
+// 2U-1.
+__device__ __forceinline__ float uniform_from_u23(uint32_t m) {
+  return __fadd_rn(__fmul_rn((float)m, 1.1920928955078125e-07f),
                    5.9604644775390625e-08f);
+}
+
+// the uniform of a Philox word: its top 23 bits
+__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
+  return uniform_from_u23(bits >> 9);
 }
 
 __device__ __forceinline__ float softplusf(float x) {

@@ -9,9 +9,14 @@ log q_IG(b/g) - fldj_softplus(b/g).
 
 Randomness: Philox4x32-10 with key (seed, 0) and counter
 (flat element index, stream, j, 0) for j = 0, 1, 2; the 9 uniforms are the
-first 9 of the 12 words, in the order ``_draw_eps_s1_s2`` consumes them.
-stream = s % (S/2) in antithetic mode (the second half mirrors U -> 1-U),
-else s. The stream is keyed by element, not by tile, so the CUDA kernel
+first 9 of the 12 words, U_j = (word_j >> 9) 2^-23 + 2^-24, in the order
+``_draw_eps_s1_s2`` consumes them. Independent mode: stream = s.
+Antithetic: stream = s % (S/2), and the second half mirrors U -> 1-U.
+Stratified: stream 0 serves every sample of an element; pair p = s % (S/2)
+adds ``lattice_shift((p * _LATTICE_GENS[j]) % (S/2), S/2)`` to the 23-bit
+integer word_j >> 9 modulo 2^23 (j = 0 is eps, 1..8 the boost uniforms, the
+Korobov lattice of spmf_tpu's kernel), and the second half mirrors. The
+stream is keyed by element, not by tile, so the CUDA kernel
 (``csrc/fused_ig.cu``) and the plain PyTorch twin below draw the same bits
 and can be compared element by element.
 
@@ -27,13 +32,18 @@ import torch
 
 from spmf_tpu_torch.bijectors import softplus as _softplus
 from spmf_tpu_torch.ops import _build
-from spmf_tpu_torch.ops.gamma import _wh_value
+from spmf_tpu_torch.ops.gamma import _LATTICE_GENS, _wh_value, lattice_shift
 
 __all__ = ["LAUNCHES", "fused_ig_sample_logq", "ig_twin_fwd", "ig_twin_bwd",
-           "philox4x32", "uniform_from_bits", "uniforms"]
+           "kernel_info", "lattice_shift", "philox4x32", "uniform_from_bits",
+           "uniforms"]
 
 BOOST = 8
 _SQRT2 = 1.4142135623730951
+_MODES = {False: 0, True: 1, "stratified": 2}
+#: the most samples one K3f launch takes (its per-sample block sums fill
+#: 64 bytes of shared memory each)
+MAX_SAMPLES = 2048
 
 #: kernel launches, counted by the wrappers where they launch
 LAUNCHES = {"fwd": 0, "bwd": 0}
@@ -67,29 +77,57 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
+def _u23_to_uniform(m, dtype):
+    return m.to(dtype) * 2.0 ** -23 + 2.0 ** -24
+
+
 def uniform_from_bits(bits, dtype):
     """U = (bits >> 9) 2^-23 + 2^-24, on [2^-24, 1 - 2^-24] (log-safe,
     exactly mirrorable), from uint32 words held in int64."""
-    return (bits >> 9).to(dtype) * 2.0 ** -23 + 2.0 ** -24
+    return _u23_to_uniform(bits >> 9, dtype)
 
 
-def uniforms(total, stream, seed, dtype, device):
+def _pair_shifts(p, half):
+    """The bit-domain shifts of pair p for the 9 uniforms of a draw."""
+    return [lattice_shift((p * g) % half, half) for g in _LATTICE_GENS]
+
+
+def uniforms(total, stream, seed, dtype, device, pair=None, half=1):
     """The 9 uniforms (9, total) of one stream, on the grid of
-    ``uniform_from_bits``."""
+    ``uniform_from_bits``; with ``pair``, the stratified uniforms of that
+    pair of ``half`` (each 23-bit integer shifted by ``_pair_shifts``)."""
     idx = torch.arange(total, dtype=torch.int64, device=device)
     zero = torch.zeros_like(idx)
     words = []
     for j in range(3):
         words.extend(philox4x32(idx, zero + stream, zero + j, zero,
                                 int(seed) & _MASK, 0))
-    return uniform_from_bits(torch.stack(words[:BOOST + 1]), dtype)
+    m = torch.stack(words[:BOOST + 1]) >> 9
+    if pair is not None:
+        shift = torch.tensor(_pair_shifts(pair, half), dtype=torch.int64,
+                             device=device)
+        m = (m + shift[:, None]) & 0x7FFFFF
+    return _u23_to_uniform(m, dtype)
+
+
+def _mode(antithetic):
+    """The kernel's mode: 0 independent, 1 antithetic, 2 stratified."""
+    if antithetic not in _MODES:
+        raise ValueError(f"antithetic must be False, True or 'stratified', "
+                         f"got {antithetic!r}")
+    return _MODES[antithetic]
 
 
 def _draw_eps_s1_s2(a, seed, s, S, antithetic):
     """eps, s1, s2 for sample ``s`` (the replay contract of fwd and bwd)."""
-    half = S // 2 if antithetic else S
-    u = uniforms(a.shape[0], s % half, seed, a.dtype, a.device)
-    if antithetic and s >= half:
+    mode = _mode(antithetic)
+    half = S // 2 if mode else S
+    if mode == 2:
+        u = uniforms(a.shape[0], 0, seed, a.dtype, a.device, pair=s % half,
+                     half=half)
+    else:
+        u = uniforms(a.shape[0], s % half, seed, a.dtype, a.device)
+    if mode and s >= half:
         u = 1.0 - u
     eps = _SQRT2 * torch.erfinv(2.0 * u[0] - 1.0)
     w = 1.0 / (a + torch.arange(BOOST, dtype=a.dtype,
@@ -142,10 +180,7 @@ def _check_args(a, b, S, antithetic):
     if a.dim() != 1 or a.shape != b.shape:
         raise ValueError(f"a, b must be flat and equal-shaped, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
-    if antithetic == "stratified":
-        raise NotImplementedError(
-            "antithetic='stratified' is not ported to spmf_tpu_torch yet")
-    if antithetic and S % 2:
+    if _mode(antithetic) and S % 2:
         raise ValueError(f"antithetic sampling needs an even S, got {S}")
 
 
@@ -185,16 +220,29 @@ def ig_twin_bwd(a, b, seed, S, antithetic, gy, glq):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ig_fwd": [_P] * 7 + [_I] * 3 + [_P],
-    "ig_bwd": [_P] * 9 + [_I] * 3 + [_P],
+    "ig_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    "ig_kernel_info": [_I] * 3 + [_P],
 }
 _THREADS = 256
+_SHIFT_TABLES: dict = {}
 
 
 def _lib():
     return _build.load_library("fused_ig", _SIGNATURES)
 
 
-def _check_cuda(seed, *tensors):
+def _shift_table(half, device):
+    """The stratified mode's (half, 9) int32 table of ``_pair_shifts``, made
+    once per (half, device) and kept."""
+    key = (half, str(device))
+    if key not in _SHIFT_TABLES:
+        _SHIFT_TABLES[key] = torch.tensor(
+            [_pair_shifts(p, half) for p in range(half)], dtype=torch.int32,
+            device=device)
+    return _SHIFT_TABLES[key]
+
+
+def _check_cuda(seed, S, *tensors):
     for t in tensors:
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
@@ -205,48 +253,68 @@ def _check_cuda(seed, *tensors):
             or seed.numel() != 1 or seed.device != tensors[0].device):
         raise ValueError("seed must be a one-element int32 tensor on the "
                          "kernel's device")
+    if not 1 <= S <= MAX_SAMPLES or tensors[0].shape[0] == 0:
+        raise ValueError(f"the fused IG kernel takes 1 to {MAX_SAMPLES} "
+                         f"samples of a non-empty block, got S={S}, "
+                         f"total={tensors[0].shape[0]}")
+
+
+def _launch_args(a, S, antithetic):
+    """(mode, the shift table's pointer or 0, the current stream)."""
+    mode = _mode(antithetic)
+    shifts = _shift_table(S // 2, a.device).data_ptr() if mode == 2 else 0
+    return mode, shifts, torch.cuda.current_stream(a.device).cuda_stream
 
 
 def _kernel_fwd(a, b, seed, S, antithetic):
     _check_args(a, b, S, antithetic)
-    _check_cuda(seed, a, b)
+    _check_cuda(seed, S, a, b)
     total = a.shape[0]
-    logb = torch.log(b)
-    t0 = a * logb - torch.lgamma(a)
+    mode, shifts, stream = _launch_args(a, S, antithetic)
     y = torch.empty((S, total), dtype=torch.float32, device=a.device)
-    nblk = -(-total // _THREADS)
-    part = torch.empty((S, nblk), dtype=torch.float64, device=a.device)
+    part = torch.empty((S, -(-total // _THREADS)), dtype=torch.float64,
+                       device=a.device)
+    lq = torch.empty((S,), dtype=torch.float32, device=a.device)
     err = _lib().ig_fwd(
-        a.data_ptr(), b.data_ptr(), logb.data_ptr(), t0.data_ptr(),
-        seed.data_ptr(), y.data_ptr(), part.data_ptr(), total, S,
-        int(bool(antithetic)), torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), seed.data_ptr(), shifts, y.data_ptr(),
+        part.data_ptr(), lq.data_ptr(), total, S, mode, stream)
     _build.check(err, "ig_fwd")
     LAUNCHES["fwd"] += 1
-    return y, part.sum(1).to(torch.float32)
+    return y, lq
 
 
 def _kernel_bwd(a, b, seed, S, antithetic, gy, glq):
     _check_args(a, b, S, antithetic)
     gy = gy.to(torch.float32).contiguous()
     glq = glq.to(torch.float32).contiguous()
-    _check_cuda(seed, a, b, gy, glq)
+    _check_cuda(seed, S, a, b, gy, glq)
     if gy.shape != (S, a.shape[0]) or glq.shape != (S,):
         raise ValueError(f"cotangent shapes {tuple(gy.shape)}, "
                          f"{tuple(glq.shape)} do not match S={S}, "
                          f"total={a.shape[0]}")
-    total = a.shape[0]
-    logb = torch.log(b)
-    dg0 = logb - torch.digamma(a)
+    mode, shifts, stream = _launch_args(a, S, antithetic)
     ga = torch.empty_like(a)
     gb = torch.empty_like(b)
     err = _lib().ig_bwd(
-        a.data_ptr(), b.data_ptr(), logb.data_ptr(), dg0.data_ptr(),
-        seed.data_ptr(), glq.data_ptr(), gy.data_ptr(), ga.data_ptr(),
-        gb.data_ptr(), total, S, int(bool(antithetic)),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), seed.data_ptr(), shifts, glq.data_ptr(),
+        gy.data_ptr(), ga.data_ptr(), gb.data_ptr(), a.shape[0], S, mode,
+        stream)
     _build.check(err, "ig_bwd")
     LAUNCHES["bwd"] += 1
     return ga, gb
+
+
+def kernel_info(kind, antithetic=False, S=8):
+    """What the built library reports for K3f (``'fwd'``, at S samples) or
+    K3b (``'bwd'``) in a mode: registers per thread, static and dynamic
+    shared memory per block, and resident blocks per SM (the occupancy
+    API's). Needs the card."""
+    info = (ctypes.c_int * 4)()
+    err = _lib().ig_kernel_info(int(kind == "fwd"), _mode(antithetic), S,
+                                info)
+    _build.check(err, "ig_kernel_info")
+    return dict(zip(("registers", "static_smem_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
 
 
 class _FusedIG(torch.autograd.Function):
@@ -277,7 +345,10 @@ def fused_ig_sample_logq(a_flat, b_flat, seed, S, antithetic=False):
     a_flat, b_flat: (total,) constrained concentration / scale; seed: a
     one-element int32 tensor on the same device (read by the kernel on the
     device, so drawing it costs no host sync); S: sample count; antithetic:
-    samples s and s + S/2 use mirrored draws. Returns y (S, total) and
+    samples s and s + S/2 use mirrored draws, and 'stratified' also
+    lattice-couples the S/2 pairs (one base draw per element, pair p
+    shifted by the Korobov lattice in the bit domain, as in spmf_tpu's
+    kernel; the module docstring has the stream). Returns y (S, total) and
     logq (S,), the summed IG log-density minus the softplus
     forward-log-det-Jacobian. CUDA tensors go through the kernel (float32
     only, anything else raises); CPU tensors through the twin."""

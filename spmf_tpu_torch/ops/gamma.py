@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sample_gamma", "wilson_hilferty_gamma"]
+__all__ = ["lattice_shift", "lattice_uniform", "sample_gamma",
+           "wilson_hilferty_gamma"]
 
 _BOOST = 8
 
@@ -81,17 +82,86 @@ def _uniform(generator, shape, dtype, device):
     return torch.clamp_min(r * (1.0 - tiny) + tiny, tiny)
 
 
-def _mirror_base_draws(generator, shape, dtype, device, boost):
+# Korobov-style generators for multi-uniform draws: when one logical draw
+# consumes several uniforms (the WH gamma: 1 normal + 8 boost), giving each
+# its own lattice direction (u_jp = frac(u0_j + (p g_j mod H) / H)) makes the
+# H pairs equidistribute over the joint torus instead of tracing a 1-d
+# lockstep curve. All generators are odd (coprime with any power-of-2 H);
+# marginals are exact either way. The fused IG sampler's stream uses them
+# too (ops/fused_ig.py).
+_LATTICE_GENS = (1, 3299, 4919, 6029, 2543, 7723, 1031, 5501, 6577)
+
+
+def lattice_shift(p, half):
+    """floor(p * 2^23 / half) for pair index p < half (an int or an integer
+    tensor), as p q + (p r) // half with q, r = divmod(2^23, half): the split
+    quotient of the JAX package, which never forms p * 2^23 and keeps p * r
+    below 2^32."""
+    q, r = (1 << 23) // half, (1 << 23) % half
+    return p * q + (p * r) // half
+
+
+def lattice_uniform(generator, half, shape, dtype, device, gens=None,
+                    bits=None):
+    """``(half,) + shape`` uniforms stratified across the leading (pair)
+    axis: one 23-bit base integer per coordinate; pair ``p`` adds the
+    lattice shift floor((p g mod half) 2^23 / half) in the bit domain
+    (exact: no rounding of frac(u + p/half) near 1), then
+    u = bits 2^-23 + 2^-24, on the grid ``[2^-24, 1 - 2^-24]`` where log u
+    is finite and 1 - u exact. Each pair's u is marginally uniform.
+
+    ``gens``: optional generators, one per ``shape[0]`` (default 1 for every
+    coordinate). ``bits`` (tests): the base integers, of ``shape``, in place
+    of the generator's draw."""
+    if half > 65536:
+        raise ValueError(f"lattice_uniform supports at most 65536 pairs, "
+                         f"got {half}")
+    if bits is None:
+        bits = torch.randint(0, 1 << 23, tuple(shape), generator=generator,
+                             dtype=torch.int64, device=device)
+    else:
+        if not isinstance(bits, torch.Tensor):
+            bits = np.asarray(bits, np.int64)
+        bits = torch.as_tensor(bits, dtype=torch.int64, device=device)
+    H = max(half, 1)
+    p = torch.arange(half, dtype=torch.int64, device=device).reshape(
+        (half,) + (1,) * len(shape))
+    if gens is not None:
+        g = torch.tensor(gens, dtype=torch.int64, device=device).reshape(
+            (1, len(gens)) + (1,) * (len(shape) - 1))
+        p = (p * g) % H
+    b = (bits[None] + lattice_shift(p, H)) & 0x7FFFFF
+    return b.to(dtype) * 2.0 ** -23 + 2.0 ** -24
+
+
+def _mirror_base_draws(generator, shape, dtype, device, boost,
+                       stratified=False, bits=None):
     """Antithetic base randomness: the leading axis of ``shape`` is the
     sample axis (even); the second half mirrors the first (eps -> -eps,
     U -> 1-U), so each sample keeps its marginal law and the pairs are
-    negatively coupled."""
+    negatively coupled. ``stratified``: the pairs share one base draw per
+    coordinate, lattice-shifted across the pair axis (``lattice_uniform``;
+    eps = ndtri(u), the boost uniforms on ``_LATTICE_GENS[1:]``); ``bits``
+    (tests): their base integers, (eps bits, boost bits), of shape
+    ``shape[1:]`` and ``(boost,) + shape[1:]``."""
     S = shape[0]
     if S % 2:
         raise ValueError(
             f"antithetic sampling needs an even sample count, got {S}")
-    half = (S // 2,) + tuple(shape[1:])
+    H = S // 2
+    rest = tuple(shape[1:])
+    half = (H,) + rest
     tiny = torch.finfo(dtype).tiny
+    if stratified:
+        bits_e, bits_u = (None, None) if bits is None else bits
+        eps_h = torch.special.ndtri(lattice_uniform(
+            generator, H, rest, dtype, device, bits=bits_e))
+        eps = torch.cat([eps_h, -eps_h], dim=0)
+        u_b = lattice_uniform(generator, H, (boost,) + rest, dtype, device,
+                              gens=_LATTICE_GENS[1:boost + 1], bits=bits_u)
+        u_h = torch.movedim(u_b, 0, 1)          # (boost, H) + rest
+        # the grid is symmetric about 1/2: 1 - u is exact and >= 2^-24
+        return eps, torch.cat([u_h, 1.0 - u_h], dim=1)
     eps_h = torch.randn(half, generator=generator, dtype=dtype,
                         device=device)
     eps = torch.cat([eps_h, -eps_h], dim=0)
@@ -104,21 +174,21 @@ def _mirror_base_draws(generator, shape, dtype, device, boost):
 def wilson_hilferty_gamma(generator, concentration, boost: int = _BOOST,
                           antithetic: bool = False, draws=None):
     """Pathwise-differentiable Gamma(concentration, 1) sampler.
+    ``antithetic``: mirror the base draws across the leading (sample) axis;
+    'stratified' also lattice-couples the pairs (``_mirror_base_draws``).
 
     ``draws``: optional ``(eps, u)`` replacing the generator's draws —
     eps of the concentration's shape, u of shape ``(boost,) + shape``
     (already mirrored when the caller wants antithetic pairs)."""
     a = concentration
-    if antithetic == "stratified":
-        raise NotImplementedError(
-            "antithetic='stratified' is not ported to spmf_tpu_torch yet")
     if draws is not None:
         eps, u = (torch.as_tensor(
             d if isinstance(d, torch.Tensor) else np.array(d),
             dtype=a.dtype, device=a.device) for d in draws)
     elif antithetic:
         eps, u = _mirror_base_draws(generator, a.shape, a.dtype, a.device,
-                                    boost)
+                                    boost,
+                                    stratified=antithetic == "stratified")
     else:
         eps = torch.randn(a.shape, generator=generator, dtype=a.dtype,
                           device=a.device)
@@ -129,7 +199,9 @@ def wilson_hilferty_gamma(generator, concentration, boost: int = _BOOST,
 def sample_gamma(generator, concentration, method: str = "fast",
                  antithetic: bool = False, draws=None):
     """Gamma(concentration, 1). Only the pathwise 'fast' sampler is ported;
-    'exact' (rejection sampling with implicit gradients) raises."""
+    'exact' (rejection sampling with implicit gradients) raises.
+    ``antithetic``: False, True or 'stratified' (see
+    ``wilson_hilferty_gamma``)."""
     if method != "fast":
         raise NotImplementedError(
             f"gamma_sampler={method!r} is not ported to spmf_tpu_torch yet "

@@ -125,7 +125,9 @@ def fit_surrogate_posterior(
     the ELBO estimated by ``sample_size`` x ``sample_batches`` samples;
     ``prior_weight = batch_size / dataset_size`` is forwarded to the
     energy. Randomness comes from one ``torch.Generator`` seeded with
-    ``seed`` on the parameters' device."""
+    ``seed`` on the parameters' device. ``antithetic``: mirror the
+    surrogate's base draws across the (even) sample axis; 'stratified' also
+    couples the S/2 pairs on a randomly shifted Korobov lattice."""
     say = print if verbose else (lambda *a, **k: None)
     if checkpoint_dir is not None:
         raise NotImplementedError(
@@ -135,9 +137,6 @@ def fit_surrogate_posterior(
             "elbo_estimator='stl' is not ported to spmf_tpu_torch yet")
     if elbo_estimator != "standard":
         raise ValueError(f"unknown elbo_estimator {elbo_estimator!r}")
-    if antithetic == "stratified":
-        raise NotImplementedError(
-            "antithetic='stratified' is not ported to spmf_tpu_torch yet")
     if decay_schedule == "reference":
         # the reference engine's observed plateau decays are ~x0.93
         decay_rate = 0.93

@@ -215,9 +215,20 @@ class SurrogatePosterior:
         total = sum(self._sizes[n] for n in names)
         if eps is None:
             if antithetic:
+                # mirrored pairs eps_{s+S/2} = -eps_s; 'stratified' also
+                # couples the pairs with a randomly shifted lattice of base
+                # uniforms, eps_p = ndtri(frac(u0 + p/H)): each keeps the
+                # exact N(0, 1) marginal
                 S = sample_shape[0]
-                eps_h = torch.randn((S // 2, total), generator=generator,
-                                    dtype=self.dtype, device=self.device)
+                if antithetic == "stratified":
+                    from spmf_tpu_torch.ops.gamma import lattice_uniform
+
+                    eps_h = torch.special.ndtri(lattice_uniform(
+                        generator, S // 2, (total,), self.dtype,
+                        self.device))
+                else:
+                    eps_h = torch.randn((S // 2, total), generator=generator,
+                                        dtype=self.dtype, device=self.device)
                 eps = torch.cat([eps_h, -eps_h], dim=0)
             else:
                 eps = torch.randn(sample_shape + (total,),
@@ -325,16 +336,15 @@ class SurrogatePosterior:
     def sample_and_log_prob(self, params, generator, sample_shape=(),
                             antithetic=False, draws=None):
         """Joint reparameterized sample and log q. ``antithetic``: mirror
-        the base draws across the (1-d, even) sample axis.
+        the base draws across the (1-d, even) sample axis; 'stratified'
+        also lattice-couples the pairs (``ops.gamma.lattice_uniform``, and
+        the stratified stream of the fused IG sampler).
 
         ``draws`` (tests): a dict replacing the generator's draws —
         ``normal_eps`` (sample_shape + (total normal,)), and ``ig_eps`` /
         ``ig_u`` (sample_shape + (total IG,), and (8,) + that) for the
         'fast' IG sampler."""
         sample_shape = tuple(sample_shape)
-        if antithetic == "stratified":
-            raise NotImplementedError(
-                "antithetic='stratified' is not ported to spmf_tpu_torch yet")
         if antithetic and (len(sample_shape) != 1 or sample_shape[0] % 2):
             raise ValueError("antithetic sampling needs a 1-d even sample "
                              f"shape, got {sample_shape}")

@@ -125,8 +125,7 @@ def test_unported_fit_options_raise():
                              device="cpu",
                              data=ArrayDataset({"counts": X}).batch(16))
     for kw in (dict(checkpoint_dir="ckpt"), dict(resume_from="x.npz"),
-               dict(epoch_scan=True), dict(elbo_estimator="stl"),
-               dict(antithetic="stratified")):
+               dict(epoch_scan=True), dict(elbo_estimator="stl")):
         with pytest.raises(NotImplementedError):
             m.fit(num_steps=1, sample_size=2, verbose=False, **kw)
     with pytest.raises(TypeError):

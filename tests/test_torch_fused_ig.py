@@ -104,7 +104,7 @@ def test_eps_is_standard_normal():
     assert stats.kstest(eps.numpy(), "norm").pvalue > 1e-3
 
 
-@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("antithetic", [False, True, "stratified"])
 def test_replay_backward_matches_autograd(antithetic):
     """The autograd.Function's RNG-replay backward (twin path on CPU)
     against torch.autograd through the twin forward with the same stream."""
@@ -134,5 +134,5 @@ def test_twin_rejects_bad_arguments():
     a, b = (torch.ones(8), torch.ones(8))
     with pytest.raises(ValueError):
         tig.ig_twin_fwd(a, b, 0, 3, antithetic=True)
-    with pytest.raises(NotImplementedError):
-        tig.ig_twin_fwd(a, b, 0, 4, antithetic="stratified")
+    with pytest.raises(ValueError):
+        tig.ig_twin_fwd(a, b, 0, 3, antithetic="stratified")

@@ -46,7 +46,7 @@ def test_wh_value_and_vjp_match_jax(shape):
                                rtol=RTOL, atol=1e-300)
 
 
-@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("antithetic", [False, True, "stratified"])
 def test_sampler_with_jax_draws_matches_jax(antithetic):
     """wilson_hilferty_gamma from a key in JAX; the port fed the same base
     draws (reproduced from the key, mirrored in antithetic mode)."""
@@ -56,7 +56,9 @@ def test_sampler_with_jax_draws_matches_jax(antithetic):
     gj = jgamma.wilson_hilferty_gamma(key, jnp.asarray(a),
                                       antithetic=antithetic)
     if antithetic:
-        eps, u = jgamma._mirror_base_draws(key, (S, n), jnp.float64, 8)
+        eps, u = jgamma._mirror_base_draws(
+            key, (S, n), jnp.float64, 8,
+            stratified=antithetic == "stratified")
     else:
         kn, ku = jax.random.split(key)
         eps = jax.random.normal(kn, (S, n), jnp.float64)

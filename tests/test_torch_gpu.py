@@ -100,10 +100,16 @@ def test_fused_loglik_backward_runs_the_kernel(cuda):
         assert _rel_max(a.grad, r.grad) < 1e-4
 
 
-@pytest.mark.parametrize("antithetic", [False, True])
+IG_MODES = [False, True, "stratified"]
+
+
+#: (mode, S): S = 6 gives 3 pairs (no power of two), S = 5 an odd count
+IG_CASES = [(m, n) for m in IG_MODES for n in (2, 6, 8)] + [(False, 5)]
+
+
+@pytest.mark.parametrize("antithetic,S", IG_CASES)
 @pytest.mark.parametrize("total", [1000, 70001])
-def test_ig_kernels_match_twin(cuda, total, antithetic):
-    S = 4
+def test_ig_kernels_match_twin(cuda, total, antithetic, S):
     g = torch.Generator(device="cpu").manual_seed(2)
     a = (torch.rand(total, generator=g) * 5 + 0.3).to(cuda)
     b = (torch.rand(total, generator=g) * 3 + 0.1).to(cuda)
@@ -240,6 +246,47 @@ def test_ig_kernel_bits_are_pinned(cuda, antithetic):
     # half-ulp grid have no rounding to differ in
     y_t, _ = tig.ig_twin_fwd(a.double(), b.double(), seed, S, antithetic)
     np.testing.assert_allclose(y.cpu().numpy(), y_t.cpu().numpy(), rtol=1e-5)
+
+
+#: _bits_checksum of stratified K3f's y for the inputs of the pin above,
+#: taken on an NVIDIA H100 80GB HBM3 with nvcc 12.9 when the mode landed
+K3_Y_CHECKSUM_STRATIFIED = 17552979237665
+
+
+def test_ig_kernel_stratified_bits_are_pinned(cuda):
+    total, S = 4099, 4
+    a = torch.linspace(0.3, 6.0, total, device=cuda)
+    b = torch.linspace(3.0, 0.1, total, device=cuda)
+    seed = torch.tensor([20240607], dtype=torch.int32, device=cuda)
+    y, _ = tig._kernel_fwd(a, b, seed, S, "stratified")
+    assert _bits_checksum(y) == K3_Y_CHECKSUM_STRATIFIED
+    y_t, _ = tig.ig_twin_fwd(a.double(), b.double(), seed, S, "stratified")
+    np.testing.assert_allclose(y.cpu().numpy(), y_t.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("antithetic", IG_MODES)
+def test_ig_kernels_are_deterministic_and_launch_once(cuda, antithetic):
+    """K3f's log q partials are summed in a fixed order (two launches, the
+    same bits); through the autograd Function a step launches K3f and K3b
+    once each; the build reports no spill and the occupancy API at least
+    two blocks an SM for every instance."""
+    S, total = 8, 50001
+    g = torch.Generator(device="cpu").manual_seed(9)
+    a = (torch.rand(total, generator=g) * 5 + 0.3).to(cuda)
+    b = (torch.rand(total, generator=g) * 3 + 0.1).to(cuda)
+    seed = torch.tensor([31337], dtype=torch.int32, device=cuda)
+    first = tig._kernel_fwd(a, b, seed, S, antithetic)
+    second = tig._kernel_fwd(a, b, seed, S, antithetic)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    a.requires_grad_(True)
+    before = dict(tig.LAUNCHES)
+    y, lq = tig.fused_ig_sample_logq(a, b, seed, S, antithetic)
+    (y.sum() + lq.sum()).backward()
+    assert tig.LAUNCHES == {"fwd": before["fwd"] + 1,
+                            "bwd": before["bwd"] + 1}
+    for kind in ("fwd", "bwd"):
+        info = tig.kernel_info(kind, antithetic, S)
+        assert info["blocks_per_sm"] >= 2 and info["registers"] <= 128
 
 
 def _normal_inputs(total, dev, kind, seed=0):

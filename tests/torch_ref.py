@@ -83,7 +83,7 @@ def jax_draws(model, key, sample_size, antithetic=False):
     """The base draws JAX's SurrogatePosterior.sample_and_log_prob makes from
     ``key`` with gamma_sampler='fast': the 5-way split, one flattened
     normal for the Normal block, and wilson_hilferty_gamma's normal and
-    uniforms for the IG block (ops/gamma.py)."""
+    uniforms for the IG block (ops/gamma.py), in any antithetic mode."""
     from spmf_tpu.ops.gamma import _mirror_base_draws
 
     sur = model._surrogate
@@ -93,9 +93,18 @@ def jax_draws(model, key, sample_size, antithetic=False):
     tot_g = sum(sur._sizes[n] for n in sur._ig_names)
     shape = (sample_size, tot_g)
     if antithetic:
-        eps_h = jax.random.normal(kn, (sample_size // 2, tot_n), dtype)
+        if antithetic == "stratified":
+            from jax.scipy.special import ndtri
+
+            from spmf_tpu.ops.gamma import lattice_uniform
+
+            eps_h = ndtri(lattice_uniform(kn, sample_size // 2, (tot_n,),
+                                          dtype))
+        else:
+            eps_h = jax.random.normal(kn, (sample_size // 2, tot_n), dtype)
         normal_eps = jnp.concatenate([eps_h, -eps_h], axis=0)
-        ig_eps, ig_u = _mirror_base_draws(kg, shape, dtype, 8)
+        ig_eps, ig_u = _mirror_base_draws(
+            kg, shape, dtype, 8, stratified=antithetic == "stratified")
     else:
         normal_eps = jax.random.normal(kn, (sample_size, tot_n), dtype)
         kn2, ku = jax.random.split(kg)

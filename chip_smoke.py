@@ -7,8 +7,8 @@ Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
   2 build    nvcc builds csrc/*.cu for sm_90a, one process per source, at once
              (two threads meanwhile set up the small float64 CPU models of
-             the plain path); a register spill in fused_poisson's or
-             fused_ig's build log fails the run
+             the plain path); a register spill in fused_poisson's,
+             fused_expsum's or fused_ig's build log fails the run
   3 K1/K2    fused Poisson kernel vs its twin (float64 on the card) at the
              main-path shape S=8, B=1024, D=20000, K=32, with and without a
              rescue batch, and at a ragged one (B=1000, K=20: no multiple of
@@ -17,9 +17,9 @@ Phases, each printing lines; any failure raises and exits non-zero:
              (independent, antithetic, stratified) at total=1,400,064, S=8,
              and at a ragged total at S=6 and S=2, plus independent S=5
   5 K4/K5    row log-likelihood kernel (both links, and a rescue batch whose
-             NaN rows must match) and exp-rate-sum kernel vs their float64
-             twins at S=8, B=1024, D=20000, K=32 and at the ragged shape;
-             two K4 launches give the same bits
+             NaN rows must match) and exp-rate-sum kernel (split-TF32 tensor
+             cores) vs their float64 twins at S=8, B=1024, D=20000, K=32 and
+             at the ragged shape; two K4 launches give the same bits
   6 dense    PoissonFactorization(latent_dim=32, feature_dim=20000).fit(...)
              through the kernels, with launch counters, also with
              antithetic='stratified' at S=8 and S=4; one step at a small
@@ -31,6 +31,10 @@ Phases, each printing lines; any failure raises and exits non-zero:
              dense scatter (K1), with launch counters and the dispatch
              record; one blocked-COO step at a small size against the plain
              float64 path on the same draws
+  C 0.1%     the scRNA width at 0.1% density (N=32768 x D=20000, 655,360
+             nonzeros expected), flat decode, log link: one epoch under the
+             auto dispatch, which takes the COO energy (K5), and one with
+             sparse_dense_scatter=True (K1)
   8 scoring  log_likelihood of 4096 held-out rows (100 samples) and
              waic(subsample='batch') through K4; the COO row log-likelihood
              at a small size against the plain float64 path
@@ -57,9 +61,10 @@ Phases, each printing lines; any failure raises and exits non-zero:
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
-             sparse steps, and of the dense S4 antithetic and S4 stratified
-             arms; log_likelihood rows/s; K1 and K4 per likelihood and at
-             B=32768, with their registers, shared memory and blocks per SM;
+             sparse steps, of the two 0.1% arms (with K5's ms a step), and of
+             the dense S4 antithetic and S4 stratified arms; log_likelihood
+             rows/s; K1 and K4 per likelihood and at B=32768, K5 at B=32768,
+             with their registers, shared memory and blocks per SM;
              K3f / K3b and the twin in each mode, the bound per pipe, their
              registers, shared memory and blocks per SM; the mixed step
 Then the kernels as one JSON line, and as the last line
@@ -83,9 +88,11 @@ LIKELIHOODS = {"bernoulli": "bernoulli", "normal": ("normal", 1.0),
                "poisson_softplus": "poisson_softplus",
                "mixed": ("mixed", 1.0)}
 N_SPARSE, DENSITY, B_SPARSE = 32768, 0.03, 4096
+DENSITY_COO = 0.001   # under the auto dispatch's COO-energy bound (0.15%)
 # Peak rates from NVIDIA's H100 SXM data sheet
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 494.7e12    # dense, on the tensor cores
 # ... and per pipe, at the clock that data-sheet rate implies (128 float32
 # multiply-adds a clock on each of 132 SMs): the special-function unit's
 # transcendentals, 16 a clock and SM, and the 32-bit integer multiplies,
@@ -171,7 +178,7 @@ def bounds(B, total, n_total):
     K3 the least work per pipe (``ig_bound``, independent mode); for
     K6, about 150 per element and sample each way (10 Philox rounds of 8,
     erfinv, two softplus or sigmoids, a log), counted from
-    csrc/fused_normal.cu."""
+    csrc/fused_normal.cu. K5: ``expsum_bound``'s tensor route."""
     cells = S * B * D
     theta, v, vec = S * B * K, S * K * D, S * D
     stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * D + D)
@@ -180,8 +187,7 @@ def bounds(B, total, n_total):
            "static": bound(stats_bytes, cells * (6 * K + 2) + lgamma_ops),
            "row_ll": bound(4 * (theta + v + vec + B * D + D + S * B),
                            cells * (2 * K + 2) + lgamma_ops),
-           "expsum": bound(4 * (2 * theta + 2 * v + D + S),
-                           cells * (6 * K + 1)),
+           "expsum": expsum_bound(B)["tf32x3"][:2],
            "fwd": ig_bound("fwd", total, S, False)[:2],
            "bwd": ig_bound("bwd", total, S, False)[:2],
            "nfwd": bound(4 * (3 * n_total + S * n_total) + 8 * S,
@@ -189,6 +195,31 @@ def bounds(B, total, n_total):
            "nbwd": bound(4 * (3 * n_total + S * n_total + S + 2 * n_total),
                          150 * S * n_total)}
     return out
+
+
+def expsum_bound(B):
+    """K5's least time at S=8, D=20000, K=32 and B rows by route: (ms,
+    'bytes' | 'operations', what bounds it). 'tf32x3': its products (6 S B
+    D K flops: decode, dtheta, dv) as three TF32 passes on the tensor cores
+    at 494.7 TFLOP/s, the float32 accuracy its kernel buys with the split,
+    against the exps (one special-function operation a cell and sample, 16
+    a clock and SM); 'fp32': the products once on the FP32 pipes at 67
+    TFLOP/s with an operation per exp (how ``bound`` counted K5 before it
+    moved to the tensor cores). Bytes: theta, v and eta read, dtheta, dv
+    and S sums written."""
+    cells = S * B * D
+    flops = 6 * K * cells
+    n_bytes = 4 * (2 * S * B * K + 2 * S * K * D + D + S)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    pipe, t_o = max((("tensor cores, 3 TF32 passes",
+                      3 * flops / PEAK_TF32_OPS_PER_S * 1e3),
+                     ("transcendentals", cells / PEAK_MUFU_PER_S * 1e3)),
+                    key=lambda p: p[1])
+    fp32 = bound(n_bytes, flops + cells)
+    return {"tf32x3": (t_o, "operations", pipe) if t_o >= t_b
+            else (t_b, "bytes", "memory"),
+            "fp32": fp32 + ("FP32 pipes" if fp32[1] == "operations"
+                            else "memory",)}
 
 
 def ig_bound(kind, total, n_samples, antithetic):
@@ -484,8 +515,8 @@ def time_steps(step, n=13, skip=3):
 def profile_steps(step, n=5):
     """torch.profiler over ``n`` steps after one warm-up: (wall ms/step,
     device-busy ms/step, the six costliest device kernels as (name,
-    ms/step), device kernels launched per step); busy is None when the
-    profiler saw no device time."""
+    ms/step), device kernels launched per step, {kernel name: ms/step});
+    busy is None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -512,11 +543,12 @@ def profile_steps(step, n=5):
     top = sorted(events, key=dev_us, reverse=True)[:6]
     count = sum(e.count for e in events) / n
     return wall, (busy or None), [(e.key[:70], dev_us(e) / 1e3 / n)
-                                  for e in top], count
+                                  for e in top], count, {
+        e.key: dev_us(e) / 1e3 / n for e in events}
 
 
 def say_profile(tag, prof, smi):
-    wall, busy, top, count = prof
+    wall, busy, top, count = prof[:4]
     share = f"{busy:.2f} ms/step busy ({busy / wall:.1%})" if busy else \
         "device time not measured (the profiler saw none)"
     say(9, f"profile {tag}: {wall:.2f} ms/step wall, {share}, {count:.0f} "
@@ -598,13 +630,13 @@ def main():
     plain_pool.shutdown(wait=False)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(tfp._lib), pool.submit(tig._lib),
-                  pool.submit(tfn._lib)]:
+    with ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(tfp._lib), pool.submit(tfp._expsum_lib),
+                  pool.submit(tig._lib), pool.submit(tfn._lib)]:
             f.result()
     say(2, f"built {sorted(_build.BUILD_SECONDS)} in "
            f"{time.perf_counter() - t0:.1f} s (nvcc {_build.NVCC_FLAGS})")
-    for lib in ("fused_poisson", "fused_ig", "fused_normal"):
+    for lib in ("fused_poisson", "fused_expsum", "fused_ig", "fused_normal"):
         # ptxas -v: one (name, spill, registers) triple of lines per kernel
         with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
             lines = [ln.strip() for ln in f]
@@ -618,10 +650,12 @@ def main():
               f"{lib} spills registers: {spills}")
     for kind in ("stats", "row_ll", "expsum"):
         geom = tfp.launch_geometry(kind, S, 4096, K, D)
-        check(geom.smem_bytes == tfp._lib().poisson_smem_bytes(
-            int(kind == "row_ll"), K),
-            f"{kind}: launch_geometry and the library disagree on shared "
-            f"memory ({geom})")
+        lib_smem = (tfp._expsum_lib().expsum_smem_bytes(K) if kind == "expsum"
+                    else tfp._lib().poisson_smem_bytes(int(kind == "row_ll"),
+                                                       K))
+        check(geom.smem_bytes == lib_smem,
+              f"{kind}: launch_geometry and the library disagree on shared "
+              f"memory ({geom}, library {lib_smem})")
 
     #: launch counters by kernel, as the JSON line names them
     counters = {"stats": (tfp.LAUNCHES, "stats"),
@@ -1153,10 +1187,10 @@ def main():
            f"{blocked.block_nnz} slots; built in "
            f"{time.perf_counter() - t0:.1f} s")
 
-    def scrna_model(data, **kw):
+    def scrna_model(data, norms=col_means, **kw):
         return PoissonFactorization(
             latent_dim=K, feature_dim=D, log_transform=True,
-            column_norms=col_means, u_tau_scale=1.0 / np.sqrt(N_SPARSE * D),
+            column_norms=norms, u_tau_scale=1.0 / np.sqrt(N_SPARSE * D),
             dtype="float32", device="cuda", data=data, **kw)
 
     sparse = {"blocked": scrna_model(blocked),
@@ -1215,6 +1249,41 @@ def main():
     say(7, f"small blocked-COO step vs float64 plain path: loss "
            f"{res['kernel'][0]:.6f} vs {res['plain'][0]:.6f} (rel "
            f"{e_loss:.2e}), grads rel-of-max {e_grad:.2e}")
+
+    # ---- C: the scRNA width at 0.1% density, where the auto dispatch takes
+    # the COO energy (K5 every step), and the same batches densified for K1
+    t0 = time.perf_counter()
+    sp_c, norms_c = sparse_counts(N_SPARSE, D, DENSITY_COO, 41, dev)
+    sp_c.shuffle(seed=0).batch(B_SPARSE, drop_remainder=True).as_coo()
+    flat_c = sp_c.to_device(device="cuda")
+    say("C", f"data: {N_SPARSE} x {D}, {len(sp_c.data)} nonzeros (density "
+             f"{sp_c.density:.5f}), flat decode; built in "
+             f"{time.perf_counter() - t0:.1f} s")
+    coo_arms = {"auto": scrna_model(flat_c, norms=norms_c),
+                "scatter": scrna_model(flat_c, norms=norms_c,
+                                       sparse_dense_scatter=True)}
+    for tag, m in coo_arms.items():
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = m.fit(num_steps=1, learning_rate=0.01, sample_size=S,
+                     verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = path_launches[f"C 0.1% {tag}"] = read_launches()
+        check(np.isfinite(loss).all(), f"C {tag}: non-finite losses {loss}")
+        if tag == "auto":
+            check(launches["expsum"] >= sparse_steps, f"C {tag}: {launches}")
+            check(not m.fusion_active and m.fusion_inactive_reason.startswith(
+                "sparse COO gather energy"),
+                f"C {tag}: the dispatch took {m.fusion_inactive_reason!r}")
+        else:
+            check(launches["stats"] >= sparse_steps, f"C {tag}: {launches}")
+            check(m.fusion_active and m.fusion_inactive_reason is None,
+                  f"C {tag}: dispatch {m.fusion_inactive_reason}")
+        say("C", f"{tag}: {sparse_steps} steps in {fit_s:.1f} s, losses "
+                 f"{[round(x, 4) for x in loss]}; dispatch "
+                 f"{m.fusion_inactive_reason!r}; launches {launches}")
 
     # ---- 8: scoring through K4
     held, _ = sparse_counts(B_SPARSE, D, DENSITY, 13, dev)
@@ -1396,22 +1465,26 @@ def main():
                 del arm
         del xb, step
     del dense_model
-    for tag, m in sparse.items():
+    arms = [(f"sparse {tag}", m) for tag, m in sparse.items()] + [
+        (f"sparse 0.1% {tag}", m) for tag, m in coo_arms.items()]
+    for tag, m in arms:
         batch = _device_batch(next(iter(m.data())), m.dtype, m.device)
         step = step_timer(m, batch)
         ms, mem = time_steps(step)
-        say(9, f"sparse {tag} step B={B_SPARSE}: {ms:.2f} ms/step, "
+        prof = profile_steps(step)
+        k5 = sum(t for k, t in prof[4].items() if "expsum_kernel" in k)
+        say(9, f"{tag} step B={B_SPARSE}: {ms:.2f} ms/step, "
                f"{B_SPARSE / ms * 1e3:.0f} rows/s, peak {mem:.2f} GB "
-               f"(median of 10; {smi})")
-        say_profile(f"sparse {tag} B={B_SPARSE}", profile_steps(step), smi)
-        del step
+               f"(median of 10); K5 {k5:.3f} ms a step (profile) ({smi})")
+        say_profile(f"{tag} B={B_SPARSE}", prof, smi)
+        del step, batch
     t0 = time.perf_counter()
     scorer.log_likelihood(held, num_samples=100, sample_chunk=8)
     torch.cuda.synchronize()
     ll_s = time.perf_counter() - t0
     say(9, f"log_likelihood B={B_SPARSE}, 100 samples: {ll_s:.3f} s, "
            f"{B_SPARSE / ll_s:.0f} rows/s ({smi})")
-    del sparse, scorer, blocked, flat
+    del sparse, scorer, blocked, flat, coo_arms, flat_c, sp_c
 
     args = stats_inputs(B, dev, seed=6)
     kt = {}
@@ -1477,21 +1550,30 @@ def main():
                f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
                f"of it) (float32, {sizes.get(key, 'B=' + str(B))}, S={S}; "
                f"{smi})")
+    eb = expsum_bound(B)
+    say(9, f"expsum bound by route: {eb['tf32x3'][0]:.3f} ms "
+           f"({eb['tf32x3'][2]}), {eb['fp32'][0]:.3f} ms ({eb['fp32'][2]}: "
+           f"the products once in float32); the kernel reads "
+           f"{eb['tf32x3'][0] / kt['expsum'][0]:.1%} of the first and "
+           f"{eb['fp32'][0] / kt['expsum'][0]:.1%} of the second (B={B})")
 
     # K1 and K4 at the other dense arm, B=32768, and what the build and the
     # occupancy API say of them
     big = stats_inputs(32768, dev, seed=6)
     bd_big = bounds(32768, IG_TOTAL, N_TOTAL)
     for key, fn in (("stats", lambda: tfp._kernel_stats(*big, False, False)),
-                    ("row_ll", lambda: tfp._kernel_row_ll(*big, True))):
+                    ("row_ll", lambda: tfp._kernel_row_ll(*big, True)),
+                    ("expsum", lambda: tfp._kernel_expsum(big[0], big[1],
+                                                          big[4]))):
         k_ms = cuda_ms(fn, iters=5, warmup=1)
         say(9, f"{key} at B=32768: kernel {k_ms:.3f} ms, bound "
                f"{bd_big[key][0]:.3f} ms ({bd_big[key][1]}; "
                f"{bd_big[key][0] / k_ms:.1%} of it) (float32, S={S}; {smi})")
     del big
-    for kind in ("stats", "row_ll"):
+    for kind in ("stats", "row_ll", "expsum"):
         info = tfp.kernel_info(kind, K)
-        say(9, f"{kind}_kernel (Poisson, identity link, K={K}): "
+        what = "" if kind == "expsum" else "Poisson, identity link, "
+        say(9, f"{kind}_kernel ({what}K={K}): "
                f"{info['registers']} registers a thread, "
                f"{info['smem_bytes']} + {info['static_smem_bytes']} bytes of "
                f"shared memory a block, {info['blocks_per_sm']} blocks an SM "
@@ -1536,7 +1618,7 @@ def main():
                    "spmf_tpu_torch/csrc/fused_poisson.cu",
                    "spmf_tpu/ops/fused_poisson.py:768"),
         "expsum": ("fused_exp_rate_sum (K5)",
-                   "spmf_tpu_torch/csrc/fused_poisson.cu",
+                   "spmf_tpu_torch/csrc/fused_expsum.cu",
                    "spmf_tpu/ops/fused_poisson.py:872"),
         "fwd": ("fused_ig_fwd (K3f)", "spmf_tpu_torch/csrc/fused_ig.cu",
                 "spmf_tpu/ops/fused_ig.py:193"),

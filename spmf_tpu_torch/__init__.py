@@ -18,9 +18,10 @@ from spmf_tpu_torch.models import (  # noqa: F401
     MixedFactorization,
     PoissonFactorization,
     PoissonMatrixFactorization,
+    load_model,
 )
 
 __all__ = ["distributions", "bijectors", "BayesianModel",
            "PoissonFactorization", "BernoulliFactorization",
            "GaussianFactorization", "MixedFactorization",
-           "PoissonMatrixFactorization", "__version__"]
+           "PoissonMatrixFactorization", "load_model", "__version__"]

@@ -1,10 +1,10 @@
-from .base import BayesianModel
+from .base import BayesianModel, load_model
 from .bernoulli import BernoulliFactorization
 from .gaussian import GaussianFactorization
 from .legacy import PoissonMatrixFactorization
 from .mixed import MixedFactorization
 from .poisson import PoissonFactorization
 
-__all__ = ["BayesianModel", "PoissonFactorization", "BernoulliFactorization",
+__all__ = ["BayesianModel", "load_model", "PoissonFactorization", "BernoulliFactorization",
            "GaussianFactorization", "MixedFactorization",
            "PoissonMatrixFactorization"]

@@ -14,7 +14,23 @@ from spmf_tpu_torch.data import as_data_factory
 from spmf_tpu_torch.vi.minibatch import fit_surrogate_posterior
 from spmf_tpu_torch.vi.waic import waic as _waic
 
-__all__ = ["BayesianModel"]
+__all__ = ["BayesianModel", "load_model"]
+
+#: where the API that the port does not carry yet is queued
+_API_ITEM = "ROADMAP.md section 1, item 1 (the rest of the models' API)"
+_PERSISTENCE_ITEM = "ROADMAP.md section 1, item 2 (persistence and resume)"
+
+
+def not_ported(name, item):
+    """The refusal of an API name of spmf_tpu that the port lacks: a
+    NotImplementedError naming the ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{name} is not ported to spmf_tpu_torch yet ({item})")
+
+
+def load_model(path, **overrides):
+    """Refused: reloading a saved model (spmf_tpu's ``load_model``)."""
+    raise not_ported("load_model", _PERSISTENCE_ITEM)
 
 #: fit() options of the JAX engine that this port does not carry yet
 _NOT_PORTED = ("profile_dir", "remat_sampling", "opt_state", "param_sharding",
@@ -55,6 +71,28 @@ class BayesianModel:
 
     def unormalized_log_prob(self, data=None, prior_weight=1.0, **params):
         raise NotImplementedError  # pragma: no cover - abstract
+
+    @property
+    def surrogate_distribution(self):
+        """Refused: the bound surrogate view with ``sample``."""
+        raise not_ported("surrogate_distribution", _API_ITEM)
+
+    @property
+    def surrogate_vars(self):
+        """Refused: the surrogate's variables."""
+        raise not_ported("surrogate_vars", _API_ITEM)
+
+    def save(self, path):
+        """Refused: the npz of class, config and parameters."""
+        raise not_ported("save", _PERSISTENCE_ITEM)
+
+    def load_params(self, path):
+        """Refused: parameters from a saved npz."""
+        raise not_ported("load_params", _PERSISTENCE_ITEM)
+
+    def reconstitute(self, state):
+        """Refused: parameters from a state dict."""
+        raise not_ported("reconstitute", _PERSISTENCE_ITEM)
 
     def _energy(self, batch, samples, prior_weight):
         return self.unormalized_log_prob(data=batch,

@@ -28,7 +28,7 @@ import torch
 from spmf_tpu_torch import bijectors as tfb
 from spmf_tpu_torch import distributions as tfd
 from spmf_tpu_torch.data import as_data_factory
-from spmf_tpu_torch.models.base import BayesianModel
+from spmf_tpu_torch.models.base import _API_ITEM, BayesianModel, not_ported
 from spmf_tpu_torch.vi.surrogates import (
     SurrogatePosterior,
     TrainableInverseGamma,
@@ -267,6 +267,10 @@ class PoissonFactorization(BayesianModel):
         if self.scale_rows:
             z = z * (torch.sum(x, dim=-1, keepdim=True) / self.xi_u_global)
         return z
+
+    def encode_batched(self, x, u=None, s=None, row_chunk=8192):
+        """Refused: ``encode`` streamed over row chunks."""
+        raise not_ported("encode_batched", _API_ITEM)
 
     def encode_sparse(self, sparse_counts, u=None, s=None):
         """Encode a CSR ``SparseCounts`` without densifying
@@ -817,6 +821,14 @@ class PoissonFactorization(BayesianModel):
         ):
             return False, "custom decoder_function overrides the decode link"
         return True, None
+
+    def predictive_distribution(self, s, u, v, w, data, **kwargs):
+        """Refused: the sample-reduced predictive log-likelihood."""
+        raise not_ported("predictive_distribution", _API_ITEM)
+
+    def unormalized_log_prob_list(self, *x):
+        """Refused: ``unormalized_log_prob`` with positional arguments."""
+        raise not_ported("unormalized_log_prob_list", _API_ITEM)
 
     def unormalized_log_prob(self, data=None, prior_weight=1.0, **params):
         # the reference hard-codes prior_weight=1. when forwarding to the

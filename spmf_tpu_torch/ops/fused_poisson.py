@@ -31,10 +31,11 @@ energy's rate total under the log link, R_s = sum exp((theta_s @ v_s) *
 eta), is ``fused_exp_rate_sum``; like K1 its kernel emits the gradients at
 unit cotangent from the same tiles, so the backward is a rescale.
 
-Each wrapper launches its kernel (``csrc/fused_poisson.cu``) for CUDA
-tensors and runs its twin (``stats_twin``, ``row_loglik_twin``,
-``expsum_twin``) for CPU tensors. The twins are the explicit formulas over
-the whole (B, D) slab of each sample, for any dtype and device.
+Each wrapper launches its kernel (K1/K2 and K4 in ``csrc/fused_poisson.cu``,
+K5 in ``csrc/fused_expsum.cu``) for CUDA tensors and runs its twin
+(``stats_twin``, ``row_loglik_twin``, ``expsum_twin``) for CPU tensors. The
+twins are the explicit formulas over the whole (B, D) slab of each sample,
+for any dtype and device.
 """
 from __future__ import annotations
 
@@ -278,14 +279,20 @@ def expsum_twin(theta, v, eta):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"poisson_stats": [_P] * 13 + [_I] * 7 + [_F] * 2 + [_P],
                "poisson_row_ll": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
-               "poisson_expsum": [_P] * 6 + [_I] * 4 + [_P],
                "poisson_smem_bytes": [_I, _I],
                "poisson_kernel_info": [_I, _I, _P]}
-# The tiling of csrc/fused_poisson.cu (its constants of the same names; the
-# GPU tests hold launch_geometry to the library's poisson_smem_bytes).
+_EXPSUM_SIGNATURES = {"poisson_expsum": [_P] * 6 + [_I] * 4 + [_P],
+                      "expsum_smem_bytes": [_I],
+                      "expsum_kernel_info": [_I, _P]}
+# The tilings of csrc/fused_poisson.cu and csrc/fused_expsum.cu (their
+# constants of the same names; the GPU tests hold launch_geometry to the
+# libraries' poisson_smem_bytes and expsum_smem_bytes).
 _THREADS, _TB, _TD, _K_STEP = 256, 128, 64, 4
 _TBP, _TP, _NLANE, _TABLE_N = _TB + 4, _TD + 4, 3, 64
-_STATIC_SMEM = {"stats": 128, "expsum": 128, "row_ll": 8 * _TB}
+# K5: k-steps of 8 (mma.m16n8k8), K <= 64 (its dtheta sums live in
+# registers), v and G tiles at pitch 72, two blocks an SM to K = 32
+_EXPSUM_K_STEP, _EXPSUM_K_MAX, _VP = 8, 64, _TD + 8
+_STATIC_SMEM = {"stats": 128, "expsum": 8 * 8, "row_ll": 8 * _TB}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 _SMEM_PER_SM = 233472       # ... and an SM holds, each block reserving 1 KB
 
@@ -303,7 +310,8 @@ class LaunchGeometry(typing.NamedTuple):
     stages: int          # tile buffers of x and of v in shared memory
     smem_bytes: int      # dynamic shared memory per block
     static_smem_bytes: int
-    blocks_per_sm: int   # resident blocks an SM's shared memory allows
+    blocks_per_sm: int   # resident blocks an SM's shared memory allows (K5:
+                         # and its launch bounds, 2 to K = 32, else 1)
     row_tiles: int
     col_tiles: int
     grid: int            # blocks: samples * row_tiles
@@ -318,30 +326,45 @@ class LaunchGeometry(typing.NamedTuple):
 def launch_geometry(kind, S, B, K, D):
     """The launch geometry of K1/K2 (``'stats'``), K4 (``'row_ll'``) or K5
     (``'expsum'``) at theta (S, B, K) and D features; raises ``ValueError``
-    for a latent dimension whose tiles do not fit a block's shared memory.
-    Plain arithmetic on the tiling constants: no card needed."""
+    for a latent dimension whose tiles do not fit a block's shared memory,
+    or past K5's instances (K > 64). Plain arithmetic on the tiling
+    constants: no card needed."""
     if kind not in _STATIC_SMEM:
         raise ValueError(f"unknown kernel kind {kind!r}")
-    kp = -(-K // _K_STEP) * _K_STEP
+    k_step = _EXPSUM_K_STEP if kind == "expsum" else _K_STEP
+    kp = -(-K // k_step) * k_step
     v_tile = (kp + _NLANE) * _TP          # v rows, then eta, phi, codes
     if kind == "row_ll":                  # theta^T, 2 x (v, x), the table
         stages = 2
         floats = kp * _TBP + 2 * v_tile + 2 * _TB * _TD + _TABLE_N
-    else:       # theta^T, dtheta, v, x, dtv, dphi, the table
+    elif kind == "stats":  # theta^T, dtheta, v, x, dtv, dphi, the table
         stages = 1
         floats = (kp * _TBP + _TB * kp + v_tile + _TB * _TD + _TB * _TP
                   + _TD + _TABLE_N)
+    else:   # the raw v tile with eta, v hi/lo, eta, theta^T hi/lo, G
+        if kp > _EXPSUM_K_MAX:
+            raise ValueError(
+                f"latent dim K={K} is too wide for the expsum kernel "
+                f"(K <= {_EXPSUM_K_MAX}: its dtheta sums live in "
+                "registers)")
+        stages = 2
+        kp16 = -(-kp // 16) * 16
+        floats = ((kp + 1) * _TD + 2 * kp * _VP + _TD + 2 * kp16 * _TBP
+                  + _TB * _VP)
     smem, static = 4 * floats, _STATIC_SMEM[kind]
     if smem + static > _SMEM_LIMIT:
         raise ValueError(
             f"latent dim K={K} is too wide for the {kind} kernel's "
             f"shared-memory tiles ({smem + static} bytes of {_SMEM_LIMIT})")
+    blocks = _SMEM_PER_SM // (smem + static + 1024)
+    if kind == "expsum":    # __launch_bounds__(256, 2) to K = 32, else 1
+        blocks = min(blocks, 2 if kp <= 32 else 1)
     row_tiles = -(-B // _TB)
     return LaunchGeometry(
         kind=kind, samples=S, rows=B, threads=_THREADS, row_tile=_TB,
-        col_tile=_TD, k_step=_K_STEP, k_padded=kp, stages=stages,
+        col_tile=_TD, k_step=k_step, k_padded=kp, stages=stages,
         smem_bytes=smem, static_smem_bytes=static,
-        blocks_per_sm=_SMEM_PER_SM // (smem + static + 1024),
+        blocks_per_sm=blocks,
         row_tiles=row_tiles, col_tiles=-(-D // _TD), grid=S * row_tiles)
 
 
@@ -366,14 +389,22 @@ def _lib():
     return _build.load_library("fused_poisson", _SIGNATURES)
 
 
+def _expsum_lib():
+    return _build.load_library("fused_expsum", _EXPSUM_SIGNATURES)
+
+
 def kernel_info(kind, K):
     """What the built library reports for the Poisson identity-link instance
-    of K1 (``'stats'``) or K4 (``'row_ll'``) at latent dimension K:
-    registers per thread, static and dynamic shared memory per block, and
-    resident blocks per SM (the occupancy API's). Needs the card."""
+    of K1 (``'stats'``) or K4 (``'row_ll'``), or for K5 (``'expsum'``), at
+    latent dimension K: registers per thread, static and dynamic shared
+    memory per block, and resident blocks per SM (the occupancy API's).
+    Needs the card."""
     info = (ctypes.c_int * 4)()
-    err = _lib().poisson_kernel_info(int(kind == "row_ll"), K, info)
-    _build.check(err, "poisson_kernel_info")
+    if kind == "expsum":
+        err = _expsum_lib().expsum_kernel_info(K, info)
+    else:
+        err = _lib().poisson_kernel_info(int(kind == "row_ll"), K, info)
+    _build.check(err, f"{kind} kernel_info")
     return dict(zip(("registers", "static_smem_bytes", "smem_bytes",
                      "blocks_per_sm"), info))
 
@@ -466,7 +497,7 @@ def _kernel_expsum(theta, v, eta):
     psum = torch.empty((S, geom.row_tiles), dtype=torch.float64, device=dev)
     dtheta = torch.empty((S, B, K), dtype=torch.float32, device=dev)
     dv = torch.zeros((S, K, D), dtype=torch.float32, device=dev)
-    err = _lib().poisson_expsum(
+    err = _expsum_lib().poisson_expsum(
         theta.data_ptr(), v.data_ptr(), eta.data_ptr(), psum.data_ptr(),
         dtheta.data_ptr(), dv.data_ptr(), S, B, K, D,
         torch.cuda.current_stream(dev).cuda_stream)

@@ -26,6 +26,7 @@ __all__ = [
     "SurrogatePosterior",
     "build_trainable_normal_dist",
     "build_trainable_InverseGamma_dist",
+    "build_surrogate_posterior",
 ]
 
 _softplus = tfb.Softplus()
@@ -404,3 +405,11 @@ def build_trainable_InverseGamma_dist(concentration, scale, ndims=None,
     del strategy
     return TrainableInverseGamma(concentration, scale, event_ndims=ndims,
                                  dtype=dtype, device=device)
+
+
+def build_surrogate_posterior(joint_prior, bijectors, dtype=None,
+                              strategy=None, init_loc=None, init_scale=None):
+    """Refused: a mean-field surrogate built for any named joint prior."""
+    raise NotImplementedError(
+        "build_surrogate_posterior is not ported to spmf_tpu_torch yet "
+        "(ROADMAP.md section 1, item 1 (the rest of the models' API))")

@@ -153,7 +153,7 @@ def test_launch_geometry_covers_the_batch(shape, kind):
     assert g.k_padded % g.k_step == 0 and K <= g.k_padded < K + g.k_step
     assert g.smem_bytes + g.static_smem_bytes <= 232448
     assert g.blocks_per_sm >= 1
-    assert g.threads == 256 and g.stages == (2 if kind == "row_ll" else 1)
+    assert g.threads == 256 and g.stages == (1 if kind == "stats" else 2)
     assert g.grid == S * g.row_tiles
     assert g.col_tiles * g.col_tile >= D > (g.col_tiles - 1) * g.col_tile
     owned = np.zeros((S, B), np.int64)

@@ -159,15 +159,21 @@ def test_launch_geometry_matches_the_library(cuda, kind):
     for, at the registers the build log reports."""
     for latent in (1, 5, 16, 20, 32, 33, 64):
         geom = tfp.launch_geometry(kind, 8, 4096, latent, 20000)
-        assert geom.smem_bytes == tfp._lib().poisson_smem_bytes(
-            int(kind == "row_ll"), latent)
-    if kind != "expsum":
-        info = tfp.kernel_info(kind, 32)
-        geom = tfp.launch_geometry(kind, 8, 4096, 32, 20000)
-        assert info["smem_bytes"] == geom.smem_bytes
-        assert info["static_smem_bytes"] <= geom.static_smem_bytes
-        assert info["blocks_per_sm"] == geom.blocks_per_sm == 2
-        assert info["registers"] <= 128
+        if kind == "expsum":
+            lib = tfp._expsum_lib().expsum_smem_bytes(latent)
+        else:
+            lib = tfp._lib().poisson_smem_bytes(int(kind == "row_ll"), latent)
+        assert geom.smem_bytes == lib
+    info = tfp.kernel_info(kind, 32)
+    geom = tfp.launch_geometry(kind, 8, 4096, 32, 20000)
+    assert info["smem_bytes"] == geom.smem_bytes
+    assert info["static_smem_bytes"] <= geom.static_smem_bytes
+    assert info["blocks_per_sm"] == geom.blocks_per_sm == 2
+    assert info["registers"] <= 128
+    if kind == "expsum":   # past K = 32 its registers allow one block
+        info = tfp.kernel_info(kind, 64)
+        assert info["blocks_per_sm"] == tfp.launch_geometry(
+            kind, 8, 4096, 64, 20000).blocks_per_sm == 1
 
 
 def test_kernels_refuse_a_latent_dim_too_wide(cuda):
@@ -204,6 +210,50 @@ def test_expsum_kernel_matches_twin(cuda, shape):
                                rtol=1e-5)
     for k, t in zip(out_k[1:], out_t[1:]):
         assert _rel_max(k, t) < 1e-4
+
+
+#: K5 at full width, ragged: B = 1000 no multiple of the row tile, D =
+#: 19,997 odd (the 4-byte loads and the scalar dv atomics), K = 20 (three
+#: k-steps, half an m16 tile of dv) and K = 32; one sample and eight
+EXPSUM_RAGGED = [(S, 1000, K, 19997) for S in (1, 8) for K in (20, 32)]
+
+
+@pytest.mark.parametrize("shape", EXPSUM_RAGGED)
+def test_expsum_kernel_matches_twin_ragged_full_width(cuda, shape):
+    """The C-to-A fragment permutation of the dtheta product and the edges
+    of every tile, at the tolerances above."""
+    theta, v, _, _, eta = _stats_inputs(*shape, cuda, seed=9)
+    v *= 0.25      # chip_smoke.py's loadings: T up to about 0.5
+    out_k = tfp._kernel_expsum(theta, v, eta)
+    out_t = tfp.expsum_twin(theta.double(), v.double(), eta.double())
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out_k[0].cpu().numpy(), out_t[0].cpu().numpy(),
+                               rtol=1e-5)
+    for k, t in zip(out_k[1:], out_t[1:]):
+        assert _rel_max(k, t) < 1e-4
+
+
+def test_expsum_rate_total_is_deterministic(cuda):
+    """R is a fixed-order sum (each block's partial in one plain store), and
+    dtheta has one owner per element: two launches give the same bits (dv's
+    atomics need not)."""
+    theta, v, _, _, eta = _stats_inputs(8, 1000, 32, 19997, cuda, seed=10)
+    first = tfp._kernel_expsum(theta, v, eta)
+    second = tfp._kernel_expsum(theta, v, eta)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_expsum_kernel_refuses_k_past_its_instances(cuda):
+    theta, v, _, _, eta = _stats_inputs(1, 8, 65, 16, cuda)
+    with pytest.raises(ValueError, match="too wide"):
+        tfp._kernel_expsum(theta, v, eta)
+    theta, v, _, _, eta = _stats_inputs(1, 8, 64, 16, cuda)
+    out_k = tfp._kernel_expsum(theta, v, eta)
+    out_t = tfp.expsum_twin(theta.double(), v.double(), eta.double())
+    np.testing.assert_allclose(out_k[0].cpu().numpy(), out_t[0].cpu().numpy(),
+                               rtol=1e-5)
 
 
 def test_exp_rate_sum_backward_runs_the_kernel(cuda):

@@ -7,8 +7,8 @@ Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
   2 build    nvcc builds csrc/*.cu for sm_90a, one process per source, at once
              (two threads meanwhile set up the small float64 CPU models of
-             the plain path); a register spill in fused_poisson's,
-             fused_expsum's or fused_ig's build log fails the run
+             the plain path); a register spill in any library's build log
+             fails the run
   3 K1/K2    fused Poisson kernel vs its twin (float64 on the card) at the
              main-path shape S=8, B=1024, D=20000, K=32, with and without a
              rescue batch, and at a ragged one (B=1000, K=20: no multiple of
@@ -50,7 +50,9 @@ Phases, each printing lines; any failure raises and exits non-zero:
   A          the K6 path: the dense PoissonFactorization with
              surrogate.fused_normals = True, with launch counters; one small
              step against the plain float64 path on the same Philox draws;
-             ms/step with and without fused_normals, interleaved
+             ms/step with and without fused_normals, interleaved, and the
+             device time (profile) of the Normal block and its backward
+             with and without it
   B          the families at full width (D=20000, K=32, S=8, B=4096):
              MixedFactorization (12000 poisson, 6000 bernoulli, 2000 normal
              columns; both clips; log_likelihood and waic through K4),
@@ -66,7 +68,9 @@ Phases, each printing lines; any failure raises and exits non-zero:
              rows/s; K1 and K4 per likelihood and at B=32768, K5 at B=32768,
              with their registers, shared memory and blocks per SM;
              K3f / K3b and the twin in each mode, the bound per pipe, their
-             registers, shared memory and blocks per SM; the mixed step
+             registers, shared memory and blocks per SM; K6f / K6b with
+             their bound per pipe (and on a Philox call a sample), registers
+             and blocks per SM; the mixed step
 Then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
@@ -175,10 +179,8 @@ def bounds(B, total, n_total):
     link: exp and log; K5: exp), plus lgamma(x+1)'s 3 logs and 1 reciprocal
     once per cell of x for K1/K2 and K4 (it does not depend on the sample:
     the least any implementation must do); for
-    K3 the least work per pipe (``ig_bound``, independent mode); for
-    K6, about 150 per element and sample each way (10 Philox rounds of 8,
-    erfinv, two softplus or sigmoids, a log), counted from
-    csrc/fused_normal.cu. K5: ``expsum_bound``'s tensor route."""
+    K3 and K6 the least work per pipe (``ig_bound``, independent mode, and
+    ``normal_bound``). K5: ``expsum_bound``'s tensor route."""
     cells = S * B * D
     theta, v, vec = S * B * K, S * K * D, S * D
     stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * D + D)
@@ -190,10 +192,8 @@ def bounds(B, total, n_total):
            "expsum": expsum_bound(B)["tf32x3"][:2],
            "fwd": ig_bound("fwd", total, S, False)[:2],
            "bwd": ig_bound("bwd", total, S, False)[:2],
-           "nfwd": bound(4 * (3 * n_total + S * n_total) + 8 * S,
-                         150 * S * n_total),
-           "nbwd": bound(4 * (3 * n_total + S * n_total + S + 2 * n_total),
-                         150 * S * n_total)}
+           "nfwd": normal_bound("fwd", n_total, S)[:2],
+           "nbwd": normal_bound("bwd", n_total, S)[:2]}
     return out
 
 
@@ -256,6 +256,41 @@ def ig_bound(kind, total, n_samples, antithetic):
     times = {"integer multiplies": 120 * streams * total / PEAK_IMUL_PER_S,
              "transcendentals": mufu * total / PEAK_MUFU_PER_S,
              "float32": fma * total / PEAK_FMA_PER_S}
+    pipe = max(times, key=times.get)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    if t_b >= times[pipe] * 1e3:
+        return t_b, "bytes", "memory"
+    return times[pipe] * 1e3, "operations", pipe
+
+
+def normal_bound(kind, total, n_samples, samples_per_call=4):
+    """(ms, 'bytes' | 'operations', what bounds it) of K6f (``'fwd'``) or
+    K6b (``'bwd'``) at ``total`` elements and ``n_samples`` samples, counted
+    per pipe as ``ig_bound`` counts K3.
+    Integer multiplies: 40 a Philox call (10 rounds, 2 mul.hi and 2 mul.lo
+    each), ceil(S / samples_per_call) calls an element: 4 samples a call
+    on the stream of csrc/fused_normal.cu, 1 on the stream before it.
+    Transcendentals, one special-function operation each: per sample the
+    erfinv (its log), exp(-|x|) and log1p (forward) or 1/(1 + exp(-|x|))
+    (backward); per element softplus(raw_scale)'s exp and log1p and log
+    scale (forward), or those two, 1/(1 + exp(-|rs|)) and 1/scale
+    (backward).
+    Float32 operations: 15 per sample each way (the uniform, x, the softplus
+    pair or the sigmoid, log q or the cotangent sums); the transcendentals'
+    polynomials are not counted.
+    Bytes: loc, raw_scale and mask read and y and lq written (forward);
+    those three, gy and glq read and gloc, graw_scale written (backward)."""
+    S_ = n_samples
+    calls = -(-S_ // samples_per_call)
+    if kind == "fwd":
+        mufu = 3 * S_ + 3
+        n_bytes = 4 * (3 * total + S_ * total + S_)
+    else:
+        mufu = 3 * S_ + 4
+        n_bytes = 4 * (3 * total + S_ * total + S_ + 2 * total)
+    times = {"integer multiplies": 40 * calls * total / PEAK_IMUL_PER_S,
+             "transcendentals": mufu * total / PEAK_MUFU_PER_S,
+             "float32": 15 * S_ * total / PEAK_FMA_PER_S}
     pipe = max(times, key=times.get)
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
     if t_b >= times[pipe] * 1e3:
@@ -494,6 +529,35 @@ def step_timer(model, batch, sample_size=S, antithetic=False):
     return step
 
 
+def normal_block_step(model, fused):
+    """A function drawing the Normal block (u, v, w, s) of ``model``'s
+    surrogate S times, with and without the fused sampler K6, and running
+    its backward: the draw, the transform, log q and their gradients, what
+    ``fused_normals`` changes in a step."""
+    import torch
+
+    sur = model._surrogate
+    names = sur._normal_names
+    params = {n: {k: t.clone().requires_grad_(True)
+                  for k, t in model.surrogate_params[n].items()}
+              for n in names}
+    leaves = [t for sub in params.values() for t in sub.values()]
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    cot = []
+
+    def step():
+        sur.fused_normals = fused
+        values, logq = sur._sample_normals(names, params, gen, (S,))
+        outs = [values[n] for n in names] + [logq]
+        if not cot:
+            cot.extend(torch.ones_like(o) for o in outs)
+        for t in leaves:
+            t.grad = None
+        torch.autograd.backward(outs, cot)
+
+    return step
+
+
 def time_steps(step, n=13, skip=3):
     """Median wall ms of ``step`` (synchronised) and the peak device memory
     in GB over the run."""
@@ -646,8 +710,7 @@ def main():
                   if "spill" in ln and "0 bytes spill stores" not in ln]
         say(2, f"{lib}: {len(regs)} kernels, registers {sorted(regs)}, "
                f"spilling kernels: {spills or 'none'}")
-        check(lib == "fused_normal" or not spills,
-              f"{lib} spills registers: {spills}")
+        check(not spills, f"{lib} spills registers: {spills}")
     for kind in ("stats", "row_ll", "expsum"):
         geom = tfp.launch_geometry(kind, S, 4096, K, D)
         lib_smem = (tfp._expsum_lib().expsum_smem_bytes(K) if kind == "expsum"
@@ -1174,6 +1237,22 @@ def main():
     say("A", f"dense step B=4096, fused_normals on {ab_on:.2f} ms/step, off "
              f"{ab_off:.2f} ms/step (medians of 10, interleaved; on/off "
              f"{ab_on / ab_off:.3f}; {smi})")
+    # what the option changes on the device: the Normal block's draw,
+    # transform, log q and backward, its kernels' summed time (profile)
+    block = {}
+    for on in (True, False):
+        prof = profile_steps(normal_block_step(model_a, on))
+        block[on] = prof
+        say("A", f"Normal block (u, v, w, s: {N_TOTAL} elements, S={S}) "
+                 f"and its backward, fused_normals={on}: "
+                 + (f"{prof[1]:.4f} ms of device kernels a call"
+                    if prof[1] else "device time not measured")
+                 + f", {prof[3]:.0f} device kernels, {prof[0]:.3f} ms wall; "
+                 "top " + "; ".join(f"{k} {ms:.4f} ms" for k, ms in prof[2])
+                 + f" ({smi})")
+    if block[True][1] and block[False][1]:
+        say("A", f"Normal block device time on / off "
+                 f"{block[True][1] / block[False][1]:.3f}")
     del model_a, step, xb, X, ds
 
     # ---- 7: the sparse slice, configured as the scRNA CLI does
@@ -1534,14 +1613,33 @@ def main():
                f"{b_f:.3f}), K3b {k_b:.3f} ms (bound {b_b:.3f}) (float32, "
                f"total={IG_TOTAL}; {smi})")
     mask = masks["gaussian"]
+    n_calls = {"nfwd": lambda: tfn._kernel_fwd(n_loc, n_rs, mask, n_seed, S),
+               "nbwd": lambda: tfn._kernel_bwd(n_loc, n_rs, mask, n_seed, S,
+                                               n_gy, n_glq)}
     kt["nfwd"] = (
-        cuda_ms(lambda: tfn._kernel_fwd(n_loc, n_rs, mask, n_seed, S)),
+        cuda_ms(n_calls["nfwd"]),
         cuda_ms(lambda: tfn.normal_twin_fwd(n_loc, n_rs, mask, n_seed, S)))
     kt["nbwd"] = (
-        cuda_ms(lambda: tfn._kernel_bwd(n_loc, n_rs, mask, n_seed, S, n_gy,
-                                        n_glq)),
+        cuda_ms(n_calls["nbwd"]),
         cuda_ms(lambda: tfn.normal_twin_bwd(n_loc, n_rs, mask, n_seed, S,
                                             n_gy, n_glq)))
+    for key, kind in (("nfwd", "fwd"), ("nbwd", "bwd")):
+        ms_b, by, pipe = normal_bound(kind, N_TOTAL, S)
+        old = normal_bound(kind, N_TOTAL, S, samples_per_call=1)
+        info = tfn.kernel_info(kind, S)
+        dev_ms = profile_steps(n_calls[key], n=20)[1]
+        share = (f"{dev_ms:.4f} ms of device kernels a call (profile; "
+                 f"{ms_b / dev_ms:.1%} of the bound)" if dev_ms
+                 else "device time not measured")
+        say(9, f"K6{kind[0]}: kernel {kt[key][0]:.4f} ms (CUDA events "
+               f"around the call), {share}; bound {ms_b:.4f} "
+               f"ms ({by}: {pipe}; {ms_b / kt[key][0]:.1%} of it); with a "
+               f"Philox call a sample (the stream before four a call) "
+               f"{old[0]:.4f} ms ({old[2]}); {info['registers']} registers "
+               f"a thread, {info['smem_bytes']} + "
+               f"{info['static_smem_bytes']} bytes of shared memory a "
+               f"block, {info['blocks_per_sm']} blocks an SM (occupancy "
+               f"API) (float32, total={N_TOTAL}, S={S}; {smi})")
     bd = bounds(B, IG_TOTAL, N_TOTAL)
     sizes = {"fwd": f"total={IG_TOTAL}", "bwd": f"total={IG_TOTAL}",
              "nfwd": f"total={N_TOTAL}", "nbwd": f"total={N_TOTAL}"}

@@ -10,16 +10,19 @@ the per-sample sum of
     log q(x) - fldj = -log(scale) - eps^2/2 - log(2 pi)/2 + mask*softplus(-x)
 
 Randomness: Philox4x32-10 with key (seed, 1) (the IG sampler K3 uses
-(seed, 0)), counter (flat element index, sample, 0, 0), and the first of the
-four output words on the uniform grid of ``fused_ig.uniform_from_bits``.
-This is the replay contract between the forward kernel, the backward kernel
+(seed, 0)); sample s of element i takes word s % 4 of the call at counter
+(flat element index i, s // 4, 0, 0), on the uniform grid of
+``fused_ig.uniform_from_bits``: one call serves four samples, and for S not
+a multiple of 4 the last call's first S % 4 words are used. This is the
+replay contract between the forward kernel, the backward kernel
 (``csrc/fused_normal.cu``) and the plain PyTorch twin below: the stream is
 keyed by element and sample, never by block geometry, so all three draw the
 same bits and can be compared element by element.
 
 ``fused_normal_sample_logq`` launches the kernels for CUDA tensors (float32
 only) and runs the twin for CPU tensors; its backward replays the stream (no
-samples are saved).
+samples are saved). A forward is two device kernels (the sampler and the
+fixed-order sum of its per-block log q partials), a backward one.
 """
 from __future__ import annotations
 
@@ -31,12 +34,15 @@ from spmf_tpu_torch.bijectors import softplus as _softplus
 from spmf_tpu_torch.ops import _build
 from spmf_tpu_torch.ops.fused_ig import philox4x32, uniform_from_bits
 
-__all__ = ["LAUNCHES", "draw_eps", "fused_normal_sample_logq",
-           "normal_twin_bwd", "normal_twin_fwd"]
+__all__ = ["LAUNCHES", "MAX_SAMPLES", "draw_eps", "fused_normal_sample_logq",
+           "kernel_info", "normal_twin_bwd", "normal_twin_fwd"]
 
 _SQRT2 = 1.4142135623730951
 _HALF_LOG_2PI = 0.9189385332046727
 _MASK32 = 0xFFFFFFFF
+#: the most samples one K6f launch takes (its per-sample block sums fill
+#: 64 bytes of shared memory each)
+MAX_SAMPLES = 2048
 
 #: kernel launches, counted by the wrappers where they launch
 LAUNCHES = {"fwd": 0, "bwd": 0}
@@ -46,7 +52,8 @@ def draw_eps(total, s, seed, dtype, device):
     """The standard normals (total,) of sample ``s``: the stream above."""
     idx = torch.arange(total, dtype=torch.int64, device=device)
     zero = torch.zeros_like(idx)
-    bits = philox4x32(idx, zero + s, zero, zero, int(seed) & _MASK32, 1)[0]
+    bits = philox4x32(idx, zero + s // 4, zero, zero, int(seed) & _MASK32,
+                      1)[s % 4]
     return _SQRT2 * torch.erfinv(2.0 * uniform_from_bits(bits, dtype) - 1.0)
 
 
@@ -118,17 +125,18 @@ def normal_twin_bwd(loc, raw_scale, mask, seed, S, gy, glq):
 # ---------------------------------------------------------------- kernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "normal_fwd": [_P] * 6 + [_I] * 2 + [_P],
+    "normal_fwd": [_P] * 7 + [_I] * 2 + [_P],
     "normal_bwd": [_P] * 8 + [_I] * 2 + [_P],
+    "normal_fwd_blocks": [_I],
+    "normal_kernel_info": [_I] * 2 + [_P],
 }
-_THREADS = 256          # must match csrc/philox.cuh
 
 
 def _lib():
     return _build.load_library("fused_normal", _SIGNATURES)
 
 
-def _check_cuda(seed, *tensors):
+def _check_cuda(seed, S, *tensors):
     dev = tensors[0].device
     for t in tensors:
         if (not t.is_cuda or t.dtype != torch.float32
@@ -141,29 +149,35 @@ def _check_cuda(seed, *tensors):
             or seed.numel() != 1 or seed.device != dev):
         raise ValueError("seed must be a one-element int32 tensor on the "
                          "kernel's device")
+    if not 1 <= S <= MAX_SAMPLES or tensors[0].shape[0] == 0:
+        raise ValueError(f"the fused Normal kernel takes 1 to {MAX_SAMPLES} "
+                         f"samples of a non-empty block, got S={S}, "
+                         f"total={tensors[0].shape[0]}")
 
 
 def _kernel_fwd(loc, raw_scale, mask, seed, S):
     _check_args(loc, raw_scale, mask)
-    _check_cuda(seed, loc, raw_scale, mask)
+    _check_cuda(seed, S, loc, raw_scale, mask)
     total = loc.shape[0]
+    lib = _lib()
     y = torch.empty((S, total), dtype=torch.float32, device=loc.device)
-    nblk = -(-total // _THREADS)
-    part = torch.empty((S, nblk), dtype=torch.float64, device=loc.device)
-    err = _lib().normal_fwd(
+    part = torch.empty((S, lib.normal_fwd_blocks(total)), dtype=torch.float64,
+                       device=loc.device)
+    lq = torch.empty((S,), dtype=torch.float32, device=loc.device)
+    err = lib.normal_fwd(
         loc.data_ptr(), raw_scale.data_ptr(), mask.data_ptr(),
-        seed.data_ptr(), y.data_ptr(), part.data_ptr(), total, S,
-        torch.cuda.current_stream(loc.device).cuda_stream)
+        seed.data_ptr(), y.data_ptr(), part.data_ptr(), lq.data_ptr(), total,
+        S, torch.cuda.current_stream(loc.device).cuda_stream)
     _build.check(err, "normal_fwd")
     LAUNCHES["fwd"] += 1
-    return y, part.sum(1).to(torch.float32)
+    return y, lq
 
 
 def _kernel_bwd(loc, raw_scale, mask, seed, S, gy, glq):
     _check_args(loc, raw_scale, mask)
     gy = gy.to(torch.float32).contiguous()
     glq = glq.to(torch.float32).contiguous()
-    _check_cuda(seed, loc, raw_scale, mask, gy, glq)
+    _check_cuda(seed, S, loc, raw_scale, mask, gy, glq)
     total = loc.shape[0]
     if gy.shape != (S, total) or glq.shape != (S,):
         raise ValueError(f"cotangent shapes {tuple(gy.shape)}, "
@@ -179,6 +193,18 @@ def _kernel_bwd(loc, raw_scale, mask, seed, S, gy, glq):
     _build.check(err, "normal_bwd")
     LAUNCHES["bwd"] += 1
     return gloc, grs
+
+
+def kernel_info(kind, S=8):
+    """What the built library reports for K6f (``'fwd'``, at S samples) or
+    K6b (``'bwd'``): registers per thread, static and dynamic shared memory
+    per block, and resident blocks per SM (the occupancy API's). Needs the
+    card."""
+    info = (ctypes.c_int * 4)()
+    err = _lib().normal_kernel_info(int(kind == "fwd"), S, info)
+    _build.check(err, "normal_kernel_info")
+    return dict(zip(("registers", "static_smem_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
 
 
 class _FusedNormal(torch.autograd.Function):

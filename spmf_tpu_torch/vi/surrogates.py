@@ -152,6 +152,7 @@ class SurrogatePosterior:
         self.dtype = dtypes.pop() if len(dtypes) == 1 else None
         devices = {s.base.device for s in self.surrogates.values()}
         self.device = devices.pop() if len(devices) == 1 else None
+        self._normal_masks = {}    # see _normal_mask
 
     def init(self):
         return {k: s.init() for k, s in self.surrogates.items()}
@@ -177,12 +178,7 @@ class SurrogatePosterior:
         loc_flat = torch.cat([params[n]["loc"].reshape(-1) for n in names])
         rs_flat = torch.cat([params[n]["raw_scale"].reshape(-1)
                              for n in names])
-        mask_flat = torch.cat([
-            torch.full((self._sizes[n],),
-                       1.0 if isinstance(self.surrogates[n].bijector,
-                                         tfb.Softplus) else 0.0,
-                       dtype=torch.float32, device=self.device)
-            for n in names])
+        mask_flat = self._normal_mask(names)
         S = sample_shape[0] if sample_shape else 1
         # drawn on the device: the kernel reads the seed there, no host sync
         seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
@@ -191,6 +187,20 @@ class SurrogatePosterior:
                                            seed, S)
         return self._split_block(names, y, sample_shape), \
             (logq if sample_shape else logq[0])
+
+    def _normal_mask(self, names):
+        """The fused Normal sampler's (total,) float32 bijector mask of
+        ``names`` (1.0 Softplus, 0.0 Identity): a constant, made once per
+        (names, device) and kept."""
+        key = (tuple(names), str(self.device))
+        if key not in self._normal_masks:
+            self._normal_masks[key] = torch.cat([
+                torch.full((self._sizes[n],),
+                           1.0 if isinstance(self.surrogates[n].bijector,
+                                             tfb.Softplus) else 0.0,
+                           dtype=torch.float32, device=self.device)
+                for n in names])
+        return self._normal_masks[key]
 
     def _split_block(self, names, y, sample_shape):
         """Cut a sampler's (S, total) output back into the named

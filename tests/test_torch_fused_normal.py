@@ -108,6 +108,35 @@ def test_stream_is_standard_normal_on_its_own_key():
     assert float((eps == eps_ig).double().mean()) < 1e-3
 
 
+@pytest.mark.parametrize("q", [0, 1, 5])
+def test_draw_eps_takes_four_words_of_one_philox_call(q):
+    """Samples 4q .. 4q+3 are the four words of the one Philox4x32-10 call
+    at counter (i, q, 0, 0), key (seed, 1), bit for bit."""
+    from spmf_tpu_torch.ops import fused_ig as tig
+
+    total, seed = 1000, 2024
+    idx = torch.arange(total, dtype=torch.int64)
+    zero = torch.zeros_like(idx)
+    words = tig.philox4x32(idx, zero + q, zero, zero, seed, 1)
+    for k, w in enumerate(words):
+        ref = 2.0 ** 0.5 * torch.erfinv(
+            2.0 * tig.uniform_from_bits(w, torch.float64) - 1.0)
+        assert torch.equal(
+            tfn.draw_eps(total, 4 * q + k, seed, torch.float64, "cpu"), ref)
+
+
+@pytest.mark.parametrize("s", [0, 1, 2])
+def test_words_of_one_call_are_independent_normals(s):
+    """Samples s and s+1, two words of one Philox call, over 50,000
+    elements: uncorrelated (|r| < 0.02, 4.5 standard errors) and each
+    N(0, 1) by KS."""
+    a = tfn.draw_eps(50000, s, 31, torch.float64, "cpu").numpy()
+    b = tfn.draw_eps(50000, s + 1, 31, torch.float64, "cpu").numpy()
+    assert abs(np.corrcoef(a, b)[0, 1]) < 0.02
+    for x in (a, b):
+        assert stats.kstest(x, "norm").pvalue > 1e-3
+
+
 def _torch_surrogate(kinds, dtype, gamma_sampler="fused"):
     bij = {"identity": tfb.Identity, "softplus": tfb.Softplus}
     rng = np.random.default_rng(11)

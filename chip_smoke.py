@@ -60,6 +60,18 @@ Phases, each printing lines; any failure raises and exits non-zero:
              GaussianFactorization(observation_model='normal') on
              standardised log counts with fused_normals = True; one small
              step per family against the plain float64 path
+  P persist  the dense PoissonFactorization at full width (D=20000, K=32,
+             S=8, B=4096, N=8192): fits with checkpoint_dir (files hold the
+             returned params bit for bit) against fits without, in turn; a
+             resume from the directory (the checkpoint's learning rate, the
+             Adam count continued, tags above the old ones); a
+             KeyboardInterrupt in the second epoch (the best params come
+             back); save then load_model on the card (encode bit-equal);
+             encode_batched of 16,384 rows in chunks of 4096 against encode;
+             predictive_distribution at S=8, B=1024 against float64 on the
+             same draws; surrogate_distribution.sample(250). Prints the
+             checkpoint's bytes, ms a write, ms/step with and without
+             checkpoints, encode_batched rows/s and the sample's ms
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -75,10 +87,14 @@ Then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
 """
+import glob
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -618,6 +634,235 @@ def say_profile(tag, prof, smi):
     say(9, f"profile {tag}: {wall:.2f} ms/step wall, {share}, {count:.0f} "
            f"device kernels a step; top "
            + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top) + f" ({smi})")
+
+
+def persistence_phase(dev, smi, zero_launches, read_launches):
+    """Phase P: checkpoints, resume, the interrupt return, save / load_model,
+    encode_batched, predictive_distribution and the bound surrogate at the
+    full width. Returns the kernel launches of its fits."""
+    import torch
+
+    from spmf_tpu_torch import PoissonFactorization, load_model
+    from spmf_tpu_torch.data import ArrayDataset
+    from spmf_tpu_torch.utils import (adam_state_from_numpy,
+                                      adam_state_to_numpy, flatten_jax_order,
+                                      load_fit_state)
+    from spmf_tpu_torch.utils.checkpoint import to_numpy
+    from spmf_tpu_torch.vi.minibatch import make_optimizer
+
+    n_p, b_p = 8192, 4096
+    gp = torch.Generator(device=dev).manual_seed(21)
+    xp = torch.poisson(torch.ones(2 * n_p, D, device=dev),
+                       generator=gp).cpu().numpy()
+    ds = ArrayDataset({"counts": xp[:n_p], "indices": np.arange(n_p)}) \
+        .batch(b_p)
+    m = PoissonFactorization(latent_dim=K, feature_dim=D, dtype="float32",
+                             device=dev, data=ds)
+    init = {n: {k: t.clone() for k, t in sub.items()}
+            for n, sub in m.surrogate_params.items()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_P_")
+    fit_kw = dict(num_steps=3, learning_rate=0.01, sample_size=S,
+                  rel_tol=None, verbose=False)
+    steps = 3 * (n_p // b_p)
+
+    def tags(d):
+        return {p: int(re.search(r"-(\d+)\.npz$", p).group(1))
+                for p in glob.glob(os.path.join(d, "**", "*.npz"),
+                                   recursive=True)}
+
+    try:
+        # (a) fits with and without checkpoints, from the same start, in turn
+        zero_launches()
+        ms_step = {"without": [], "with": []}
+        for arm in ("without", "with", "without", "with"):
+            m.surrogate_params = {n: {k: t.clone() for k, t in sub.items()}
+                                  for n, sub in init.items()}
+            ckpt = os.path.join(root, "a") if arm == "with" else None
+            if ckpt is not None:
+                shutil.rmtree(ckpt, ignore_errors=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = m.fit(checkpoint_dir=ckpt, **fit_kw)
+            torch.cuda.synchronize()
+            ms_step[arm].append((time.perf_counter() - t0) / steps * 1e3)
+            check(np.isfinite(losses).all(), f"P fit losses {losses}")
+        r = m.last_fit
+        files = tags(os.path.join(root, "a"))
+        check(len(files) >= 1, "P: no checkpoint written")
+        newest = max(files, key=files.get)
+        saved, opt_leaves, meta = load_fit_state(newest, r.params)
+        for a, b in zip(flatten_jax_order(r.params),
+                        flatten_jax_order(saved)):
+            check(np.array_equal(a.cpu().numpy(), b),
+                  "P: the newest checkpoint differs from FitResult.params")
+        write_ms = [t * 1e3 for t in r.extras["checkpoint_seconds"]]
+        # the write's two parts, timed apart on the newest file's state
+        pt = {n: {k: t.clone() for k, t in sub.items()}
+              for n, sub in r.params.items()}
+        opt = make_optimizer(pt, 0.01)
+        adam_state_from_numpy(opt_leaves, opt, pt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = ([to_numpy(t) for t in flatten_jax_order(pt)]
+                + adam_state_to_numpy(opt, pt))
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        np.savez(os.path.join(root, "split.npz"),
+                 **{f"leaf_{i}": a for i, a in enumerate(host)})
+        savez_ms = (time.perf_counter() - t0) * 1e3
+        del pt, opt, host
+        ckpt_bytes = os.path.getsize(newest)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in flatten_jax_order(r.params))
+        say("P", f"fit with checkpoint_dir: {len(files)} files, newest "
+                 f"{os.path.basename(newest)} equals FitResult.params bit "
+                 f"for bit; {ckpt_bytes} bytes a full-state checkpoint "
+                 f"({ckpt_bytes / param_bytes:.3f} x the {param_bytes} "
+                 f"parameter bytes); write (device to host + np.savez) "
+                 f"{[round(t, 2) for t in write_ms]} ms, apart "
+                 f"{d2h_ms:.2f} + {savez_ms:.2f} ms; ms/step (fit wall "
+                 f"over {steps} steps) with checkpoints "
+                 f"{[round(t, 2) for t in ms_step['with']]}, without "
+                 f"{[round(t, 2) for t in ms_step['without']]} ({smi})")
+
+        # (b) resume from the directory with another learning rate
+        saved_count = int(opt_leaves[2])
+        old_max = max(files.values())
+        m.fit(checkpoint_dir=os.path.join(root, "b"),
+              resume_from=os.path.join(root, "a"),
+              **dict(fit_kw, num_steps=2, learning_rate=0.05))
+        r = m.last_fit
+        lr_used = r.opt_state["param_groups"][0]["lr"]
+        count = int(r.opt_state["state"][0]["step"])
+        new_tags = tags(os.path.join(root, "b"))
+        check(r.learning_rate == meta["lr"] and lr_used == meta["lr"],
+              f"P resume: lr {r.learning_rate} / {lr_used}, checkpoint "
+              f"{meta['lr']}")
+        check(count == saved_count + 2 * (n_p // b_p),
+              f"P resume: Adam count {count}, saved {saved_count}")
+        check(new_tags and min(new_tags.values()) > old_max,
+              f"P resume: tags {sorted(new_tags.values())} after {old_max}")
+        say("P", f"resume: lr {lr_used} (checkpoint {meta['lr']}, argument "
+                 f"0.05), Adam count {saved_count} + {2 * (n_p // b_p)} = "
+                 f"{count}, new tags {sorted(new_tags.values())} > "
+                 f"{old_max}")
+
+        # (c) a KeyboardInterrupt in the second epoch's second batch
+        calls = [0]
+
+        def interrupting():
+            calls[0] += 1    # the first call is the initial-loss batch
+            for i, b in enumerate(ds):
+                if calls[0] == 3 and i == 1:
+                    raise KeyboardInterrupt
+                yield b
+
+        m.fit(batched_data_factory=interrupting,
+              checkpoint_dir=os.path.join(root, "c"),
+              **dict(fit_kw, num_steps=5))
+        r = m.last_fit
+        written = tags(os.path.join(root, "c"))
+        check(r.extras["interrupted"] and len(r.losses) == 2
+              and len(written) == 1,
+              f"P interrupt: {r.extras['interrupted']}, losses {r.losses}, "
+              f"files {written}")
+        best, _, _ = load_fit_state(next(iter(written)), r.params)
+        for a, b in zip(flatten_jax_order(r.params),
+                        flatten_jax_order(best)):
+            check(np.array_equal(a.cpu().numpy(), b),
+                  "P interrupt: params differ from the best before it")
+        say("P", "KeyboardInterrupt in epoch 2: interrupted=True, the params "
+                 "are epoch 1's checkpoint bit for bit")
+        launches = read_launches()
+
+        # (d) save, then load_model on the card
+        path = os.path.join(root, "model.npz")
+        m.save(path)
+        loaded = load_model(path, device=dev)
+        x_enc = xp[:b_p]
+        for a, b in zip(flatten_jax_order(m.surrogate_params),
+                        flatten_jax_order(loaded.surrogate_params)):
+            check(b.device == a.device and torch.equal(a, b),
+                  "P load_model: params")
+        check(torch.equal(loaded.encode(x_enc), m.encode(x_enc)),
+              "P load_model: encode not bit-equal")
+        say("P", f"save + load_model(device={dev.type!r}): params and "
+                 f"encode of {b_p} rows bit-equal")
+
+        # (e) encode_batched: each chunk is encode of its rows (the same
+        # M, so the same bits); it and the one-shot encode (another M, so
+        # maybe another cuBLAS reduction order over D) are each held to the
+        # float64 encode of the same rows
+        m64 = load_model(path, device=dev, dtype="float64")
+        u = m.calibrated_expectations["u"]
+        s_ = m.calibrated_expectations["s"]
+        with torch.no_grad():
+            full = m.encode(xp).cpu().numpy()
+            per_chunk = np.concatenate([m.encode(xp[lo:lo + b_p]).cpu().numpy()
+                                        for lo in range(0, 2 * n_p, b_p)])
+            ref64 = m64.encode(xp, u.double(), s_.double()).cpu().numpy()
+        m.encode_batched(xp[:b_p], row_chunk=b_p)     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunked = m.encode_batched(xp, row_chunk=b_p)
+        enc_s = time.perf_counter() - t0
+
+        def rel(a, b):
+            return float(np.abs(a - b).max() / np.abs(b).max())
+
+        e_chunk, e_full = rel(chunked, ref64), rel(full, ref64)
+        check(chunked.shape == (2 * n_p, K)
+              and np.array_equal(chunked, per_chunk),
+              "P encode_batched differs from encode of its chunks")
+        # float32 sums of D=20000 terms: ~sqrt(D) * 2^-24 = 8.4e-6 of the
+        # largest entry
+        check(e_chunk <= 1e-5 and e_full <= 1e-5,
+              f"P encode vs float64: chunked {e_chunk}, one-shot {e_full}")
+        say("P", f"encode_batched({2 * n_p} rows, row_chunk={b_p}): the "
+                 f"chunks' encode bit for bit; rel-of-max vs float64 "
+                 f"{e_chunk:.2e}, one-shot encode {e_full:.2e}, chunked vs "
+                 f"one-shot {rel(chunked, full):.2e}; {2 * n_p / enc_s:.0f} "
+                 f"rows/s ({enc_s * 1e3:.1f} ms, host in and out; {smi})")
+        del full, per_chunk, ref64
+
+        # (f) predictive_distribution against float64 on the same draws
+        b_f = 1024
+        g = torch.Generator(device=dev).manual_seed(5)
+        with torch.no_grad():
+            draws = m._surrogate.sample(m.surrogate_params, g, (S,))
+            pred = m.predictive_distribution(data=xp[:b_f], **draws)
+            ref = m64.predictive_distribution(
+                data=xp[:b_f], **{k: v.double() for k, v in draws.items()})
+        e_ll = rel_max(pred["log_likelihood"], ref["log_likelihood"])
+        e_rate = rel_max(pred["rate"], ref["rate"])
+        check(tuple(pred["log_likelihood"].shape) == (b_f, D)
+              and e_ll <= 1e-5 and e_rate <= 1e-5,
+              f"P predictive_distribution rel {e_ll} / {e_rate}")
+        say("P", f"predictive_distribution S={S}, B={b_f}: log_likelihood "
+                 f"{tuple(pred['log_likelihood'].shape)} rel-of-max "
+                 f"{e_ll:.2e}, rate rel-of-max {e_rate:.2e} vs float64")
+        del draws, pred, ref, m64
+
+        # (g) the bound surrogate
+        view = m.surrogate_distribution
+        view.sample(250)     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            s = view.sample(250)
+        torch.cuda.synchronize()
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        check(set(s) == set(m.surrogate_params)
+              and all(v.shape[0] == 250 and bool(torch.isfinite(v).all())
+                      for v in s.values())
+              and tuple(s["u"].shape) == (250, D, K),
+              "P surrogate_distribution.sample(250)")
+        say("P", f"surrogate_distribution.sample(250): {len(s)} variables, "
+                 f"u {tuple(s['u'].shape)}, finite, {sample_ms:.1f} ms "
+                 f"({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -1519,6 +1764,11 @@ def main():
                      scale_rows=False)
     mixed_model = fitted["mixed"]
     del fitted, data_b, held_b
+
+    # ---- P: persistence at the full width
+    path_launches["P persistence"] = persistence_phase(
+        dev, smi, zero_launches, read_launches)
+    say("P", f"launches {path_launches['P persistence']}")
 
     # ---- 9: times (medians of 10 after warmup)
     B = 4096

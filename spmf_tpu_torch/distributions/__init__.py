@@ -1,5 +1,6 @@
 from .base import Distribution, Independent
-from .continuous import HalfNormal, InverseGamma, Normal, SqrtInverseGamma
+from .continuous import (HalfNormal, InverseGamma, Normal, SqrtInverseGamma,
+                         standard_gamma)
 from .discrete import Bernoulli, Poisson
 from .joint import JointDistributionNamed
 
@@ -13,4 +14,5 @@ __all__ = [
     "Poisson",
     "Bernoulli",
     "JointDistributionNamed",
+    "standard_gamma",
 ]

@@ -12,13 +12,18 @@ __all__ = ["Distribution", "Independent"]
 
 
 class Distribution:
-    """Minimal distribution interface: elementwise log_prob (the port's
-    energies never sample from a distribution object)."""
+    """Minimal distribution interface: elementwise ``log_prob``, and
+    ``sample(generator, sample_shape)`` from a ``torch.Generator`` (the
+    energies only take log-probs; sampling serves the joint prior's
+    ``sample``)."""
 
     #: dtype of the distribution's parameters / samples
     dtype = None
 
     def log_prob(self, x):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def sample(self, generator, sample_shape=()):  # pragma: no cover
         raise NotImplementedError
 
     @property
@@ -43,6 +48,10 @@ class Independent(Distribution):
         return self.distribution.dtype
 
     @property
+    def device(self):
+        return self.distribution.device
+
+    @property
     def batch_shape(self):
         shape = self.distribution.batch_shape
         k = self.reinterpreted_batch_ndims
@@ -54,3 +63,6 @@ class Independent(Distribution):
         if k == 0:
             return lp
         return torch.sum(lp, dim=tuple(range(-k, 0)))
+
+    def sample(self, generator, sample_shape=()):
+        return self.distribution.sample(generator, sample_shape)

@@ -1,7 +1,9 @@
 """Continuous distributions (mirrors spmf_tpu/distributions/continuous.py).
 
 This slice carries the families the dense horseshoe+ PoissonFactorization
-uses: Normal, HalfNormal, InverseGamma and SqrtInverseGamma.
+uses: Normal, HalfNormal, InverseGamma and SqrtInverseGamma. ``sample``
+draws from an explicit ``torch.Generator`` (the JAX package takes a PRNG
+key), so the two packages agree in distribution, not draw for draw.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch
 
 from .base import Distribution
 
-__all__ = ["Normal", "HalfNormal", "InverseGamma", "SqrtInverseGamma"]
+__all__ = ["Normal", "HalfNormal", "InverseGamma", "SqrtInverseGamma",
+           "standard_gamma"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _HALF_LOG_2_OVER_PI = 0.5 * math.log(2.0 / math.pi)
@@ -35,6 +38,38 @@ class _Base(Distribution):
     def dtype(self):
         return self._ref.dtype
 
+    def _randn(self, generator, sample_shape):
+        return torch.randn(tuple(sample_shape) + tuple(self.batch_shape),
+                           generator=generator, dtype=self.dtype,
+                           device=self.device)
+
+
+def standard_gamma(generator, concentration):
+    """Exact Gamma(concentration, 1) draws (Marsaglia and Tsang 2000) from
+    ``generator``: each round redraws the still-rejected elements;
+    concentrations below 1 draw at a + 1 and scale by U^(1/a)."""
+    a = concentration.detach().reshape(-1)
+    small = a < 1.0
+    d = torch.where(small, a + 1.0, a) - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.empty_like(a)
+    pending = torch.arange(a.numel(), device=a.device)
+    while pending.numel():
+        dd, cc = d[pending], c[pending]
+        x = torch.randn(dd.shape, generator=generator, dtype=a.dtype,
+                        device=a.device)
+        u = torch.rand(dd.shape, generator=generator, dtype=a.dtype,
+                       device=a.device)
+        v = (1.0 + cc * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + dd - dd * v
+                        + dd * torch.log(v.clamp_min(1e-300)))
+        out[pending[ok]] = (dd * v)[ok]
+        pending = pending[~ok]
+    u = torch.rand(a.shape, generator=generator, dtype=a.dtype,
+                   device=a.device)
+    out = torch.where(small, out * u ** (1.0 / a), out)
+    return out.reshape(concentration.shape)
+
 
 class Normal(_Base):
     def __init__(self, loc, scale):
@@ -48,6 +83,9 @@ class Normal(_Base):
     def log_prob(self, x):
         z = (self._promote(x) - self.loc) / self.scale
         return -0.5 * z * z - torch.log(self.scale) - 0.5 * _LOG_2PI
+
+    def sample(self, generator, sample_shape=()):
+        return self.loc + self.scale * self._randn(generator, sample_shape)
 
 
 class HalfNormal(_Base):
@@ -65,6 +103,9 @@ class HalfNormal(_Base):
         z = self._promote(x) / self.scale
         return _HALF_LOG_2_OVER_PI - torch.log(self.scale) - 0.5 * z * z
 
+    def sample(self, generator, sample_shape=()):
+        return torch.abs(self._randn(generator, sample_shape)) * self.scale
+
 
 class InverseGamma(_Base):
     def __init__(self, concentration, scale):
@@ -81,6 +122,14 @@ class InverseGamma(_Base):
         a, b = self.concentration, self.scale
         return (a * torch.log(b) - (a + 1.0) * torch.log(x) - b / x
                 - torch.lgamma(a))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        g = standard_gamma(generator,
+                           torch.broadcast_to(self.concentration, shape))
+        # guard b/g against a float32 gamma underflow in the extreme tail
+        g = torch.clamp_min(g, torch.finfo(self.dtype).tiny ** 0.5)
+        return self.scale / g
 
 
 class SqrtInverseGamma(_Base):
@@ -107,3 +156,6 @@ class SqrtInverseGamma(_Base):
             - torch.lgamma(a)
             + math.log(2.0)
         )
+
+    def sample(self, generator, sample_shape=()):
+        return torch.sqrt(self.ig.sample(generator, sample_shape))

@@ -31,6 +31,11 @@ class Poisson(_Base):
         log_rate = torch.where(self.rate < 0, torch.nan, log_rate)
         return x * log_rate - self.rate - torch.lgamma(x + 1.0)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        return torch.poisson(torch.broadcast_to(self.rate, shape).contiguous(),
+                             generator=generator)
+
 
 class Bernoulli(_Base):
     def __init__(self, logits=None, probs=None):
@@ -50,3 +55,8 @@ class Bernoulli(_Base):
     def log_prob(self, x):
         """x * logits - softplus(logits), stable for large |logits|."""
         return self._promote(x) * self.logits - softplus(self.logits)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        probs = torch.sigmoid(torch.broadcast_to(self.logits, shape))
+        return torch.bernoulli(probs.contiguous(), generator=generator)

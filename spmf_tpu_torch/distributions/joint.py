@@ -19,6 +19,26 @@ class JointDistributionNamed:
                 )
             else:
                 self._deps[name] = ()
+        self._order = self._toposort()
+
+    def _toposort(self):
+        """The names with every node after the nodes it depends on."""
+        order, seen = [], set()
+
+        def visit(name, stack=()):
+            if name in seen:
+                return
+            if name in stack:
+                raise ValueError(f"Cycle in joint distribution at {name!r}")
+            for dep in self._deps[name]:
+                if dep in self.model:
+                    visit(dep, stack + (name,))
+            seen.add(name)
+            order.append(name)
+
+        for name in self.model:
+            visit(name)
+        return order
 
     @property
     def names(self):
@@ -42,3 +62,16 @@ class JointDistributionNamed:
         for v in self.log_prob_parts(values).values():
             out = out + v
         return out
+
+    def sample(self, generator, sample_shape=()) -> dict:
+        """One draw of every variable in topological order from
+        ``generator``. Only root nodes take ``sample_shape``: a dependent
+        node inherits the sample dims through its parents' values (the
+        tfd.JointDistributionNamed semantics)."""
+        values = {}
+        for name in self._order:
+            dist = self._resolve(name, values)
+            has_model_deps = any(d in self.model for d in self._deps[name])
+            values[name] = dist.sample(
+                generator, () if has_model_deps else sample_shape)
+        return values

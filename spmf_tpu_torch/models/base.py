@@ -1,43 +1,95 @@
 """BayesianModel base class (mirrors spmf_tpu/models/base.py: data binding,
 the ``fit`` / ``calibrate_advi`` training entry points, the ``waic`` /
-``log_likelihood`` scoring entry points and the calibrated expectations). All trainable state is the surrogate parameter dict
-``self.surrogate_params``; the model holds configuration, the device and the
-normalization constants."""
+``log_likelihood`` scoring entry points, the calibrated expectations, the
+bound surrogate view, and ``save`` / ``load_params`` / ``reconstitute`` /
+``load_model`` in the JAX package's npz format). All trainable state is the
+surrogate parameter dict ``self.surrogate_params``; the model holds
+configuration, the device and the normalization constants."""
 from __future__ import annotations
 
+import json
 from typing import Optional
 
+import numpy as np
 import torch
 
 from spmf_tpu_torch.config import canonical_device, canonical_dtype
 from spmf_tpu_torch.data import as_data_factory
+from spmf_tpu_torch.utils.checkpoint import (
+    flatten_jax_order,
+    to_numpy,
+    treedef_string,
+    unflatten_jax_order,
+)
 from spmf_tpu_torch.vi.minibatch import fit_surrogate_posterior
 from spmf_tpu_torch.vi.waic import waic as _waic
 
-__all__ = ["BayesianModel", "load_model"]
+__all__ = ["BayesianModel", "BoundSurrogate", "load_model"]
 
-#: where the API that the port does not carry yet is queued
-_API_ITEM = "ROADMAP.md section 1, item 1 (the rest of the models' API)"
-_PERSISTENCE_ITEM = "ROADMAP.md section 1, item 2 (persistence and resume)"
-
-
-def not_ported(name, item):
-    """The refusal of an API name of spmf_tpu that the port lacks: a
-    NotImplementedError naming the ROADMAP item that ports it."""
-    return NotImplementedError(
-        f"{name} is not ported to spmf_tpu_torch yet ({item})")
+#: normalization constants a saved model carries beside its parameters
+_EXTRAS = ("eta_i", "xi_u_global")
 
 
 def load_model(path, **overrides):
-    """Refused: reloading a saved model (spmf_tpu's ``load_model``)."""
-    raise not_ported("load_model", _PERSISTENCE_ITEM)
+    """Rebuild a model saved by ``save`` (of this package or of spmf_tpu)
+    from its class name, config and parameters. ``overrides`` replace
+    config entries and pass ``device=`` / ``dtype=``: the file stores no
+    device, so with none given the model goes to the card."""
+    with np.load(path, allow_pickle=False) as zf:
+        meta = json.loads(str(zf["__meta__"]))
+    import spmf_tpu_torch.models as _models
+
+    cls = getattr(_models, meta["class"])
+    config = dict(meta.get("config", {}))
+    config.update(overrides)
+    model = cls(**config)
+    model.load_params(path)
+    return model
+
+
+class BoundSurrogate:
+    """View of (surrogate, current params) with the TFP-style ``sample``:
+    ``model.surrogate_distribution.sample(250)``. ``seed``: None draws from
+    a generator seeded ``1000 + n`` at the view's n-th call, an int seeds
+    the generator, and a ``torch.Generator`` is used as given."""
+
+    def __init__(self, model):
+        self._model = model
+        self._counter = 0
+
+    def _generator(self, seed):
+        if isinstance(seed, torch.Generator):
+            return seed
+        return torch.Generator(device=self._model.device).manual_seed(
+            int(seed))
+
+    def sample(self, sample_shape=(), seed=None):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        if seed is None:
+            self._counter += 1
+            seed = 1000 + self._counter
+        return self._model._surrogate.sample(
+            self._model.surrogate_params, self._generator(seed),
+            tuple(sample_shape))
+
+    def sample_and_log_prob(self, sample_shape=(), seed=None):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        return self._model._surrogate.sample_and_log_prob(
+            self._model.surrogate_params, self._generator(seed or 0),
+            tuple(sample_shape))
+
+    @property
+    def variables(self):
+        return self._model.surrogate_params
+
 
 #: fit() options of the JAX engine that this port does not carry yet
-_NOT_PORTED = ("profile_dir", "remat_sampling", "opt_state", "param_sharding",
-               "prefetch", "resume_from", "epoch_scan", "epoch_chunk",
-               "checkpoint_full_state")
+_NOT_PORTED = ("profile_dir", "remat_sampling", "param_sharding", "prefetch",
+               "epoch_scan", "epoch_chunk")
 _ENGINE = ("convergence_window", "decay_schedule", "elbo_estimator",
-           "antithetic")
+           "antithetic", "opt_state", "resume_from", "checkpoint_full_state")
 
 
 class BayesianModel:
@@ -66,6 +118,10 @@ class BayesianModel:
         self.data = as_data_factory(data)
         self.data_transform_fn = data_transform_fn
 
+    def _const(self, value):
+        return torch.as_tensor(np.asarray(value), dtype=self.dtype,
+                               device=self.device)
+
     def create_distributions(self):  # pragma: no cover - abstract
         raise NotImplementedError
 
@@ -74,25 +130,11 @@ class BayesianModel:
 
     @property
     def surrogate_distribution(self):
-        """Refused: the bound surrogate view with ``sample``."""
-        raise not_ported("surrogate_distribution", _API_ITEM)
+        return BoundSurrogate(self)
 
     @property
     def surrogate_vars(self):
-        """Refused: the surrogate's variables."""
-        raise not_ported("surrogate_vars", _API_ITEM)
-
-    def save(self, path):
-        """Refused: the npz of class, config and parameters."""
-        raise not_ported("save", _PERSISTENCE_ITEM)
-
-    def load_params(self, path):
-        """Refused: parameters from a saved npz."""
-        raise not_ported("load_params", _PERSISTENCE_ITEM)
-
-    def reconstitute(self, state):
-        """Refused: parameters from a state dict."""
-        raise not_ported("reconstitute", _PERSISTENCE_ITEM)
+        return self.surrogate_params
 
     def _energy(self, batch, samples, prior_weight):
         return self.unormalized_log_prob(data=batch,
@@ -240,3 +282,54 @@ class BayesianModel:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.calibrated_expectations = self._surrogate.mean(
             self.surrogate_params, generator, num_samples)
+
+    # ----------------------------------------------------------- persistence
+    def _config(self) -> dict:
+        """Static config needed to rebuild the model; overridden by models."""
+        return {}
+
+    def save(self, path):
+        """Write ``__meta__`` (class, config, the params' treedef string),
+        the parameters as ``param_{i}`` in JAX leaf order and the
+        normalization constants as ``extra_*``: the file spmf_tpu's
+        ``save`` writes."""
+        arrays = {f"param_{i}": to_numpy(x) for i, x in
+                  enumerate(flatten_jax_order(self.surrogate_params))}
+        extras = {f"extra_{name}": to_numpy(getattr(self, name))
+                  for name in _EXTRAS if hasattr(self, name)}
+        meta = {"class": type(self).__name__, "config": self._config(),
+                "treedef": treedef_string(self.surrogate_params)}
+        np.savez(path, __meta__=json.dumps(meta), **arrays, **extras)
+
+    def load_params(self, path):
+        """Parameters and normalization constants from a saved npz, as
+        tensors of the model's dtype on its device; then recalibrate."""
+        with np.load(path, allow_pickle=False) as zf:
+            flat = []
+            while f"param_{len(flat)}" in zf:
+                flat.append(self._const(zf[f"param_{len(flat)}"]))
+            for name in _EXTRAS:
+                if f"extra_{name}" in zf:
+                    setattr(self, name, self._const(zf[f"extra_{name}"]))
+        self.surrogate_params = unflatten_jax_order(flat,
+                                                    self.surrogate_params)
+        self.set_calibration_expectations()
+
+    def reconstitute(self, state):
+        """Parameters from a state dict: ``{"surrogate_vars": [...]}`` in
+        JAX leaf order, or a parameter dict. Rebuilds the distributions
+        first and, like the reference, does not recalibrate."""
+        self.create_distributions()
+        if isinstance(state, dict) and "surrogate_vars" in state:
+            flat = [self._const(np.array(v)) for v in state["surrogate_vars"]]
+            n_now = len(flatten_jax_order(self.surrogate_params))
+            if len(flat) != n_now:
+                raise ValueError(
+                    f"State has {len(flat)} arrays, expected {n_now}")
+            self.surrogate_params = unflatten_jax_order(
+                flat, self.surrogate_params)
+        elif isinstance(state, dict):
+            self.surrogate_params = {
+                n: {k: self._const(np.array(to_numpy(v)))
+                    for k, v in sub.items()}
+                for n, sub in state.items()}

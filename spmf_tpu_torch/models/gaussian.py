@@ -82,3 +82,9 @@ class GaussianFactorization(PoissonFactorization):
         for v in parts.values():
             out = out + v
         return out
+
+    def _config(self):
+        cfg = super()._config()
+        cfg.update(observation_model=self.observation_model,
+                   obs_scale=float(self.obs_scale))
+        return cfg

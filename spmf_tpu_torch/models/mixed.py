@@ -85,3 +85,9 @@ class MixedFactorization(BernoulliFactorization):
                 mask = torch.as_tensor(self._masks[name], device=self.device)
                 ll = torch.where(mask, dist().log_prob(x), ll)
         return {"log_likelihood": ll, "rate": rate}
+
+    def _config(self):
+        cfg = super()._config()
+        cfg.update(column_types=self.column_types,
+                   obs_scale=float(self.obs_scale))
+        return cfg

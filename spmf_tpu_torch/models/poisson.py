@@ -28,7 +28,7 @@ import torch
 from spmf_tpu_torch import bijectors as tfb
 from spmf_tpu_torch import distributions as tfd
 from spmf_tpu_torch.data import as_data_factory
-from spmf_tpu_torch.models.base import _API_ITEM, BayesianModel, not_ported
+from spmf_tpu_torch.models.base import BayesianModel
 from spmf_tpu_torch.vi.surrogates import (
     SurrogatePosterior,
     TrainableInverseGamma,
@@ -165,10 +165,6 @@ class PoissonFactorization(BayesianModel):
             self.create_distributions()
         print(f"Feature dim: {self.feature_dim} -> Latent dim {self.latent_dim}")
 
-    def _const(self, value):
-        return torch.as_tensor(np.asarray(value), dtype=self.dtype,
-                               device=self.device)
-
     # ------------------------------------------------------------------ data
     def _counts(self, data):
         """The count matrix of a batch dict ('counts' or legacy 'data'), as
@@ -268,9 +264,21 @@ class PoissonFactorization(BayesianModel):
             z = z * (torch.sum(x, dim=-1, keepdim=True) / self.xi_u_global)
         return z
 
+    @torch.no_grad()
     def encode_batched(self, x, u=None, s=None, row_chunk=8192):
-        """Refused: ``encode`` streamed over row chunks."""
-        raise not_ported("encode_batched", _API_ITEM)
+        """``encode`` of a host matrix streamed over ``row_chunk`` rows at a
+        time, collected on the host: only one chunk of ``x`` is on the
+        device at once. ``u`` / ``s`` are resolved once; each chunk goes
+        through ``self.encode``, so a subclass's encode (Bernoulli's, with
+        no row scaling) is honoured. Returns a numpy array."""
+        x = np.asarray(x)
+        if x.ndim != 2 or x.shape[0] <= row_chunk:
+            return self.encode(x, u, s).cpu().numpy()
+        u = self.calibrated_expectations["u"] if u is None else u
+        s = self.calibrated_expectations["s"] if s is None else s
+        return np.concatenate([
+            self.encode(x[lo:lo + row_chunk], u, s).cpu().numpy()
+            for lo in range(0, x.shape[0], row_chunk)], axis=0)
 
     def encode_sparse(self, sparse_counts, u=None, s=None):
         """Encode a CSR ``SparseCounts`` without densifying
@@ -823,12 +831,21 @@ class PoissonFactorization(BayesianModel):
         return True, None
 
     def predictive_distribution(self, s, u, v, w, data, **kwargs):
-        """Refused: the sample-reduced predictive log-likelihood."""
-        raise not_ported("predictive_distribution", _API_ITEM)
+        """``log_likelihood_components`` with the log-likelihood summed over
+        the sample dims of ``u`` (the JAX package's repair of the
+        reference, which reduced a key ``'ll'`` that is never set)."""
+        prediction = self.log_likelihood_components(s=s, u=u, v=v, w=w,
+                                                    data=data)
+        reduce_dim = u.dim() - 2
+        if reduce_dim > 0:
+            prediction["log_likelihood"] = torch.sum(
+                prediction["log_likelihood"], dim=tuple(range(reduce_dim)))
+        return prediction
 
     def unormalized_log_prob_list(self, *x):
-        """Refused: ``unormalized_log_prob`` with positional arguments."""
-        raise not_ported("unormalized_log_prob_list", _API_ITEM)
+        """``unormalized_log_prob`` with the variables given positionally,
+        in ``var_list`` order."""
+        return self.unormalized_log_prob(**dict(zip(self.var_list, x)))
 
     def unormalized_log_prob(self, data=None, prior_weight=1.0, **params):
         # the reference hard-codes prior_weight=1. when forwarding to the
@@ -839,3 +856,18 @@ class PoissonFactorization(BayesianModel):
         for v in parts.values():
             out = out + v
         return out
+
+    def _config(self):
+        return {
+            "latent_dim": self.latent_dim,
+            "feature_dim": self.feature_dim,
+            "u_tau_scale": float(self.u_tau_scale),
+            "s_tau_scale": float(self.s_tau_scale),
+            "symmetry_breaking_decay": float(self.symmetry_breaking_decay),
+            "scale_columns": bool(self.scale_columns),
+            "scale_rows": bool(self.scale_rows),
+            "log_transform": bool(self.log_transform),
+            "horseshoe_plus": bool(self.horseshoe_plus),
+            "count_key": self.count_key,
+            "likelihood_clip": self.likelihood_clip,
+        }

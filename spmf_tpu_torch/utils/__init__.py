@@ -1,3 +1,9 @@
-from .convert import params_from_numpy, params_to_numpy
+from .checkpoint import (flatten_jax_order, load_fit_state, load_pytree,
+                         save_fit_state, save_pytree, unflatten_jax_order)
+from .convert import (adam_state_from_numpy, adam_state_to_numpy,
+                      params_from_numpy, params_to_numpy)
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "adam_state_to_numpy",
+           "adam_state_from_numpy", "flatten_jax_order",
+           "unflatten_jax_order", "save_pytree", "load_pytree",
+           "save_fit_state", "load_fit_state"]

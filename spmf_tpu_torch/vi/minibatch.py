@@ -8,19 +8,39 @@ learning rate the plateau logic sets. Per epoch: print the average and last
 batch loss, keep the best parameters, restore them and decay the learning
 rate on a plateau (or halve it after a non-finite epoch), and stop on the
 rel_tol / abs_tol window. Returns the best parameters and the loss trace.
+
+Persistence (spmf_tpu's npz format, utils.checkpoint): a checkpoint is
+written on every improving epoch, and a fit resumes from one; a
+KeyboardInterrupt returns the best parameters reached so far.
 """
 from __future__ import annotations
 
 import copy
+import glob
+import os
+import re
 import time
+import uuid
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from spmf_tpu_torch.utils.checkpoint import (
+    load_fit_state,
+    save_fit_state,
+    save_pytree,
+)
+from spmf_tpu_torch.utils.convert import (
+    adam_leaf_count,
+    adam_state_from_numpy,
+    adam_state_to_numpy,
+)
+
 __all__ = ["FitResult", "clip_and_step", "elbo_loss", "fit_surrogate_posterior",
-           "make_optimizer"]
+           "make_optimizer", "resume_seed"]
 
 
 @dataclass
@@ -28,6 +48,11 @@ class FitResult:
     params: Any
     losses: List[float]
     learning_rate: float
+    #: the optimizer's ``state_dict()`` at the end of the fit; pass it back
+    #: as ``opt_state=`` to continue
+    opt_state: Any = None
+    #: the run's checkpoint directory, ``{checkpoint_dir}/{run_id}``
+    checkpoint_path: Optional[str] = None
     converged: bool = False
     extras: Dict[str, Any] = field(default_factory=dict)
 
@@ -59,6 +84,35 @@ def _leaves(params):
 def _detached(params):
     return {n: {k: t.detach().clone() for k, t in sub.items()}
             for n, sub in params.items()}
+
+
+def _epoch_tag(path):
+    """A checkpoint ``{run_id}-{epoch}.npz``'s order: its epoch tag (-1 if
+    the name has none), then its mtime."""
+    m = re.search(r"-(\d+)\.npz$", os.path.basename(path))
+    return (int(m.group(1)) if m else -1, os.path.getmtime(path))
+
+
+def _resolve_checkpoint(path):
+    """``path`` itself, or for a directory the newest .npz under it
+    (searched recursively) by epoch tag, then mtime."""
+    if not os.path.isdir(path):
+        return path
+    cands = sorted(glob.glob(os.path.join(path, "**", "*.npz"),
+                             recursive=True), key=_epoch_tag)
+    if not cands:
+        raise FileNotFoundError(f"no .npz checkpoints under {path}")
+    return cands[-1]
+
+
+def resume_seed(seed, epoch_offset):
+    """The generator seed of a fit resumed at global epoch ``epoch_offset``:
+    the first 64-bit word of ``numpy.random.SeedSequence([seed mod 2**64,
+    epoch_offset])``. Deterministic (same seed and checkpoint, same
+    continuation) and a fresh stream, so a resume does not replay the first
+    run's draws (the JAX engine folds the offset into its key instead)."""
+    seq = np.random.SeedSequence([int(seed) % 2**64, int(epoch_offset)])
+    return int(seq.generate_state(1, np.uint64)[0])
 
 
 def make_optimizer(params, learning_rate):
@@ -120,6 +174,9 @@ def fit_surrogate_posterior(
     decay_schedule: Optional[str] = None,
     elbo_estimator: str = "standard",
     antithetic: bool = False,
+    opt_state=None,
+    resume_from: Optional[str] = None,
+    checkpoint_full_state: bool = True,
 ) -> FitResult:
     """Run minibatch ADVI. The displayed per-batch loss is -ELBO / rows,
     the ELBO estimated by ``sample_size`` x ``sample_batches`` samples;
@@ -127,11 +184,22 @@ def fit_surrogate_posterior(
     energy. Randomness comes from one ``torch.Generator`` seeded with
     ``seed`` on the parameters' device. ``antithetic``: mirror the
     surrogate's base draws across the (even) sample axis; 'stratified' also
-    couples the S/2 pairs on a randomly shifted Korobov lattice."""
+    couples the S/2 pairs on a randomly shifted Korobov lattice.
+
+    ``checkpoint_dir``: on every improving epoch write
+    ``{checkpoint_dir}/{run_id}/{run_id}-{global epoch}.npz`` with that
+    epoch's parameters and, with ``checkpoint_full_state`` (the default),
+    the Adam state and the control state (lr, best_loss, stall, epoch).
+    ``resume_from``: a checkpoint file, or a directory (its newest file by
+    epoch tag, then mtime, searched recursively), of either package. Its
+    parameters are cast to ``dtype``; a full state also continues the Adam
+    moments, the learning rate (the checkpoint's wins over the argument),
+    best_loss and stall, and the epoch tags continue its global epoch. The
+    generator is then re-seeded with ``resume_seed(seed, epoch)`` after the
+    initial evaluation. ``opt_state``: a ``FitResult.opt_state`` of this
+    package; it wins over a checkpoint's optimizer state, with a
+    RuntimeWarning."""
     say = print if verbose else (lambda *a, **k: None)
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir is not ported to spmf_tpu_torch yet")
     if elbo_estimator == "stl":
         raise NotImplementedError(
             "elbo_estimator='stl' is not ported to spmf_tpu_torch yet")
@@ -149,7 +217,21 @@ def fit_surrogate_posterior(
 
     if device is None:
         device = _leaves(params)[0].device
-    params = {n: {k: t.detach().to(device=device, dtype=dtype).clone()
+    epoch_offset = 0
+    resume_opt = None     # optax's flat Adam leaves of a full checkpoint
+    resume_meta = None    # its control state
+    if resume_from is not None:
+        path = _resolve_checkpoint(resume_from)
+        # the global epoch continues in this run's tags; the recorded one
+        # backs up a renamed file's
+        epoch_offset = max(_epoch_tag(path)[0], 0)
+        params, resume_opt, resume_meta = load_fit_state(path, params)
+        if resume_meta is not None:
+            epoch_offset = max(epoch_offset,
+                               int(resume_meta.get("epoch", 0)))
+        say(f"Resumed surrogate params from {path}")
+    params = {n: {k: torch.as_tensor(t).detach()
+                  .to(device=device, dtype=dtype).clone()
                   .requires_grad_(True) for k, t in sub.items()}
               for n, sub in params.items()}
     leaves = _leaves(params)
@@ -165,6 +247,25 @@ def fit_surrogate_posterior(
     def _set_lr(value):
         for group in optimizer.param_groups:
             group["lr"] = _f32(value)
+
+    if opt_state is not None:
+        optimizer.load_state_dict(copy.deepcopy(opt_state))
+        if resume_opt is not None:
+            warnings.warn(
+                "both opt_state= and a full-state resume_from checkpoint "
+                "were given; the explicit opt_state wins (checkpoint "
+                "optimizer/control state ignored)", RuntimeWarning)
+            resume_meta = None
+    elif resume_opt is not None:
+        if len(resume_opt) == adam_leaf_count(params):
+            adam_state_from_numpy(resume_opt, optimizer, params)
+        else:  # another optimizer's state
+            warnings.warn(
+                f"resume_from checkpoint has {len(resume_opt)} optimizer "
+                f"leaves but this run's optimizer has "
+                f"{adam_leaf_count(params)}; restoring params only (fresh "
+                "optimizer state)", RuntimeWarning)
+            resume_meta = None
 
     def _loss(batch):
         return elbo_loss(surrogate, energy_fn, params, batch, generator,
@@ -184,6 +285,10 @@ def fit_surrogate_posterior(
     with torch.no_grad():
         initial_loss = float(_loss(to_device(first_batch)))
     say(f"Initial loss: {initial_loss}")
+    if epoch_offset > 0:
+        # after the display-only initial eval, as the JAX engine folds the
+        # offset into its key; a fresh run's generator is left as it is
+        generator.manual_seed(resume_seed(seed, epoch_offset))
 
     losses: List[float] = [initial_loss]
     # epoch averages are the checkpoint unit; the single-batch initial eval
@@ -191,6 +296,43 @@ def fit_surrogate_posterior(
     best_loss = np.inf
     lr = learning_rate
     stall = 0
+    if resume_meta is not None:
+        # a full-state resume continues the run's control state; the
+        # checkpoint's learning rate supersedes the argument
+        lr = _f32(resume_meta.get("lr", lr))
+        best_loss = float(resume_meta.get("best_loss", best_loss))
+        stall = int(resume_meta.get("stall", 0))
+        _set_lr(lr)
+        say("Restored optimizer/control state: "
+            f"lr={lr}, best_loss={best_loss}, stall={stall}, "
+            f"epoch={epoch_offset}"
+            + (f" (checkpoint lr supersedes learning_rate={learning_rate};"
+               " pass opt_state= or checkpoint_full_state=False runs to"
+               " override)"
+               if np.float32(learning_rate) != np.float32(lr) else ""))
+    ckpt_path = None
+    run_id = str(uuid.uuid4())
+    if checkpoint_dir is not None:
+        ckpt_path = os.path.join(checkpoint_dir, run_id)
+        os.makedirs(ckpt_path, exist_ok=True)
+
+    checkpoint_seconds: List[float] = []
+
+    def save_ckpt(epoch):
+        """The improving epoch's state, written after its loss fetch."""
+        t_write = time.perf_counter()
+        tag = epoch + epoch_offset
+        path = os.path.join(ckpt_path, f"{run_id}-{tag}.npz")
+        if checkpoint_full_state:
+            save_fit_state(path, best_params,
+                           adam_state_to_numpy(optimizer, params),
+                           meta={"lr": _f32(lr), "best_loss": float(best_loss),
+                                 "stall": int(stall), "epoch": tag})
+        else:
+            save_pytree(path, best_params)
+        checkpoint_seconds.append(time.perf_counter() - t_write)
+        say(f"Saved a checkpoint: {path}")
+
     best_params = _detached(params)
     best_opt_state = copy.deepcopy(optimizer.state_dict())
     converged = False
@@ -214,58 +356,76 @@ def fit_surrogate_posterior(
         return converged
 
     epoch = 0
-    while epoch < num_steps:
-        epoch += 1
-        t_epoch = time.perf_counter()
-        batch_losses = [step(to_device(b)) for b in batched_data_factory()]
-        if not batch_losses:
-            raise ValueError(
-                "batched_data_factory() yielded no batches in epoch "
-                f"{epoch} — check batch_size/drop_remainder vs dataset size")
-        # ONE device fetch for the epoch
-        batch_losses = torch.stack(batch_losses).cpu().tolist()
-        epoch_seconds.append(time.perf_counter() - t_epoch)
-        epoch_loss = float(np.mean(batch_losses))
-        finite = bool(np.isfinite(epoch_loss))
-        losses.append(epoch_loss)
-        say(f"Epoch {epoch}: average-batch loss: {epoch_loss} "
-            f"last batch loss: {batch_losses[-1]}")
-        plateau = False
-        if not finite:
-            # divergence: restore best and decay hard
-            say(f"Non-finite loss; restoring from a checkpoint - loss: "
-                f"{best_loss}")
-            lr = _decay_f32(lr, 0.5)
-        else:
-            if epoch_loss < best_loss:
-                best_loss = epoch_loss
-                stall = 0
-                best_params = _detached(params)
-                best_opt_state = copy.deepcopy(optimizer.state_dict())
-            else:
-                stall += 1
-            plateau = stall >= patience
-            if plateau:
-                lr = _decay_f32(lr, decay_rate)
-                say(f"We are in a loss plateau learning rate: {lr} "
-                    f"loss: {epoch_loss}")
-                say(f"Restoring from a checkpoint - loss: {best_loss}")
-                stall = 0
-        if not finite or plateau:
-            with torch.no_grad():
-                for t, b in zip(leaves, _leaves(best_params)):
-                    t.copy_(b)
-            optimizer.load_state_dict(copy.deepcopy(best_opt_state))
-            _set_lr(lr)
+    interrupted = False
+    try:
+        while epoch < num_steps:
+            epoch += 1
+            t_epoch = time.perf_counter()
+            batch_losses = [step(to_device(b))
+                            for b in batched_data_factory()]
+            if not batch_losses:
+                raise ValueError(
+                    "batched_data_factory() yielded no batches in epoch "
+                    f"{epoch} — check batch_size/drop_remainder vs dataset "
+                    "size")
+            # ONE device fetch for the epoch
+            batch_losses = torch.stack(batch_losses).cpu().tolist()
+            epoch_seconds.append(time.perf_counter() - t_epoch)
+            epoch_loss = float(np.mean(batch_losses))
+            finite = bool(np.isfinite(epoch_loss))
+            losses.append(epoch_loss)
+            say(f"Epoch {epoch}: average-batch loss: {epoch_loss} "
+                f"last batch loss: {batch_losses[-1]}")
+            plateau = False
             if not finite:
-                continue
-        if _check_convergence(epoch):
-            break
+                # divergence: restore best and decay hard
+                say(f"Non-finite loss; restoring from a checkpoint - loss: "
+                    f"{best_loss}")
+                lr = _decay_f32(lr, 0.5)
+            else:
+                if epoch_loss < best_loss:
+                    best_loss = epoch_loss
+                    stall = 0
+                    best_params = _detached(params)
+                    best_opt_state = copy.deepcopy(optimizer.state_dict())
+                    if ckpt_path is not None:
+                        save_ckpt(epoch)
+                else:
+                    stall += 1
+                plateau = stall >= patience
+                if plateau:
+                    lr = _decay_f32(lr, decay_rate)
+                    say(f"We are in a loss plateau learning rate: {lr} "
+                        f"loss: {epoch_loss}")
+                    say(f"Restoring from a checkpoint - loss: {best_loss}")
+                    stall = 0
+            if not finite or plateau:
+                with torch.no_grad():
+                    for t, b in zip(leaves, _leaves(best_params)):
+                        t.copy_(b)
+                optimizer.load_state_dict(copy.deepcopy(best_opt_state))
+                _set_lr(lr)
+                if not finite:
+                    continue
+            if _check_convergence(epoch):
+                break
+    except KeyboardInterrupt:
+        # Ctrl-C / SIGINT: return the best state reached so far (written
+        # checkpoints stay on disk)
+        interrupted = True
+        say(f"Interrupted at epoch {epoch}; returning the best params so "
+            f"far (loss {best_loss})")
 
     return FitResult(
         params=best_params,
         losses=losses,
         learning_rate=lr,
+        opt_state=optimizer.state_dict(),
+        checkpoint_path=ckpt_path,
         converged=converged,
-        extras={"epoch_seconds": epoch_seconds},
+        extras={"epoch_seconds": epoch_seconds,
+                # each checkpoint write: the copy to the host and the npz
+                "checkpoint_seconds": checkpoint_seconds,
+                # the returned params are the best before the interrupt
+                "interrupted": interrupted},
     )

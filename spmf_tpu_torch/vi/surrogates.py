@@ -18,6 +18,7 @@ import torch
 
 from spmf_tpu_torch import bijectors as tfb
 from spmf_tpu_torch import distributions as tfd
+from spmf_tpu_torch.config import canonical_device, canonical_dtype
 
 __all__ = [
     "TrainableNormal",
@@ -45,8 +46,6 @@ def _sum_event(x, event_ndims):
 
 class _Trainable:
     def __init__(self, shape, event_ndims, dtype, device):
-        from spmf_tpu_torch.config import canonical_device, canonical_dtype
-
         self.dtype = canonical_dtype(dtype)
         self.device = canonical_device(device)
         self.shape = tuple(shape)
@@ -75,6 +74,10 @@ class TrainableNormal(_Trainable):
         return {"loc": self._tensor(self._loc0),
                 "raw_scale": self._tensor(self._raw_scale0)}
 
+    def log_prob(self, params, x):
+        d = tfd.Normal(params["loc"], _softplus.forward(params["raw_scale"]))
+        return _sum_event(d.log_prob(x), self.event_ndims)
+
 
 class TrainableInverseGamma(_Trainable):
     """Trainable InverseGamma surrogate (softplus-parameterized
@@ -93,6 +96,11 @@ class TrainableInverseGamma(_Trainable):
     def init(self) -> Dict[str, torch.Tensor]:
         return {"raw_concentration": self._tensor(self._raw_conc0),
                 "raw_scale": self._tensor(self._raw_scale0)}
+
+    def log_prob(self, params, x):
+        d = tfd.InverseGamma(_softplus.forward(params["raw_concentration"]),
+                             _softplus.forward(params["raw_scale"]))
+        return _sum_event(d.log_prob(x), self.event_ndims)
 
 
 class TransformedSurrogate:
@@ -113,6 +121,13 @@ class TransformedSurrogate:
 
     def init(self):
         return self.base.init()
+
+    def log_prob(self, params, y):
+        """log q(y) = log q_base(b^-1(y)) - fldj(b^-1(y))."""
+        x = self.bijector.inverse(y)
+        fldj = _sum_event(self.bijector.forward_log_det_jacobian(x),
+                          self.base.event_ndims)
+        return self.base.log_prob(params, x) - fldj
 
 
 class SurrogatePosterior:
@@ -154,8 +169,20 @@ class SurrogatePosterior:
         self.device = devices.pop() if len(devices) == 1 else None
         self._normal_masks = {}    # see _normal_mask
 
+    @property
+    def names(self):
+        return list(self.surrogates.keys())
+
     def init(self):
         return {k: s.init() for k, s in self.surrogates.items()}
+
+    def log_prob(self, params, values):
+        """log q of given values (constrained space), summed over the
+        variables."""
+        logq = 0.0
+        for name, s in self.surrogates.items():
+            logq = logq + s.log_prob(params[name], values[name])
+        return logq
 
     def _fused_normals_ok(self, names, sample_shape):
         """The fused Normal sampler is an opt-in
@@ -419,7 +446,34 @@ def build_trainable_InverseGamma_dist(concentration, scale, ndims=None,
 
 def build_surrogate_posterior(joint_prior, bijectors, dtype=None,
                               strategy=None, init_loc=None, init_scale=None):
-    """Refused: a mean-field surrogate built for any named joint prior."""
-    raise NotImplementedError(
-        "build_surrogate_posterior is not ported to spmf_tpu_torch yet "
-        "(ROADMAP.md section 1, item 1 (the rest of the models' API))")
+    """A mean-field surrogate for any named joint prior: per variable, a
+    TrainableNormal in unconstrained space pushed through its bijector
+    (Identity where ``bijectors`` names none), loc -3 (0 under Identity)
+    and scale 1e-3, with the per-name ``init_loc`` / ``init_scale``
+    overrides (scalars or arrays) on top. Shapes, the device and (with no
+    ``dtype``) the dtype come from one draw of the prior; ``strategy`` is
+    accepted and ignored."""
+    del strategy
+    init_loc = init_loc or {}
+    init_scale = init_scale or {}
+    # the root nodes are distribution objects and hold the prior's device
+    device = next(node.device for node in joint_prior.model.values()
+                  if hasattr(node, "log_prob"))
+    probe = joint_prior.sample(torch.Generator(device=device).manual_seed(0))
+    surrogates = {}
+    for name, val in probe.items():
+        b = (bijectors.get(name, tfb.Identity())
+             if isinstance(bijectors, dict) else tfb.Identity())
+        shape = tuple(val.shape)
+        dt = canonical_dtype(dtype) if dtype is not None else val.dtype
+        np_dt = np.float64 if dt == torch.float64 else np.float32
+        loc = np.full(shape, 0.0 if isinstance(b, tfb.Identity) else -3.0,
+                      np_dt)
+        if name in init_loc:
+            loc = np.broadcast_to(np.asarray(init_loc[name], np_dt), shape)
+        scale = np.broadcast_to(
+            np.asarray(init_scale.get(name, 1e-3), np_dt), shape)
+        surrogates[name] = TransformedSurrogate(
+            TrainableNormal(loc, scale, event_ndims=len(shape), dtype=dt,
+                            device=val.device), b)
+    return SurrogatePosterior(surrogates)

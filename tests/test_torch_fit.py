@@ -124,7 +124,7 @@ def test_unported_fit_options_raise():
     m = PoissonFactorization(latent_dim=2, feature_dim=6, dtype="float64",
                              device="cpu",
                              data=ArrayDataset({"counts": X}).batch(16))
-    for kw in (dict(checkpoint_dir="ckpt"), dict(resume_from="x.npz"),
+    for kw in (dict(profile_dir="prof"), dict(prefetch=2),
                dict(epoch_scan=True), dict(elbo_estimator="stl")):
         with pytest.raises(NotImplementedError):
             m.fit(num_steps=1, sample_size=2, verbose=False, **kw)

@@ -72,6 +72,17 @@ Phases, each printing lines; any failure raises and exits non-zero:
              same draws; surrogate_distribution.sample(250). Prints the
              checkpoint's bytes, ms a write, ms/step with and without
              checkpoints, encode_batched rows/s and the sample's ms
+  G scan     the whole-epoch scan path (fit over a device-resident
+             source; each batch's gather and step replayed from a CUDA
+             graph): captured against eager bit for bit at float64 and at
+             float32 through K1 and K3 (3 batches, a remainder, a plateau
+             restore); at the dense scRNA width (B=4096, N=32768 resident)
+             the captured scan, the eager scan twice, and the general loop
+             over the same DeviceArrayDataset and over a host ArrayDataset,
+             in turns; the 3% blocked and 0.1% flat sparse sets captured
+             against epoch_scan=False; fused_normals on and off under
+             capture. Each arm prints ms/step, rows/s, peak GB, and from a
+             profiled turn its busy share and host launches a step
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -96,6 +107,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -634,6 +646,255 @@ def say_profile(tag, prof, smi):
     say(9, f"profile {tag}: {wall:.2f} ms/step wall, {share}, {count:.0f} "
            f"device kernels a step; top "
            + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top) + f" ({smi})")
+
+
+def epoch_windows(prof):
+    """From a torch.profiler run over a fit: (wall ms, device-busy ms, host
+    launches, device kernels) summed over its epochs after the first (the
+    engine's "fit epoch" ranges; the first holds the capture). Host
+    launches are the CUDA runtime's kernel and graph launch calls; busy is
+    the device events' time, None when the profiler saw none."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    # the host's ranges (the profiler mirrors each on the device timeline)
+    wins = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.name == "fit epoch"
+                  and e.device_type == DeviceType.CPU)[1:]
+
+    def inside(e):
+        return any(a <= e.time_range.start < b for a, b in wins)
+
+    launches = Counter(e.name for e in events
+                       if e.device_type == DeviceType.CPU
+                       and "Launch" in e.name and e.name.startswith("cu")
+                       and inside(e))
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA
+                  and e.name != "fit epoch" and inside(e)]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    wall = sum(b - a for a, b in wins) / 1e3
+    return wall, (busy or None), launches, len(dev_events)
+
+
+def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
+    """Phase G: the whole-epoch scan path (a device-resident source; each
+    batch's gather and step replayed from a CUDA graph). The captured scan
+    against the same scan run eagerly, bit for bit at float64 (the plain
+    path) and at float32 through K1 and K3 at one row tile, across plateau
+    restores and a remainder batch; at the dense scRNA width the captured
+    scan, the eager scan (twice: the spread of K1's atomic sums) and the
+    general loop over the same DeviceArrayDataset and over a host
+    ArrayDataset, in turns; the two sparse configurations (``sparse_arms``:
+    tag -> a model bound to its DeviceSparseCounts) captured against
+    ``epoch_scan=False``; and ``fused_normals`` on and off under capture.
+    Each arm prints ms/step, rows/s, peak GB, and from a profiled turn its
+    busy share and host launches a step. Returns the kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import ArrayDataset, DeviceArrayDataset
+    from spmf_tpu_torch.vi import epoch_scan
+
+    t_phase = time.perf_counter()
+    zero_launches()
+
+    def clone(params):
+        return {n: {k: t.clone() for k, t in sub.items()}
+                for n, sub in params.items()}
+
+    def run(m, init, data, capture=True, profiled=False, **kw):
+        """One fit from ``init``: (losses, ms/step of the epochs after the
+        first, peak GB, epoch_windows or None)."""
+        epoch_scan._CAPTURE = capture
+        m.surrogate_params = clone(init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(dict(learning_rate=0.01, sample_size=S, rel_tol=None,
+                       verbose=False, seed=0), **kw)
+        prof = None
+        try:
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    losses = m.fit(batched_data_factory=data, **kw)
+                    torch.cuda.synchronize()
+            else:
+                losses = m.fit(batched_data_factory=data, **kw)
+        finally:
+            epoch_scan._CAPTURE = True
+        torch.cuda.synchronize()
+        r = m.last_fit
+        steps = steps_of(data)
+        ms = float(np.median(r.extras["epoch_seconds"][1:])) / steps * 1e3
+        win = epoch_windows(prof) if prof is not None else None
+        return (losses, ms, torch.cuda.max_memory_allocated() / 1e9, win,
+                r.extras["epoch_scan"])
+
+    def steps_of(data):
+        bs = data._batch_size
+        if getattr(data, "block_rows", None):
+            return data.n_blocks // (bs // data.block_rows)
+        if isinstance(data, (ArrayDataset, DeviceArrayDataset)) and not \
+                data._drop_remainder:
+            return -(-data.num_rows // bs)
+        return data.num_rows // bs
+
+    def report(tag, rows, ms, peak, win, steps):
+        if win is None:
+            prof_part = "not profiled"
+        else:
+            wall, busy, launches, kernels = win
+            n = steps
+            share = (f"busy {busy / n:.2f} ms/step ({busy / wall:.1%} of "
+                     f"the profiled wall)" if busy else
+                     "device time not measured")
+            names = ", ".join(f"{k} {v / n:.2f}"
+                              for k, v in launches.most_common(3))
+            prof_part = (f"{share}, {sum(launches.values()) / n:.2f} host "
+                         f"launches a step ({names}), {kernels / n:.0f} "
+                         "device kernels a step")
+        say("G", f"{tag}: {ms:.2f} ms/step, {rows / ms * 1e3:.0f} rows/s, "
+                 f"peak {peak:.2f} GB; {prof_part} ({smi})")
+
+    # (a) the captured scan against the eager scan on the card: bit for bit
+    # at float64 (the plain path) and at float32 through K3 (plain
+    # likelihood); through K1 its float32 atomic sums (dv across warps,
+    # dphi in shared memory) vary from run to run even at one row tile, so
+    # there the two are held to 1e-5 relative beside two eager runs' spread
+    n_b, d_b, b_b = 350, 300, 100          # 3 full batches and 50 rows
+    xb = np.random.default_rng(7).poisson(1.0, (n_b, d_b))
+
+    def small_scan(capture, dtype, **kw):
+        ds = DeviceArrayDataset({"counts": xb, "indices": np.arange(n_b)},
+                                batch_size=b_b, shuffle=True, seed=3,
+                                dtype=dtype, device=dev)
+        m = PoissonFactorization(latent_dim=4, feature_dim=d_b, dtype=dtype,
+                                 device=dev,
+                                 u_tau_scale=1.0 / np.sqrt(n_b * d_b), **kw)
+        epoch_scan._CAPTURE = capture
+        try:
+            losses = m.fit(batched_data_factory=ds, num_steps=4,
+                           learning_rate=2.0, sample_size=4, patience=1,
+                           rel_tol=None, verbose=False, seed=5)
+        finally:
+            epoch_scan._CAPTURE = True
+        return losses, m.last_fit.learning_rate, m.surrogate_params
+
+    for dtype, kw in (("float64", dict(fused_likelihood=False,
+                                       gamma_sampler="fast")),
+                      ("float32", dict(fused_likelihood=False,
+                                       gamma_sampler="fused"))):
+        (lc, lrc, pc), (le, lre, pe) = (small_scan(c, dtype, **kw)
+                                        for c in (True, False))
+        same = all(torch.equal(pc[n][k], pe[n][k]) for n in pc for k in pc[n])
+        check(lc == le and lrc == lre and same,
+              f"G {dtype}: the captured scan differs from the eager scan "
+              f"(losses {lc} vs {le}, lr {lrc} vs {lre}, params equal "
+              f"{same})")
+        check(lrc < 2.0, f"G {dtype}: no restore happened (lr {lrc})")
+        say("G", f"{dtype} captured scan == eager scan bit for bit (losses, "
+                 f"every parameter, lr {lrc}; a restore decayed the lr; "
+                 f"N={n_b}, B={b_b}: 3 full batches and a remainder; "
+                 f"{'K3' if dtype == 'float32' else 'the plain path'})")
+    k1 = dict(fused_likelihood=True, gamma_sampler="fused")
+    (lc, lrc, _), (le, lre, _), (le2, _, _) = (
+        small_scan(c, "float32", **k1) for c in (True, False, False))
+    rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b))  # noqa: E731
+                                    / np.abs(b)))
+    check(lrc == lre and rel(lc, le) < 1e-5,
+          f"G float32 K1: captured {lc} (lr {lrc}) against eager {le} (lr "
+          f"{lre})")
+    say("G", f"float32 through K1 and K3: captured scan against eager "
+             f"{rel(lc, le):.2e} relative at most, two eager runs "
+             f"{rel(le, le2):.2e} (K1's atomic sums), lr {lrc} both")
+
+    # (b) the dense scRNA width, arms in turns
+    n_g, b_g = 32768, 4096
+    gg = torch.Generator(device=dev).manual_seed(31)
+    xg = torch.poisson(torch.ones(n_g, D, device=dev), generator=gg)
+    dds = DeviceArrayDataset(
+        {"counts": xg, "indices": torch.arange(n_g, device=dev)},
+        batch_size=b_g, shuffle=True, seed=0, device=dev)
+    hds = ArrayDataset({"counts": xg.cpu().numpy(),
+                        "indices": np.arange(n_g)}).shuffle(seed=0).batch(b_g)
+    m = PoissonFactorization(latent_dim=K, feature_dim=D, dtype="float32",
+                             device=dev)
+    # the column and row norms compute_scales would set, from the device
+    colsum = xg.sum(0, keepdim=True, dtype=torch.float64)
+    cm = (colsum / (xg > 0).sum(0, keepdim=True)).cpu().numpy()
+    m.eta_i = m._const(np.where(cm > 1, cm, 1.0))
+    m.xi_u_global = m._const(np.nansum(cm))
+    init = clone(m.surrogate_params)
+    # the host arm (about 0.2 s a step) takes 2 epochs, to keep the phase
+    # short: its second epoch is the one measured
+    arms = {"captured scan": dict(data=dds),
+            "eager scan": dict(data=dds, capture=False),
+            "general loop, device dataset": dict(data=dds, epoch_scan=False),
+            "general loop, host dataset": dict(data=hds, num_steps=2)}
+    res = {tag: [] for tag in arms}
+    for profiled in (False, True):
+        for tag, kw in arms.items():
+            res[tag].append(run(m, init, profiled=profiled,
+                                **dict(dict(num_steps=3), **kw)))
+    steps = steps_of(dds)
+    for tag, turns in res.items():
+        check(all(np.isfinite(t[0]).all() for t in turns),
+              f"G {tag}: non-finite losses")
+        check(turns[0][4] == (tag in ("captured scan", "eager scan")),
+              f"G {tag}: epoch_scan {turns[0][4]}")
+        report(f"dense B={b_g} {tag} (second turn profiled: "
+               f"{turns[1][1]:.2f} ms/step)", b_g, turns[0][1], turns[0][2],
+               turns[1][3], (arms[tag].get("num_steps", 3) - 1) * steps)
+    cap = [np.array(t[0][1:]) for t in res["captured scan"]]
+    eag = [np.array(t[0][1:]) for t in res["eager scan"]]
+    err = max(float(np.max(np.abs(c - e) / np.abs(e))) for c in cap
+              for e in eag)
+    spread = float(np.max(np.abs(eag[0] - eag[1]) / np.abs(eag[1])))
+    check(err < 1e-4, f"G: captured epoch losses {cap} off the eager scan's "
+                      f"{eag} by {err:.2e} (relative)")
+    say("G", f"dense epoch losses, captured against eager scan: {err:.2e} "
+             f"relative at most (two eager runs: {spread:.2e}; K1's atomic "
+             f"sums); captured {[round(x, 4) for x in cap[0]]}")
+    win = res["captured scan"][1][3]
+    per_step = sum(win[2].values()) / (2 * steps)
+    check(per_step <= 4, f"G: the captured dense scan made {per_step:.2f} "
+                         "host launches a step (at most 4)")
+
+    # (c) the sparse configurations: captured scan against the general loop
+    for tag, (ms_, data) in sparse_arms.items():
+        init_s = clone(ms_.surrogate_params)
+        out = {}
+        for profiled in (False, True):
+            for arm, kw in (("captured scan", {}),
+                            ("general loop", dict(epoch_scan=False))):
+                out.setdefault(arm, []).append(run(
+                    ms_, init_s, data, num_steps=2, profiled=profiled, **kw))
+        st = steps_of(data)
+        for arm, turns in out.items():
+            check(all(np.isfinite(t[0]).all() for t in turns),
+                  f"G {tag} {arm}: non-finite losses")
+            check(turns[0][4] == (arm == "captured scan"),
+                  f"G {tag} {arm}: epoch_scan {turns[0][4]}")
+            report(f"{tag} B={data._batch_size} {arm} (second turn "
+                   f"profiled: {turns[1][1]:.2f} ms/step)",
+                   data._batch_size, turns[0][1], turns[0][2], turns[1][3],
+                   st)
+        ms_.surrogate_params = init_s
+
+    # (d) fused_normals on and off under capture, in turns
+    ab = {True: [], False: []}
+    for fused in (True, False, False, True):
+        m._surrogate.fused_normals = fused
+        ab[fused].append(run(m, init, dds, num_steps=3)[1])
+    m._surrogate.fused_normals = False
+    say("G", f"fused_normals under capture (dense B={b_g}, captured scan): "
+             f"on {ab[True][0]:.3f} / {ab[True][1]:.3f} ms/step, off "
+             f"{ab[False][0]:.3f} / {ab[False][1]:.3f} (in turns on, off, "
+             f"off, on; {smi})")
+    del dds, hds, xg, m
+    say("G", f"phase G took {time.perf_counter() - t_phase:.1f} s")
+    return read_launches()
 
 
 def persistence_phase(dev, smi, zero_launches, read_launches):
@@ -1769,6 +2030,13 @@ def main():
     path_launches["P persistence"] = persistence_phase(
         dev, smi, zero_launches, read_launches)
     say("P", f"launches {path_launches['P persistence']}")
+
+    # ---- G: the whole-epoch scan path, each batch's step a CUDA graph
+    path_launches["G scan"] = scan_phase(
+        dev, smi, zero_launches, read_launches,
+        {"sparse 3% blocked": (sparse["blocked"], blocked),
+         "sparse 0.1% flat": (coo_arms["auto"], flat_c)})
+    say("G", f"launches {path_launches['G scan']}")
 
     # ---- 9: times (medians of 10 after warmup)
     B = 4096

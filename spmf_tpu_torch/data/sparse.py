@@ -358,21 +358,38 @@ class DeviceSparseCounts:
             "indices": (ids[:, None] * R + arange).reshape(-1),
         }
 
-    def _iter_blocked(self):
+    def _batches(self):
+        """(batches an epoch, rows a batch) under the static batch shape;
+        the remainder is dropped, and only with ``drop_remainder=True``
+        (an unshuffled remainder would never be trained on). The blocked
+        layout takes whole blocks, ``bs % block_rows == 0``."""
         bs = self._batch_size or self.num_rows
+        n = self.num_rows
         R = self.block_rows
-        if bs % R:
+        if R:
+            if bs % R:
+                raise ValueError(
+                    f"batch size {bs} must be a multiple of block_rows={R}")
+            nb = self.n_blocks // (bs // R)
+            if n - nb * bs and not self._drop_remainder:
+                raise ValueError(
+                    f"the blocked layout drops the {n - nb * bs}-row "
+                    f"remainder (N={n}, batch={bs}, block_rows={R}): pass "
+                    "drop_remainder=True to batch() to accept this")
+            return nb, bs
+        if n % bs and not self._drop_remainder:
             raise ValueError(
-                f"batch size {bs} must be a multiple of block_rows={R}")
+                f"DeviceSparseCounts drops the {n % bs}-row remainder "
+                f"(N={n}, batch={bs}, fixed batch shape): pass "
+                "drop_remainder=True to batch() to accept this, or a "
+                "batch size dividing N")
+        return n // bs, bs
+
+    def _iter_blocked(self):
+        nb, bs = self._batches()
+        R = self.block_rows
         Rb = bs // R
-        n_use = (self.n_blocks // Rb) * Rb
-        dropped = self.num_rows - n_use * R
-        if dropped and not self._drop_remainder:
-            raise ValueError(
-                f"the blocked layout drops the {dropped}-row remainder "
-                f"(N={self.num_rows}, batch={bs}, block_rows={R}): pass "
-                "drop_remainder=True to batch() to accept this"
-            )
+        n_use = nb * Rb
         idx = np.arange(self.n_blocks)
         if self._shuffle:
             rng = np.random.default_rng(self._seed + self._epoch)
@@ -427,23 +444,58 @@ class DeviceSparseCounts:
         """Batch ``b`` of an epoch decode: the ``pad`` slots from the
         batch's nnz offset, masked past the batch's nnz (values 0, an exact
         no-op in the sparse energy; rows and cols 0 so they stay in
-        range)."""
+        range). ``b`` is an int or a 0-d integer tensor on the device (the
+        scan path's batch counter): every index is a gather, so taking a
+        batch never waits for the host."""
         cum = ep["cum"]
-        start_row = b * bs
-        off = cum[start_row - 1] if b > 0 else torch.zeros_like(cum[0])
-        bn = cum[start_row + bs - 1] - off
-        slots = torch.arange(pad, device=cum.device)
+        dev = cum.device
+        # the batch's first row as a one-element index (a tensor is never
+        # indexed by a 0-d tensor here: that would read it on the host)
+        start = ((b * bs).reshape(1) if isinstance(b, torch.Tensor)
+                 else torch.full((1,), b * bs, dtype=torch.int64,
+                                 device=dev))
+        # nnz before row r is cum0[r] (the exclusive run ends)
+        cum0 = torch.nn.functional.pad(cum, (1, 0))
+        lo_hi = cum0.index_select(0, torch.cat([start, start + bs]))
+        off = lo_hi[0]
+        bn = lo_hi[1] - off
+        slots = torch.arange(pad, device=dev)
         idx = off + slots
         valid = slots < bn
-        rows = ep["erows"][idx] - start_row
+        rows = ep["erows"][idx] - start
         vals = ep["evals"][idx]
         return {
             "coo_rows": torch.where(valid, rows, 0).to(torch.int32),
             "coo_cols": torch.where(valid, ep["ecols"][idx], 0),
             "coo_vals": torch.where(valid, vals, torch.zeros_like(vals)),
             "coo_nnz": bn,
-            "indices": ep["perm"][start_row:start_row + bs],
+            "indices": ep["perm"].index_select(
+                0, start + torch.arange(bs, device=dev)),
         }
+
+    def peek_batch(self):
+        """The first batch of rows ``[0:bs)`` in the dataset's order: no
+        shuffle and no epoch decode (the engine's initial-loss
+        evaluation). The block-aligned layout gives its first ``bs / R``
+        blocks; the flat layout the rows' triplets, padded as the
+        training batches are."""
+        bs = min(self._batch_size or self.num_rows, self.num_rows)
+        if self.block_rows:
+            R = self.block_rows
+            tables = {"cols": self.cols_blk, "vals": self.vals_blk,
+                      "rowl": self.rowl_blk}
+            ids = torch.arange(max(bs // R, 1), dtype=torch.int32,
+                               device=self.device)
+            batch = self._blocked_take_math(tables, ids, R)
+        else:
+            host = self._host._coo_batch(np.arange(bs), self._pad(bs))
+            batch = {k: self._tensor(v, self.dtype if k == "coo_vals"
+                                     else torch.int32 if k != "indices"
+                                     else torch.int64)
+                     for k, v in host.items()}
+        for k, v in self.extras.items():
+            batch[k] = v[batch["indices"]]
+        return batch
 
     def check_overflow(self):
         """One host fetch for all recorded per-batch nnz totals; raises if
@@ -465,19 +517,9 @@ class DeviceSparseCounts:
         if self.block_rows:
             yield from self._iter_blocked()
             return
-        bs = self._batch_size or self.num_rows
+        nb, bs = self._batches()
         n = self.num_rows
-        # every batch has bs rows, so the remainder is dropped; refuse to
-        # drop rows silently unless the caller opted in (an unshuffled
-        # remainder would never be trained on at all)
-        if n % bs and not self._drop_remainder:
-            raise ValueError(
-                f"DeviceSparseCounts drops the {n % bs}-row remainder "
-                f"(N={n}, batch={bs}, fixed batch shape): pass "
-                "drop_remainder=True to batch() to accept this, or a "
-                "batch size dividing N"
-            )
-        stop = n - (n % bs)
+        stop = nb * bs
         pad = self._pad(bs)
         idx = np.arange(n)
         if self._shuffle:

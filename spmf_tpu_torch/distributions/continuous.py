@@ -22,11 +22,15 @@ _HALF_LOG_2_OVER_PI = 0.5 * math.log(2.0 / math.pi)
 
 def _as_tensors(*arrs):
     """Parameters as tensors of one floating dtype and device: the first
-    tensor argument decides both (Python scalars follow it)."""
+    tensor argument decides both (Python scalars follow it, filled on the
+    device rather than copied from the host, so a captured step can take
+    them)."""
     ref = next((a for a in arrs if isinstance(a, torch.Tensor)), None)
     dtype = ref.dtype if ref is not None else torch.get_default_dtype()
     device = ref.device if ref is not None else None
-    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+    return [torch.full((), float(a), dtype=dtype, device=device)
+            if isinstance(a, (int, float)) else
+            torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
 
 
 class _Base(Distribution):

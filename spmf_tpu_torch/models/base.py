@@ -39,7 +39,12 @@ def load_model(path, **overrides):
         meta = json.loads(str(zf["__meta__"]))
     import spmf_tpu_torch.models as _models
 
-    cls = getattr(_models, meta["class"])
+    cls = getattr(_models, meta["class"], None)
+    if cls is None:
+        raise NotImplementedError(
+            f"{path} holds a {meta['class']}, a model class spmf_tpu_torch "
+            "does not have yet (PoissonAutoencoder comes with ROADMAP "
+            "section 1 item 3, M9)")
     config = dict(meta.get("config", {}))
     config.update(overrides)
     model = cls(**config)
@@ -86,10 +91,10 @@ class BoundSurrogate:
 
 
 #: fit() options of the JAX engine that this port does not carry yet
-_NOT_PORTED = ("profile_dir", "remat_sampling", "param_sharding", "prefetch",
-               "epoch_scan", "epoch_chunk")
+_NOT_PORTED = ("profile_dir", "remat_sampling", "param_sharding", "prefetch")
 _ENGINE = ("convergence_window", "decay_schedule", "elbo_estimator",
-           "antithetic", "opt_state", "resume_from", "checkpoint_full_state")
+           "antithetic", "opt_state", "resume_from", "checkpoint_full_state",
+           "epoch_scan", "epoch_chunk")
 
 
 class BayesianModel:

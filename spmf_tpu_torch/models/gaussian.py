@@ -70,7 +70,7 @@ class GaussianFactorization(PoissonFactorization):
 
     def _observation_distribution(self, rate):
         if self.observation_model == "normal":
-            return tfd.Normal(loc=rate, scale=self._const(self.obs_scale))
+            return tfd.Normal(loc=rate, scale=float(self.obs_scale))
         return tfd.Poisson(rate=rate)
 
     def unormalized_log_prob(self, data=None, prior_weight=1.0, **params):

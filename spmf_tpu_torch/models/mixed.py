@@ -78,12 +78,17 @@ class MixedFactorization(BernoulliFactorization):
             ("poisson", lambda: tfd.Poisson(rate=softplus(rate))),
             ("bernoulli", lambda: tfd.Bernoulli(logits=rate)),
             ("normal", lambda: tfd.Normal(
-                loc=rate, scale=self._const(self.obs_scale))),
+                loc=rate, scale=float(self.obs_scale))),
         )
+        if getattr(self, "_device_masks", None) is None:
+            # made once on the device: the step copies nothing from the host
+            self._device_masks = {
+                t: torch.as_tensor(m, device=self.device)
+                for t, m in self._masks.items() if m.any()}
         for name, dist in families:
-            if self._masks[name].any():
-                mask = torch.as_tensor(self._masks[name], device=self.device)
-                ll = torch.where(mask, dist().log_prob(x), ll)
+            if name in self._device_masks:
+                ll = torch.where(self._device_masks[name], dist().log_prob(x),
+                                 ll)
         return {"log_likelihood": ll, "rate": rate}
 
     def _config(self):

@@ -64,6 +64,18 @@ class PoissonFactorization(BayesianModel):
         (MixedFactorization overrides)."""
         return None
 
+    def _codes_lane(self):
+        """``_fused_codes()`` as a float32 (1, D) tensor on the model's
+        device, made once: a training step copies nothing from the host
+        (which a CUDA graph of it could not)."""
+        codes = self._fused_codes()
+        if codes is None:
+            return None
+        if getattr(self, "_codes_on_device", None) is None:
+            self._codes_on_device = torch.as_tensor(
+                codes, dtype=torch.float32, device=self.device)
+        return self._codes_on_device
+
     def encoder_function(self, x):
         """g(x)."""
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -212,6 +224,8 @@ class PoissonFactorization(BayesianModel):
                 if isinstance(batch, dict):
                     x = next(batch[k] for k in (self.count_key, "counts",
                                                 "data") if k in batch)
+                if isinstance(x, torch.Tensor):   # a device-resident batch
+                    x = x.cpu().numpy()
                 x = np.asarray(x, np.float64)
                 colsums = x.sum(0, keepdims=True) + (0 if colsums is None
                                                      else colsums)
@@ -510,7 +524,7 @@ class PoissonFactorization(BayesianModel):
         return fused_poisson_loglik(theta, B, phi, x, self.eta_i,
                                     self.log_transform, self._fused_kind(),
                                     self.likelihood_clip,
-                                    codes=self._fused_codes())
+                                    codes=self._codes_lane())
 
     # ------------------------------------------------------ sparse energies
     def _coo_arrays(self, data):
@@ -777,7 +791,7 @@ class PoissonFactorization(BayesianModel):
                 B[None] if squeeze else B,
                 phi[None] if squeeze else phi,
                 x, self.eta_i, log_transform=self.log_transform,
-                likelihood=self._fused_kind(), codes=self._fused_codes(),
+                likelihood=self._fused_kind(), codes=self._codes_lane(),
             ).to(self.dtype)
             return out[0] if squeeze else out
         ll = self.log_likelihood_components(data=x, **samples)[

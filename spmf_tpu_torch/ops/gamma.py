@@ -101,6 +101,19 @@ def lattice_shift(p, half):
     return p * q + (p * r) // half
 
 
+_GENS: dict = {}
+
+
+def _gens_tensor(gens, device):
+    """The lattice generators as an int64 tensor on ``device``, made once
+    per (gens, device): a step copies nothing from the host (which a CUDA
+    graph of it could not)."""
+    key = (gens, str(device))
+    if key not in _GENS:
+        _GENS[key] = torch.tensor(gens, dtype=torch.int64, device=device)
+    return _GENS[key]
+
+
 def lattice_uniform(generator, half, shape, dtype, device, gens=None,
                     bits=None):
     """``(half,) + shape`` uniforms stratified across the leading (pair)
@@ -127,7 +140,7 @@ def lattice_uniform(generator, half, shape, dtype, device, gens=None,
     p = torch.arange(half, dtype=torch.int64, device=device).reshape(
         (half,) + (1,) * len(shape))
     if gens is not None:
-        g = torch.tensor(gens, dtype=torch.int64, device=device).reshape(
+        g = _gens_tensor(tuple(gens), device).reshape(
             (1, len(gens)) + (1,) * (len(shape) - 1))
         p = (p * g) % H
     b = (bits[None] + lattice_shift(p, H)) & 0x7FFFFF

@@ -59,7 +59,8 @@ def adam_state_to_numpy(optimizer, params):
         zero = np.zeros(tuple(t.shape), to_numpy(t).dtype)
         mu.append(to_numpy(st["exp_avg"]) if st else zero)
         nu.append(to_numpy(st["exp_avg_sq"]) if st else zero)
-    lr = optimizer.param_groups[0]["lr"]
+    # a float, or a device tensor in a capturable optimizer
+    lr = float(optimizer.param_groups[0]["lr"])
     return ([np.asarray(count, np.int32), np.asarray(lr, np.float32),
              np.asarray(count, np.int32)] + mu + nu)
 

@@ -1,0 +1,299 @@
+"""The fit engine's whole-epoch path over a device-resident source (the
+counterpart of spmf_tpu's ``epoch_scan``, spmf_tpu/vi/minibatch.py).
+
+With a ``DeviceArrayDataset`` or a ``DeviceSparseCounts`` (flat or blocked
+layout) in a single process, each epoch runs on the device: one permutation
+drawn there from the engine's generator, then per batch a gather from the
+resident tensors and the training step (sample, energy, backward, clip,
+Adam). On the card the gather and the step of a batch are one CUDA graph,
+captured at first use and replayed: the host launches one graph a batch
+instead of the step's hundreds of kernels. A batch counter on the device
+says which slice of the permutation a replay gathers, and each replay
+writes its loss (and, for the flat sparse layout, its nnz total) into a
+device buffer that the engine fetches once an epoch. On the CPU the same
+step function runs eagerly: there is no graph there.
+
+Capture needs a step that never waits for the host and state whose storage
+never moves: the engine builds Adam with ``capturable=True`` and a device
+learning rate, creates its state before the first step and restores it in
+place. A failed capture raises; nothing falls back to the eager loop.
+"""
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+from spmf_tpu_torch.data import DeviceArrayDataset, DeviceSparseCounts
+
+__all__ = ["EpochScan", "scan_source"]
+
+#: capture the scan's step in CUDA graphs on the card (False runs the same
+#: scan eagerly there). A private switch for the smoke script and the GPU
+#: tests, which hold the captured scan to the uncaptured one bit for bit.
+_CAPTURE = True
+
+#: epochs whose permutations one draw makes (one batched sort of random
+#: keys: the launches of a permutation are spread over this many epochs)
+_PERM_EPOCHS = 8
+
+
+def _processes():
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def scan_source(batched_data_factory, epoch_scan):
+    """The device-resident source whose epochs the scan path runs, or None
+    for the general loop. ``epoch_scan=None`` (auto) engages for a
+    ``DeviceArrayDataset`` or ``DeviceSparseCounts`` source in a single
+    process, ``False`` never, and ``True`` raises where it cannot."""
+    if epoch_scan is False:
+        return None
+    src = getattr(batched_data_factory, "source", None)
+    if (isinstance(src, (DeviceArrayDataset, DeviceSparseCounts))
+            and _processes() == 1):
+        return src
+    if epoch_scan:
+        raise ValueError(
+            "epoch_scan=True requires a DeviceArrayDataset or "
+            "DeviceSparseCounts source and a single process; got "
+            f"source={type(src).__name__}, processes={_processes()}")
+    return None
+
+
+def _launch_counters():
+    """Every kernel wrapper's launch counter, as (dict, key) pairs."""
+    from spmf_tpu_torch.ops import fused_ig, fused_normal, fused_poisson
+
+    return [(d, k) for d in (fused_poisson.LAUNCHES, fused_ig.LAUNCHES,
+                             fused_normal.LAUNCHES) for k in d]
+
+
+class _Replay:
+    """One captured step: ``replay()`` launches the graph and adds the
+    kernel launches the capture recorded to the wrappers' counters (their
+    Python increments ran once, at capture, where nothing was launched)."""
+
+    def __init__(self, graph, launches):
+        self.graph = graph
+        self.launches = launches
+
+    def __call__(self):
+        self.graph.replay()
+        for (d, k), n in self.launches:
+            d[k] += n
+
+
+class EpochScan:
+    """The epochs of one fit over a device-resident source ``ds``.
+
+    ``step(batch)``: the engine's training step, returning the batch's
+    loss as a 0-d tensor. ``state()``: the tensors the step updates in
+    place (parameters, Adam's moments and count), which the warm-up before
+    a capture restores. ``generator``: the engine's generator, which draws
+    the permutations and the step's samples. Batches follow spmf_tpu's
+    scan: a dense remainder batch is trained; the sparse layouts drop it,
+    and only with ``drop_remainder=True``; the blocked layout needs
+    ``bs % block_rows == 0``; with no full batch the remainder is the one
+    batch."""
+
+    def __init__(self, ds, step: Callable, state: Callable[[], List],
+                 generator, dtype, device, capture: bool):
+        self.ds = ds
+        self.step = step
+        self.state = state
+        self.generator = generator
+        self.device = device
+        self.capture = capture
+        n = ds.num_rows
+        bs = int(ds._batch_size or n)
+        self.blocked = isinstance(ds, DeviceSparseCounts) and bool(
+            ds.block_rows)
+        self.sparse = isinstance(ds, DeviceSparseCounts) and not self.blocked
+
+        def cast(t):
+            t = t.to(device)
+            return t.to(dtype) if t.is_floating_point() else t
+
+        if isinstance(ds, DeviceSparseCounts):
+            # the iterator's geometry: a fixed batch shape, the remainder
+            # dropped with the caller's consent
+            nb, bs = ds._batches()
+            rem = 0
+            self.extras = {k: cast(v) for k, v in ds.extras.items()}
+        else:
+            nb = n // bs
+            rem = 0 if ds._drop_remainder else n % bs
+            self.tensors = {k: cast(v) for k, v in ds.tensors.items()}
+            self.extras = {}
+        self.n_perm = n
+        if self.blocked:
+            self.rb = bs // ds.block_rows
+            self.tables = {"cols": ds.cols_blk.to(device),
+                           "vals": cast(ds.vals_blk),
+                           "rowl": ds.rowl_blk.to(device)}
+            self.n_perm = ds.n_blocks
+        elif self.sparse:
+            self.pad = ds._pad(bs)
+            self.csr = (ds.indptr.to(device), ds.indices.to(device),
+                        cast(ds.data))
+        if nb == 0:
+            if rem == 0:
+                raise ValueError(
+                    "batched_data_factory() yields no batches — check "
+                    "batch_size/drop_remainder vs dataset size")
+            nb, bs, rem = 1, rem, 0
+        self.nb, self.bs, self.rem = nb, bs, rem
+        self.shuffle = bool(ds._shuffle)
+        # the static buffers every captured step reads and writes: their
+        # storage never moves (a new epoch copies into them). The counter
+        # counts full batches over the whole fit; batch b of an epoch is
+        # counter mod nb, so no epoch resets it
+        self.counter = torch.zeros((), dtype=torch.int64, device=device)
+        self.losses = torch.zeros(nb + (1 if rem else 0), dtype=dtype,
+                                  device=device)
+        self.nnz = (torch.zeros(nb, dtype=torch.int64, device=device)
+                    if self.sparse else None)
+        self.arange = torch.arange(self.rb if self.blocked else bs,
+                                   device=device)
+        self.perm = None      # this epoch's permutation (int32)
+        self.perms = None     # the drawn epochs' permutations, and the next
+        self.next_perm = 0
+        self.ep = None        # the flat sparse layout's epoch decode
+        self.graphs = {}      # "full" / "rem" -> _Replay
+
+    # ------------------------------------------------------------ batches
+    def _with_extras(self, batch):
+        for k, v in self.extras.items():
+            batch[k] = v[batch["indices"]]
+        return batch
+
+    def _gather(self, b):
+        """Batch ``b`` (a 0-d device tensor) and its nnz total (None
+        unless the flat sparse layout)."""
+        if self.blocked:
+            ids = self.perm.index_select(0, b * self.rb + self.arange)
+            return self._with_extras(DeviceSparseCounts._blocked_take_math(
+                self.tables, ids, self.ds.block_rows)), None
+        if self.sparse:
+            batch = DeviceSparseCounts._epoch_take_math(self.ep, b, self.bs,
+                                                        self.pad)
+            nnz = batch.pop("coo_nnz")
+            return self._with_extras(batch), nnz
+        rows = self.perm.index_select(0, b * self.bs + self.arange)
+        return {k: v.index_select(0, rows)
+                for k, v in self.tensors.items()}, None
+
+    def _full_step(self):
+        b = self.counter % self.nb
+        batch, nnz = self._gather(b)
+        loss = self.step(batch)
+        at = b.reshape(1)
+        self.losses.index_copy_(0, at, loss.reshape(1).to(self.losses.dtype))
+        if nnz is not None:
+            self.nnz.index_copy_(0, at, nnz.reshape(1).to(torch.int64))
+        self.counter.add_(1)
+
+    def _rem_step(self):
+        rows = self.perm[self.nb * self.bs:]
+        loss = self.step({k: v.index_select(0, rows)
+                          for k, v in self.tensors.items()})
+        self.losses[self.nb:].copy_(loss.reshape(1).to(self.losses.dtype))
+
+    # ------------------------------------------------------------ capture
+    def _buffers(self):
+        return [t for t in (self.counter, self.losses, self.nnz)
+                if t is not None]
+
+    def _capture(self, fn):
+        """Warm ``fn`` up once eagerly on a side stream (Adam's and the
+        kernels' first-use work, the caches the wrappers fill), put every
+        tensor it changed and the generator back, then capture it."""
+        tensors = list(self.state()) + self._buffers()
+        saved = [t.detach().clone() for t in tensors]
+        gen_state = self.generator.get_state()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            fn()
+        current.wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        self.generator.set_state(gen_state)
+        del saved
+        counters = _launch_counters()
+        before = [d[k] for d, k in counters]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph):
+                fn()
+        except Exception as exc:
+            raise RuntimeError(
+                "capturing the training step in a CUDA graph failed (the "
+                f"scan path does not fall back to the eager loop): {exc}"
+            ) from exc
+        launches = []
+        for (d, k), n0 in zip(counters, before):
+            if d[k] != n0:
+                launches.append(((d, k), d[k] - n0))
+                d[k] = n0      # capture launches nothing
+        return _Replay(graph, launches)
+
+    def _run(self, kind):
+        fn = self._full_step if kind == "full" else self._rem_step
+        if not self.capture:
+            fn()
+            return
+        if kind not in self.graphs:
+            self.graphs[kind] = self._capture(fn)
+        self.graphs[kind]()
+
+    # -------------------------------------------------------------- epoch
+    def run_epoch(self):
+        """Train one epoch; returns the device buffer of its batch losses
+        (valid until the next epoch)."""
+        if self.perm is None:
+            self.perm = torch.arange(self.n_perm, dtype=torch.int32,
+                                     device=self.device)
+        if self.shuffle:
+            self.perm.copy_(self._permutation())
+        if self.sparse:
+            ep = DeviceSparseCounts._epoch_decode_math(
+                *self.csr, self.perm[:self.nb * self.bs], self.pad)
+            if self.ep is None:
+                self.ep = ep
+            else:
+                for k, v in ep.items():
+                    self.ep[k].copy_(v)
+        for _ in range(self.nb):
+            self._run("full")
+        if self.rem:
+            self._run("rem")
+        if self.sparse:
+            # the pad overflow audit: one fetch of the epoch's totals
+            self.ds._pending_nnz.append(self.nnz.clone())
+            self.ds.check_overflow()
+        return self.losses
+
+    def _permutation(self):
+        """This epoch's uniform permutation, from the engine's generator:
+        the argsort of float64 uniform keys (ties have probability about
+        n^2 / 2^54), drawn for ``_PERM_EPOCHS`` epochs at once."""
+        if self.perms is None or self.next_perm == len(self.perms):
+            keys = torch.rand((_PERM_EPOCHS, self.n_perm),
+                              generator=self.generator, dtype=torch.float64,
+                              device=self.device)
+            self.perms = torch.argsort(keys, dim=1).to(torch.int32)
+            self.next_perm = 0
+        self.next_perm += 1
+        return self.perms[self.next_perm - 1]
+
+    def close(self):
+        """Release the graphs and their private memory pools."""
+        self.graphs.clear()

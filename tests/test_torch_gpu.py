@@ -625,3 +625,108 @@ def test_encode_batched_matches_encode_on_the_card(cuda):
     full = m.encode(x).cpu().numpy()
     # another M may take another cuBLAS algorithm
     assert np.abs(chunked - full).max() <= 1e-6 * np.abs(full).max()
+
+
+# ------------------------------------------------ the captured scan path
+def _scan_fit(dev, capture, dtype, monkeypatch, n=250, bs=100, d=300, k=4,
+              epochs=6, **model_kw):
+    """A fit over a DeviceArrayDataset through the scan path, captured in
+    CUDA graphs or run eagerly on the card: 2 full batches and a 50-row
+    remainder, patience=1 and a learning rate that forces plateau
+    restores."""
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import DeviceArrayDataset
+    from spmf_tpu_torch.vi import epoch_scan
+
+    monkeypatch.setattr(epoch_scan, "_CAPTURE", capture)
+    X = np.random.default_rng(7).poisson(1.0, (n, d))
+    ds = DeviceArrayDataset({"counts": X, "indices": np.arange(n)},
+                            batch_size=bs, shuffle=True, seed=3, dtype=dtype,
+                            device=dev)
+    m = PoissonFactorization(latent_dim=k, feature_dim=d, dtype=dtype,
+                             device=dev, u_tau_scale=1.0 / np.sqrt(n * d),
+                             data=ds, **model_kw)
+    losses = m.fit(num_steps=epochs, learning_rate=2.0, sample_size=4,
+                   patience=1, rel_tol=None, verbose=False, seed=5)
+    assert m.last_fit.extras["epoch_scan"] is True
+    return m, losses
+
+
+@pytest.mark.parametrize("dtype, model_kw", [
+    ("float64", dict(fused_likelihood=False, gamma_sampler="fast")),
+    # K3 (deterministic); K1's float32 atomic sums are not, see below
+    ("float32", dict(fused_likelihood=False, gamma_sampler="fused"))])
+def test_captured_scan_equals_uncaptured_bit_for_bit(cuda, monkeypatch,
+                                                     dtype, model_kw):
+    """The scan path's step replayed from CUDA graphs draws the same bits
+    and computes the same numbers as the same scan run eagerly: the loss
+    trace, the parameters and the learning rate are equal, across plateau
+    restores and a remainder batch."""
+    runs = {c: _scan_fit(cuda, c, dtype, monkeypatch, **model_kw)
+            for c in (True, False)}
+    (m_c, l_c), (m_e, l_e) = runs[True], runs[False]
+    assert np.isfinite(l_c).all()
+    assert l_c == l_e
+    assert m_c.last_fit.learning_rate == m_e.last_fit.learning_rate < 2.0
+    for name, sub in m_c.surrogate_params.items():
+        for leaf, t in sub.items():
+            assert torch.equal(t, m_e.surrogate_params[name][leaf]), (name,
+                                                                      leaf)
+
+
+def test_captured_scan_through_k1_matches_uncaptured(cuda, monkeypatch):
+    """Through K1, whose float32 dv and dphi sums are atomic (their order
+    varies from run to run, even at one row tile), the captured scan's
+    losses lie within 1e-5 relative of the eager scan's, with the same
+    restores."""
+    kw = dict(fused_likelihood=True, gamma_sampler="fused")
+    (m_c, l_c), (m_e, l_e) = (_scan_fit(cuda, c, "float32", monkeypatch,
+                                        **kw) for c in (True, False))
+    np.testing.assert_allclose(l_c, l_e, rtol=1e-5)
+    assert m_c.last_fit.learning_rate == m_e.last_fit.learning_rate < 2.0
+
+
+def test_scan_replays_advance_the_launch_counters(cuda, monkeypatch):
+    """A wrapper's counter moves once at capture (which launches nothing),
+    so each replay adds the graph's kernels: K1 counts the initial loss,
+    one warm-up per graph and one launch per batch; K3b one per warm-up and
+    batch."""
+    for d in (tfp.LAUNCHES, tig.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    epochs = 3
+    _scan_fit(cuda, True, "float32", monkeypatch, epochs=epochs,
+              fused_likelihood=True, gamma_sampler="fused")
+    graphs, batches = 2, 3
+    assert tfp.LAUNCHES["stats"] == 1 + graphs + epochs * batches
+    assert tig.LAUNCHES["bwd"] == graphs + epochs * batches
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads a value on the host cannot be captured: the scan
+    raises and names the capture; it does not fall back to the eager
+    loop."""
+    from spmf_tpu_torch import bijectors as tb
+    from spmf_tpu_torch.data import DeviceArrayDataset, as_data_factory
+    from spmf_tpu_torch.vi.minibatch import fit_surrogate_posterior
+    from spmf_tpu_torch.vi.surrogates import (SurrogatePosterior,
+                                              TrainableNormal,
+                                              TransformedSurrogate)
+
+    sur = SurrogatePosterior({"z": TransformedSurrogate(
+        TrainableNormal(np.zeros((1, 1)), 0.5 * np.ones((1, 1)), 2,
+                        dtype=torch.float64, device=cuda), tb.Identity())})
+
+    def energy(batch, samples, pw):
+        z = samples["z"][..., 0, 0]
+        if float(batch["counts"].sum()) > 1e9:    # a host read
+            z = z * 2
+        return -0.5 * z * z - 0.5 * torch.sum(
+            (batch["counts"][None, :] - z[..., None]) ** 2, dim=-1)
+
+    ds = DeviceArrayDataset({"counts": np.ones(64)}, batch_size=16,
+                            device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        fit_surrogate_posterior(energy, sur, sur.init(), as_data_factory(ds),
+                                num_steps=2, verbose=False,
+                                dtype=torch.float64)

@@ -224,3 +224,17 @@ def test_flatten_order_treedef_and_pytree_files_match_jax(tmp_path):
     got = load_pytree(str(tmp_path / "jax.npz"), tt)
     assert list(got["z"]) == ["raw_scale", "loc"]
     np.testing.assert_array_equal(got["z"]["loc"], np.ones(2))
+
+
+def test_load_model_of_an_unported_class_raises_by_name(tmp_path):
+    """A file of a model class the port does not have yet (spmf_tpu's
+    PoissonAutoencoder) is refused by name, not with a bare
+    AttributeError."""
+    x = np.random.default_rng(5).poisson(1.0, (N, D)).astype(np.float64)
+    jm = spmf_tpu.models.PoissonAutoencoder(
+        JaxDS({"counts": x}).batch(N), latent_dim=2, dtype="float64")
+    path = str(tmp_path / "ae.npz")
+    jm.save(path)
+    with pytest.raises(NotImplementedError,
+                       match="PoissonAutoencoder.*M9"):
+        load_model(path, device="cpu")

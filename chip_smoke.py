@@ -82,7 +82,17 @@ Phases, each printing lines; any failure raises and exits non-zero:
              in turns; the 3% blocked and 0.1% flat sparse sets captured
              against epoch_scan=False; fused_normals on and off under
              capture. Each arm prints ms/step, rows/s, peak GB, and from a
-             profiled turn its busy share and host launches a step
+             profiled turn its busy share and host launches a step.
+             epoch_chunk: at the small size, captured chunks of 4 against
+             captured single epochs and eager chunks, bit for bit at
+             float64 and through K3 (1e-5 through K1); at the dense width
+             26-epoch fits with epoch_chunk=1 and the default (2 singles,
+             3 chunks of 8), with and without checkpoints, in turns, with
+             device-to-host fetches an epoch and the checkpoints written;
+             the 0.1% flat set in chunks of 4 against single epochs. The
+             general loop over the host dataset with prefetch=2 against
+             prefetch=0; a captured fit with profile_dir, whose trace must
+             name the kernels
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -648,32 +658,63 @@ def say_profile(tag, prof, smi):
            + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top) + f" ({smi})")
 
 
-def epoch_windows(prof):
+def epoch_windows(prof, names=("fit epoch",), skip=1):
     """From a torch.profiler run over a fit: (wall ms, device-busy ms, host
-    launches, device kernels) summed over its epochs after the first (the
-    engine's "fit epoch" ranges; the first holds the capture). Host
+    launches, device kernels, device-to-host copies, and busy ms and copies
+    attributed by the host call that issued them) summed over the engine's
+    ``names`` ranges ("fit epoch" a single epoch, "fit chunk" a chunk)
+    after the first ``skip`` (the first holds the capture). Host
     launches are the CUDA runtime's kernel and graph launch calls; busy is
-    the device events' time, None when the profiler saw none."""
+    the device events' time, None when the profiler saw none. Reads the
+    profiler's raw events: building its FunctionEvents takes minutes for
+    the 10^5 kernels of a 26-epoch fit."""
+    import bisect
+
     from torch.autograd import DeviceType
 
-    events = prof.events()
+    events = prof.profiler.kineto_results.events()
+
+    def ns(e, what):
+        f = getattr(e, what + "_ns", None)
+        return f() if f is not None else getattr(e, what + "_us")() * 1000
+
     # the host's ranges (the profiler mirrors each on the device timeline)
-    wins = sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.name == "fit epoch"
-                  and e.device_type == DeviceType.CPU)[1:]
+    wins = sorted((ns(e, "start"), ns(e, "start") + ns(e, "duration"))
+                  for e in events if e.name() in names
+                  and e.device_type() == DeviceType.CPU)[skip:]
+    starts = [a for a, _ in wins]
 
     def inside(e):
-        return any(a <= e.time_range.start < b for a, b in wins)
+        i = bisect.bisect_right(starts, ns(e, "start")) - 1
+        return i >= 0 and ns(e, "start") < wins[i][1]
 
-    launches = Counter(e.name for e in events
-                       if e.device_type == DeviceType.CPU
-                       and "Launch" in e.name and e.name.startswith("cu")
+    launches = Counter(e.name() for e in events
+                       if e.device_type() == DeviceType.CPU
+                       and "Launch" in e.name() and e.name().startswith("cu")
                        and inside(e))
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA
-                  and e.name != "fit epoch" and inside(e)]
-    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    wall = sum(b - a for a, b in wins) / 1e3
-    return wall, (busy or None), launches, len(dev_events)
+    dev_events = [e for e in events if e.device_type() == DeviceType.CUDA
+                  and e.name() not in names and inside(e)]
+    busy = sum(ns(e, "duration") for e in dev_events) / 1e6
+    wall = sum(b - a for a, b in wins) / 1e6
+    # the same read by the host call that issued each device event (the
+    # runtime call and its device work share a correlation id): immune to
+    # an offset between the two clocks, which a virtualised host's
+    # profiler may show, and which (device start - host call start) of
+    # the copies to the host measures
+    calls = {e.correlation_id(): ns(e, "start") for e in events
+             if e.device_type() == DeviceType.CPU and e.correlation_id()
+             and e.name().startswith("cu") and inside(e)}
+    issued = [e for e in events if e.device_type() == DeviceType.CUDA
+              and e.correlation_id() in calls]
+    copies = [e for e in issued if "DtoH" in e.name()]
+    offsets = sorted(ns(e, "start") - calls[e.correlation_id()]
+                     for e in copies)
+    by_call = {"busy": sum(ns(e, "duration") for e in issued) / 1e6,
+               "fetches": len(copies),
+               "offset_ms": (offsets[len(offsets) // 2] / 1e6 if offsets
+                             else None)}
+    fetches = sum("DtoH" in e.name() for e in dev_events)
+    return wall, (busy or None), launches, len(dev_events), fetches, by_call
 
 
 def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
@@ -703,9 +744,12 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
         return {n: {k: t.clone() for k, t in sub.items()}
                 for n, sub in params.items()}
 
-    def run(m, init, data, capture=True, profiled=False, **kw):
-        """One fit from ``init``: (losses, ms/step of the epochs after the
-        first, peak GB, epoch_windows or None)."""
+    def run(m, init, data, capture=True, profiled=False, windows=None,
+            first=1, **kw):
+        """One fit from ``init``: (losses, ms/step of the epochs from
+        ``first`` on (0-based), peak GB, epoch_windows or None, whether
+        the scan ran, the FitResult, the fit's wall s). ``windows``: the
+        ``names`` and ``skip`` of epoch_windows."""
         epoch_scan._CAPTURE = capture
         m.surrogate_params = clone(init)
         torch.cuda.synchronize()
@@ -713,6 +757,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
         kw = dict(dict(learning_rate=0.01, sample_size=S, rel_tol=None,
                        verbose=False, seed=0), **kw)
         prof = None
+        t_fit = time.perf_counter()
         try:
             if profiled:
                 with profile(activities=[ProfilerActivity.CPU,
@@ -724,12 +769,14 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
         finally:
             epoch_scan._CAPTURE = True
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t_fit
         r = m.last_fit
         steps = steps_of(data)
-        ms = float(np.median(r.extras["epoch_seconds"][1:])) / steps * 1e3
-        win = epoch_windows(prof) if prof is not None else None
+        ms = float(np.median(r.extras["epoch_seconds"][first:])) / steps * 1e3
+        win = (epoch_windows(prof, **(windows or {})) if prof is not None
+               else None)
         return (losses, ms, torch.cuda.max_memory_allocated() / 1e9, win,
-                r.extras["epoch_scan"])
+                r.extras["epoch_scan"], r, wall)
 
     def steps_of(data):
         bs = data._batch_size
@@ -744,7 +791,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
         if win is None:
             prof_part = "not profiled"
         else:
-            wall, busy, launches, kernels = win
+            wall, busy, launches, kernels = win[:4]
             n = steps
             share = (f"busy {busy / n:.2f} ms/step ({busy / wall:.1%} of "
                      f"the profiled wall)" if busy else
@@ -765,7 +812,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     n_b, d_b, b_b = 350, 300, 100          # 3 full batches and 50 rows
     xb = np.random.default_rng(7).poisson(1.0, (n_b, d_b))
 
-    def small_scan(capture, dtype, **kw):
+    def small_scan(capture, dtype, fit_kw=None, **kw):
         ds = DeviceArrayDataset({"counts": xb, "indices": np.arange(n_b)},
                                 batch_size=b_b, shuffle=True, seed=3,
                                 dtype=dtype, device=dev)
@@ -774,19 +821,20 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
                                  u_tau_scale=1.0 / np.sqrt(n_b * d_b), **kw)
         epoch_scan._CAPTURE = capture
         try:
-            losses = m.fit(batched_data_factory=ds, num_steps=4,
-                           learning_rate=2.0, sample_size=4, patience=1,
-                           rel_tol=None, verbose=False, seed=5)
+            losses = m.fit(batched_data_factory=ds, **dict(dict(
+                num_steps=4, learning_rate=2.0, sample_size=4, patience=1,
+                rel_tol=None, verbose=False, seed=5), **(fit_kw or {})))
         finally:
             epoch_scan._CAPTURE = True
-        return losses, m.last_fit.learning_rate, m.surrogate_params
+        return (losses, m.last_fit.learning_rate, m.surrogate_params,
+                m.last_fit.extras)
 
     for dtype, kw in (("float64", dict(fused_likelihood=False,
                                        gamma_sampler="fast")),
                       ("float32", dict(fused_likelihood=False,
                                        gamma_sampler="fused"))):
-        (lc, lrc, pc), (le, lre, pe) = (small_scan(c, dtype, **kw)
-                                        for c in (True, False))
+        (lc, lrc, pc, _), (le, lre, pe, _) = (small_scan(c, dtype, **kw)
+                                              for c in (True, False))
         same = all(torch.equal(pc[n][k], pe[n][k]) for n in pc for k in pc[n])
         check(lc == le and lrc == lre and same,
               f"G {dtype}: the captured scan differs from the eager scan "
@@ -798,7 +846,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
                  f"N={n_b}, B={b_b}: 3 full batches and a remainder; "
                  f"{'K3' if dtype == 'float32' else 'the plain path'})")
     k1 = dict(fused_likelihood=True, gamma_sampler="fused")
-    (lc, lrc, _), (le, lre, _), (le2, _, _) = (
+    (lc, lrc, _, _), (le, lre, _, _), (le2, _, _, _) = (
         small_scan(c, "float32", **k1) for c in (True, False, False))
     rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b))  # noqa: E731
                                     / np.abs(b)))
@@ -816,8 +864,14 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     dds = DeviceArrayDataset(
         {"counts": xg, "indices": torch.arange(n_g, device=dev)},
         batch_size=b_g, shuffle=True, seed=0, device=dev)
-    hds = ArrayDataset({"counts": xg.cpu().numpy(),
-                        "indices": np.arange(n_g)}).shuffle(seed=0).batch(b_g)
+    xh = xg.cpu().numpy()
+
+    def host_ds():
+        """The host ArrayDataset, new for each fit: its shuffle moves on
+        with each pass, and the two prefetch arms must see one order."""
+        return ArrayDataset({"counts": xh, "indices": np.arange(n_g)}
+                            ).shuffle(seed=0).batch(b_g)
+
     m = PoissonFactorization(latent_dim=K, feature_dim=D, dtype="float32",
                              device=dev)
     # the column and row norms compute_scales would set, from the device
@@ -826,17 +880,24 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     m.eta_i = m._const(np.where(cm > 1, cm, 1.0))
     m.xi_u_global = m._const(np.nansum(cm))
     init = clone(m.surrogate_params)
-    # the host arm (about 0.2 s a step) takes 2 epochs, to keep the phase
-    # short: its second epoch is the one measured
+    # the host arms (about 0.2 s a step) take 2 epochs, to keep the phase
+    # short: their second epoch is the one measured. (g): the batches'
+    # assembly and copy in line (prefetch=0, the earlier arm) and in the
+    # prefetch worker (prefetch=2, the default)
+    host = "general loop, host dataset"
     arms = {"captured scan": dict(data=dds),
             "eager scan": dict(data=dds, capture=False),
             "general loop, device dataset": dict(data=dds, epoch_scan=False),
-            "general loop, host dataset": dict(data=hds, num_steps=2)}
+            host: dict(data=host_ds, num_steps=2, prefetch=0),
+            host + ", prefetch=2": dict(data=host_ds, num_steps=2,
+                                        prefetch=2)}
     res = {tag: [] for tag in arms}
     for profiled in (False, True):
         for tag, kw in arms.items():
-            res[tag].append(run(m, init, profiled=profiled,
-                                **dict(dict(num_steps=3), **kw)))
+            kw = dict(dict(num_steps=3), **kw)
+            if kw["data"] is host_ds:
+                kw["data"] = host_ds()
+            res[tag].append(run(m, init, profiled=profiled, **kw))
     steps = steps_of(dds)
     for tag, turns in res.items():
         check(all(np.isfinite(t[0]).all() for t in turns),
@@ -846,6 +907,19 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
         report(f"dense B={b_g} {tag} (second turn profiled: "
                f"{turns[1][1]:.2f} ms/step)", b_g, turns[0][1], turns[0][2],
                turns[1][3], (arms[tag].get("num_steps", 3) - 1) * steps)
+    # (g) prefetch=2 draws the in-line loop's samples on the same batches:
+    # the traces differ only by K1's atomic sums
+    pf = max(rel(a[0], b[0]) for a, b in zip(res[host],
+                                                 res[host + ", prefetch=2"]))
+    check(pf < 1e-4, f"G prefetch=2 losses {res[host + ', prefetch=2']} off "
+                     f"prefetch=0's {res[host]} by {pf:.2e}")
+    say("G", f"(g) general loop over the host dataset: prefetch=2 "
+             f"{res[host + ', prefetch=2'][0][1]:.2f} / "
+             f"{res[host + ', prefetch=2'][1][1]:.2f} ms/step against "
+             f"prefetch=0 {res[host][0][1]:.2f} / {res[host][1][1]:.2f} "
+             f"(turns in order, the second profiled); loss traces "
+             f"{pf:.2e} relative apart; the worker copies on the caller's "
+             f"stream ({smi})")
     cap = [np.array(t[0][1:]) for t in res["captured scan"]]
     eag = [np.array(t[0][1:]) for t in res["eager scan"]]
     err = max(float(np.max(np.abs(c - e) / np.abs(e))) for c in cap
@@ -892,7 +966,168 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
              f"on {ab[True][0]:.3f} / {ab[True][1]:.3f} ms/step, off "
              f"{ab[False][0]:.3f} / {ab[False][1]:.3f} (in turns on, off, "
              f"off, on; {smi})")
-    del dds, hds, xg, m
+
+    # (e) chunks, bit for bit: at the size of (a), 8 epochs (two chunks of
+    # 4, restores inside them: patience=1), the captured chunks against the
+    # captured single epochs and the eager chunks; through K1 within 1e-5
+    # beside two eager runs' spread, as (a)
+    def chunk_runs(dtype, kw, arms):
+        return [small_scan(c, dtype, fit_kw=dict(num_steps=8, epoch_chunk=e),
+                           **kw) for c, e in arms]
+
+    for dtype, kw in (("float64", dict(fused_likelihood=False,
+                                       gamma_sampler="fast")),
+                      ("float32", dict(fused_likelihood=False,
+                                       gamma_sampler="fused"))):
+        base, *others = chunk_runs(dtype, kw, ((True, 4), (True, 1),
+                                               (False, 4)))
+        check(base[3]["epoch_chunk"] == 4 and base[1] < 2.0,
+              f"G (e) {dtype}: chunk {base[3]['epoch_chunk']}, lr {base[1]}")
+        for name, o in zip(("captured single epochs", "eager chunks"),
+                           others):
+            same = all(torch.equal(base[2][n][k], o[2][n][k])
+                       for n in base[2] for k in base[2][n])
+            check(base[0] == o[0] and base[1] == o[1] and same,
+                  f"G (e) {dtype}: captured chunks differ from {name} "
+                  f"(losses {base[0]} vs {o[0]}, lr {base[1]} vs {o[1]}, "
+                  f"params equal {same})")
+        say("G", f"(e) {dtype}: captured epoch_chunk=4 == captured "
+                 f"epoch_chunk=1 == eager epoch_chunk=4 bit for bit (losses, "
+                 f"every parameter, lr {base[1]}; restores inside the "
+                 f"chunks; {'K3' if dtype == 'float32' else 'the plain path'})")
+    cc, cs, ce, ce2 = chunk_runs("float32", k1, ((True, 4), (True, 1),
+                                                 (False, 4), (False, 4)))
+    check(cc[1] == cs[1] == ce[1] and rel(cc[0], cs[0]) < 1e-5
+          and rel(cc[0], ce[0]) < 1e-5,
+          f"G (e) K1: captured chunks {cc[0]} (lr {cc[1]}), captured "
+          f"singles {cs[0]} (lr {cs[1]}), eager chunks {ce[0]} (lr {ce[1]})")
+    say("G", f"(e) float32 through K1 and K3: captured chunks against "
+             f"captured singles {rel(cc[0], cs[0]):.2e}, against eager "
+             f"chunks {rel(cc[0], ce[0]):.2e} relative at most; two eager "
+             f"runs {rel(ce[0], ce2[0]):.2e}; lr {cc[1]} in all")
+
+    # (f) the dense width over 26 epochs: epoch_chunk=1 against the default
+    # (2 single epochs, then 3 chunks of 8), without and with checkpoints,
+    # in turns, the second turn profiled. ms/step, busy, launches and
+    # fetches over epochs 11-26: the single arm's last 16 epochs, the
+    # default's last two chunks (the first holds the decisions' capture)
+    n_f = 26
+    farms = {"epoch_chunk=1": dict(epoch_chunk=1, windows=dict(skip=10)),
+             "default": dict(windows=dict(names=("fit chunk",), skip=1))}
+
+    def fit_arm(m_, init_, data, ckpt, profiled, **kw):
+        root = tempfile.mkdtemp(prefix="chip_smoke_G_") if ckpt else None
+        try:
+            out = run(m_, init_, data, profiled=profiled,
+                      checkpoint_dir=root, **kw)
+            files = (len(glob.glob(os.path.join(root, "**", "*.npz"),
+                                   recursive=True)) if ckpt else 0)
+        finally:
+            if root is not None:
+                shutil.rmtree(root, ignore_errors=True)
+        return out, files
+
+    def report_f(tag, turns, steps_f, rows, epochs_win):
+        (out, files), (pout, _) = turns
+        r, wall = out[5], out[6]
+        win = pout[3]
+        check(np.isfinite(out[0]).all() and np.isfinite(pout[0]).all(),
+              f"G (f) {tag}: non-finite losses")
+        check(files == len(r.extras["checkpoint_seconds"]),
+              f"G (f) {tag}: {files} files, "
+              f"{len(r.extras['checkpoint_seconds'])} writes")
+        wall_w, busy, launches, kernels, fetches, by_call = win
+        n = epochs_win * steps_f
+        share = (f"busy {busy / n:.2f} ms/step ({busy / wall_w:.1%}; by "
+                 f"issuing call {by_call['busy'] / n:.2f}, "
+                 f"{by_call['busy'] / wall_w:.1%})"
+                 if busy else "device time not measured")
+        names = ", ".join(f"{k} {v / n:.3f}"
+                          for k, v in launches.most_common(3))
+        offset = by_call["offset_ms"]
+        say("G", f"(f) {tag}: {out[1]:.2f} ms/step ({pout[1]:.2f} "
+                 f"profiled), {rows / out[1] * 1e3:.0f} rows/s, peak "
+                 f"{out[2]:.2f} GB; {share}, "
+                 f"{sum(launches.values()) / n:.3f} host launches a step "
+                 f"({names}), {kernels / n:.1f} device kernels a step, "
+                 f"{by_call['fetches'] / epochs_win:.3f} device-to-host "
+                 f"fetches an epoch by issuing call ("
+                 f"{fetches / epochs_win:.3f} by device time; device - host "
+                 f"clock on them "
+                 f"{'n/a' if offset is None else f'{offset:.3f} ms'}; over "
+                 f"{epochs_win} epochs); "
+                 f"epoch_chunk {r.extras['epoch_chunk']}; {files} "
+                 f"checkpoint files, checkpoint_seconds "
+                 f"{sum(r.extras['checkpoint_seconds']):.3f} s; fit wall "
+                 f"{wall:.2f} s, {wall / len(r.losses[1:]) * 1e3:.1f} ms an "
+                 f"epoch over all {len(r.losses[1:])} ({smi})")
+        return out
+
+    fres = {}
+    for profiled in (False, True):
+        for ckpt in (False, True):
+            for tag, kw in farms.items():
+                fres.setdefault((tag, ckpt), []).append(fit_arm(
+                    m, init, dds, ckpt, profiled, num_steps=n_f, first=10,
+                    **kw))
+    fl = {}
+    for (tag, ckpt), turns in fres.items():
+        label = f"dense B={b_g} {tag}" + (", checkpoints" if ckpt else "")
+        out = report_f(label, turns, steps, b_g, 16)
+        want = 8 if tag == "default" else 0
+        check(out[5].extras["epoch_chunk"] == want,
+              f"G (f) {label}: epoch_chunk {out[5].extras['epoch_chunk']}")
+        fl[(tag, ckpt)] = out[0]
+    drift = max(rel(fl[("default", c)], fl[("epoch_chunk=1", c)])
+                for c in (False, True))
+    check(drift < 1e-3, f"G (f): the default's losses off epoch_chunk=1's "
+                        f"by {drift:.2e}")
+    say("G", f"(f) dense losses, default against epoch_chunk=1: {drift:.2e} "
+             f"relative at most (K1's atomic sums)")
+
+    # the 0.1% flat sparse set: chunks of 4 against single epochs, 8 epochs
+    # each, in turns; epochs 5-8 read (the second chunk)
+    ms_, data = sparse_arms["sparse 0.1% flat"]
+    init_s = clone(ms_.surrogate_params)
+    st = steps_of(data)
+    sres = {}
+    for profiled in (False, True):
+        for tag, kw in (("epoch_chunk=1", dict(epoch_chunk=1,
+                                               windows=dict(skip=4))),
+                        ("epoch_chunk=4", dict(epoch_chunk=4, windows=dict(
+                            names=("fit chunk",), skip=1)))):
+            sres.setdefault(tag, []).append(fit_arm(
+                ms_, init_s, data, False, profiled, num_steps=8, first=4,
+                **kw))
+    for tag, turns in sres.items():
+        out = report_f(f"sparse 0.1% flat B={data._batch_size} {tag}", turns,
+                       st, data._batch_size, 4)
+        check(out[5].extras["epoch_chunk"] == (4 if "4" in tag else 0),
+              f"G (f) sparse {tag}: epoch_chunk "
+              f"{out[5].extras['epoch_chunk']}")
+    sd = rel(sres["epoch_chunk=4"][0][0][0], sres["epoch_chunk=1"][0][0][0])
+    check(sd < 1e-3, f"G (f) sparse: chunked losses off single by {sd:.2e}")
+    say("G", f"(f) 0.1% flat losses, chunks of 4 against single epochs: "
+             f"{sd:.2e} relative at most")
+    ms_.surrogate_params = init_s
+
+    # (g) profile_dir: a captured 3-epoch fit writes its trace, which names
+    # the kernels of the step
+    root = tempfile.mkdtemp(prefix="chip_smoke_G_prof_")
+    try:
+        run(m, init, dds, num_steps=3, profile_dir=root)
+        traces = glob.glob(os.path.join(root, "*.json"))
+        check(len(traces) == 1, f"G (g) profile_dir holds {traces}")
+        with open(traces[0]) as f:
+            text = f.read()
+        named = {k: k in text for k in ("stats_kernel", "ig_fwd_kernel",
+                                        "fit epoch")}
+        check(all(named.values()), f"G (g) the trace names {named}")
+        say("G", f"(g) profile_dir: {os.path.basename(traces[0])}, "
+                 f"{len(text) / 1e6:.1f} MB, names {sorted(named)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del dds, xh, xg, m
     say("G", f"phase G took {time.perf_counter() - t_phase:.1f} s")
     return read_launches()
 

@@ -14,10 +14,12 @@ import numpy as np
 import torch
 
 from spmf_tpu_torch.config import canonical_device, canonical_dtype
+from spmf_tpu_torch.data.prefetch import prefetch_batches
 from spmf_tpu_torch.data.sparse import DeviceSparseCounts, SparseCounts
 
 __all__ = ["ArrayDataset", "DeviceArrayDataset", "DeviceSparseCounts",
-           "SparseCounts", "as_data_factory", "load_csv_counts"]
+           "SparseCounts", "as_data_factory", "load_csv_counts",
+           "prefetch_batches"]
 
 
 class ArrayDataset:

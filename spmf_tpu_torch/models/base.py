@@ -91,10 +91,10 @@ class BoundSurrogate:
 
 
 #: fit() options of the JAX engine that this port does not carry yet
-_NOT_PORTED = ("profile_dir", "remat_sampling", "param_sharding", "prefetch")
+_NOT_PORTED = ("remat_sampling", "param_sharding")
 _ENGINE = ("convergence_window", "decay_schedule", "elbo_estimator",
            "antithetic", "opt_state", "resume_from", "checkpoint_full_state",
-           "epoch_scan", "epoch_chunk")
+           "epoch_scan", "epoch_chunk", "prefetch", "profile_dir")
 
 
 class BayesianModel:

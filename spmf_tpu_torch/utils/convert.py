@@ -47,12 +47,15 @@ def adam_leaf_count(params):
     return 3 + 2 * len(flatten_jax_order(params))
 
 
-def adam_state_to_numpy(optimizer, params):
+def adam_state_to_numpy(optimizer, params, state=None, lr=None):
     """The Adam state of ``optimizer`` over the tensors of ``params`` as
     optax's flat leaves (see the module docstring). A parameter with no
-    state yet (before the first step) gives zero moments and count 0."""
+    state yet (before the first step) gives zero moments and count 0.
+    ``state`` (a mapping like ``optimizer.state``) and ``lr`` replace the
+    optimizer's own (the fit engine's best-epoch buffers)."""
     leaves = flatten_jax_order(params)
-    states = [optimizer.state.get(t, {}) for t in leaves]
+    state = optimizer.state if state is None else state
+    states = [state.get(t, {}) for t in leaves]
     count = int(states[0]["step"]) if states[0] else 0
     mu, nu = [], []
     for t, st in zip(leaves, states):
@@ -60,7 +63,7 @@ def adam_state_to_numpy(optimizer, params):
         mu.append(to_numpy(st["exp_avg"]) if st else zero)
         nu.append(to_numpy(st["exp_avg_sq"]) if st else zero)
     # a float, or a device tensor in a capturable optimizer
-    lr = float(optimizer.param_groups[0]["lr"])
+    lr = float(optimizer.param_groups[0]["lr"] if lr is None else lr)
     return ([np.asarray(count, np.int32), np.asarray(lr, np.float32),
              np.asarray(count, np.int32)] + mu + nu)
 

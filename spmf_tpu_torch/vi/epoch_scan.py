@@ -1,5 +1,6 @@
 """The fit engine's whole-epoch path over a device-resident source (the
-counterpart of spmf_tpu's ``epoch_scan``, spmf_tpu/vi/minibatch.py).
+counterpart of spmf_tpu's ``epoch_scan`` and ``epoch_chunk``,
+spmf_tpu/vi/minibatch.py).
 
 With a ``DeviceArrayDataset`` or a ``DeviceSparseCounts`` (flat or blocked
 layout) in a single process, each epoch runs on the device: one permutation
@@ -10,23 +11,29 @@ captured at first use and replayed: the host launches one graph a batch
 instead of the step's hundreds of kernels. A batch counter on the device
 says which slice of the permutation a replay gathers, and each replay
 writes its loss (and, for the flat sparse layout, its nnz total) into a
-device buffer that the engine fetches once an epoch. On the CPU the same
-step function runs eagerly: there is no graph there.
+device buffer. A single epoch is fetched once; a chunk of K epochs
+(``run_chunk``) ends each epoch with the best / plateau / divergence
+decisions made on the device (``EpochDecisions``, on the card a CUDA graph
+of its own) and is fetched once, after its last epoch. On the CPU the same
+step and decisions run eagerly: there is no graph there.
 
 Capture needs a step that never waits for the host and state whose storage
 never moves: the engine builds Adam with ``capturable=True`` and a device
 learning rate, creates its state before the first step and restores it in
-place. A failed capture raises; nothing falls back to the eager loop.
+place, and the best epoch's state lives in fixed buffers the decisions
+write in place. A failed capture raises; nothing falls back to the eager
+loop.
 """
 from __future__ import annotations
 
 from typing import Callable, List
 
+import numpy as np
 import torch
 
 from spmf_tpu_torch.data import DeviceArrayDataset, DeviceSparseCounts
 
-__all__ = ["EpochScan", "scan_source"]
+__all__ = ["EpochDecisions", "EpochScan", "packed_clone", "scan_source"]
 
 #: capture the scan's step in CUDA graphs on the card (False runs the same
 #: scan eagerly there). A private switch for the smoke script and the GPU
@@ -85,6 +92,115 @@ class _Replay:
         self.graph.replay()
         for (d, k), n in self.launches:
             d[k] += n
+
+
+def packed_clone(tensors):
+    """Clones of ``tensors`` that are views into one flat buffer per dtype
+    and device, so that the decisions select and restore all of them in a
+    few kernels: (the clones, [(a buffer, the indices of its tensors)])."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.dtype, t.device), []).append(i)
+    clones = [None] * len(tensors)
+    packs = []
+    for idx in groups.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        for i, piece in zip(idx, flat.split([tensors[i].numel()
+                                             for i in idx])):
+            clones[i] = piece.view(tensors[i].shape)
+        packs.append((flat, idx))
+    return clones, packs
+
+
+class EpochDecisions:
+    """The best / plateau / divergence decisions that end an epoch of a
+    chunk, made on the device (spmf_tpu's ``_run_chunk_impl`` epoch body,
+    spmf_tpu/vi/minibatch.py:758-807): one function on tensors, with every
+    write an in-place ``copy_`` of a ``torch.where``, so that on the card it
+    is captured once and replayed after each epoch's steps.
+
+    ``state``: the tensors the step updates (the parameters, then Adam's
+    count and moments); ``packs``: the best epoch's copy of them, as
+    ``packed_clone`` gives it (the engine's host path writes its views in
+    place too); ``optimizer``: its one group's learning rate is the
+    carry's. ``rows``: the most epochs a chunk runs; ``width``: the batch
+    losses an epoch. The carry (best loss in the compute dtype, stall
+    count, float32 lr) stays on the device between chunks; ``load`` sets it
+    from the host."""
+
+    def __init__(self, state, packs, optimizer, rows, width, patience,
+                 decay_rate, dtype, device):
+        self.state = list(state)
+        self.packs = packs
+        group = optimizer.param_groups[0]
+        # the learning rate: on the card the capturable Adam's float32
+        # device tensor itself. On the CPU torch's Adam takes a Python float
+        # (a tensor lr needs capturable=True or foreach=False), so there the
+        # carry is a float32 0-d tensor, written into the group as a float
+        # after each decision: the value a host-side decay gives
+        self._group = None if isinstance(group["lr"], torch.Tensor) else group
+        self.lr = (group["lr"] if self._group is None else
+                   torch.tensor(float(group["lr"]), dtype=torch.float32))
+        self.bloss = torch.zeros((), dtype=dtype, device=device)
+        self.stall = torch.zeros((), dtype=torch.int64, device=device)
+        self.patience = int(patience)
+        self.decay = float(np.float32(decay_rate))
+        self.width = width
+        # a row an epoch, fetched once a chunk: its batch losses, the flags
+        # (improved, plateau, finite) and the carry after its decision
+        # (best loss, stall, lr), all exact in float64. ``row`` is the
+        # device counter that says which row a replay writes
+        self.report = torch.zeros((rows, width + 6), dtype=torch.float64,
+                                  device=device)
+        self.row = torch.zeros((), dtype=torch.int64, device=device)
+
+    def load(self, best_loss, stall, lr):
+        """The carry from the host's control state (after a single
+        epoch, or at the first chunk)."""
+        self.bloss.fill_(best_loss)
+        self.stall.fill_(stall)
+        self.lr.fill_(lr)
+
+    def tensors(self):
+        """Every tensor a decision writes."""
+        return self.state + [flat for flat, _ in self.packs] + [
+            self.bloss, self.stall, self.lr, self.report, self.row]
+
+    def __call__(self, losses):
+        """Decide the epoch whose batch losses are ``losses``."""
+        f64 = torch.float64
+        with torch.no_grad():
+            eloss = losses.mean().to(self.bloss.dtype)
+            finite = torch.isfinite(eloss)
+            improved = finite & (eloss < self.bloss)
+            stall = torch.where(finite,
+                                torch.where(improved, 0, self.stall + 1),
+                                self.stall)
+            plateau = finite & (stall >= self.patience)
+            restore = ~finite | plateau
+            for flat, idx in self.packs:
+                cur = torch.cat([self.state[i].reshape(-1) for i in idx])
+                flat.copy_(torch.where(improved, cur, flat))
+                new = torch.where(restore, flat, cur)
+                torch._foreach_copy_(
+                    [self.state[i] for i in idx],
+                    [piece.view(self.state[i].shape) for i, piece in zip(
+                        idx, new.split([self.state[i].numel()
+                                        for i in idx]))])
+            self.bloss.copy_(torch.where(improved, eloss, self.bloss))
+            self.lr.copy_(torch.where(
+                ~finite, self.lr * 0.5,
+                torch.where(plateau, self.lr * self.decay, self.lr)))
+            self.stall.copy_(torch.where(plateau, 0, stall))
+            row = torch.cat([
+                losses.to(f64),
+                torch.stack([improved, plateau, finite]).to(f64),
+                torch.stack([self.bloss.to(f64), self.stall.to(f64),
+                             self.lr.to(f64)])])
+            self.report.index_copy_(0, self.row.reshape(1), row[None])
+            self.row.add_(1)
+        if self._group is not None:
+            self._group["lr"] = float(self.lr)
 
 
 class EpochScan:
@@ -208,11 +324,13 @@ class EpochScan:
         return [t for t in (self.counter, self.losses, self.nnz)
                 if t is not None]
 
-    def _capture(self, fn):
+    def _capture(self, fn, tensors, what, draws=True):
         """Warm ``fn`` up once eagerly on a side stream (Adam's and the
-        kernels' first-use work, the caches the wrappers fill), put every
-        tensor it changed and the generator back, then capture it."""
-        tensors = list(self.state()) + self._buffers()
+        kernels' first-use work, the caches the wrappers fill), put
+        ``tensors`` (every tensor it changes) and the generator back, then
+        capture it. ``draws``: ``fn`` draws from the engine's generator,
+        which the graph then registers (each replay fills its seed and
+        offset)."""
         saved = [t.detach().clone() for t in tensors]
         gen_state = self.generator.get_state()
         current = torch.cuda.current_stream(self.device)
@@ -229,15 +347,15 @@ class EpochScan:
         counters = _launch_counters()
         before = [d[k] for d, k in counters]
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        if draws:
+            graph.register_generator_state(self.generator)
         try:
             with torch.cuda.graph(graph):
                 fn()
         except Exception as exc:
             raise RuntimeError(
-                "capturing the training step in a CUDA graph failed (the "
-                f"scan path does not fall back to the eager loop): {exc}"
-            ) from exc
+                f"capturing {what} in a CUDA graph failed (the scan path "
+                f"does not fall back to the eager loop): {exc}") from exc
         launches = []
         for (d, k), n0 in zip(counters, before):
             if d[k] != n0:
@@ -245,19 +363,25 @@ class EpochScan:
                 d[k] = n0      # capture launches nothing
         return _Replay(graph, launches)
 
-    def _run(self, kind):
-        fn = self._full_step if kind == "full" else self._rem_step
+    def _run(self, kind, fn, tensors, draws=True):
+        """Run ``fn``: eagerly, or on the card as the graph ``kind``,
+        captured at its first use (``tensors``, ``draws``: ``_capture``)."""
         if not self.capture:
             fn()
             return
         if kind not in self.graphs:
-            self.graphs[kind] = self._capture(fn)
+            what = ("the epoch's decisions" if kind == "decide"
+                    else "the training step")
+            self.graphs[kind] = self._capture(fn, tensors(), what, draws)
         self.graphs[kind]()
 
+    def _step_state(self):
+        return list(self.state()) + self._buffers()
+
     # -------------------------------------------------------------- epoch
-    def run_epoch(self):
-        """Train one epoch; returns the device buffer of its batch losses
-        (valid until the next epoch)."""
+    def _epoch(self):
+        """The permutation, the flat layout's epoch decode and the steps of
+        one epoch; its nnz totals join the dataset's pending audit."""
         if self.perm is None:
             self.perm = torch.arange(self.n_perm, dtype=torch.int32,
                                      device=self.device)
@@ -272,14 +396,39 @@ class EpochScan:
                 for k, v in ep.items():
                     self.ep[k].copy_(v)
         for _ in range(self.nb):
-            self._run("full")
+            self._run("full", self._full_step, self._step_state)
         if self.rem:
-            self._run("rem")
+            self._run("rem", self._rem_step, self._step_state)
         if self.sparse:
-            # the pad overflow audit: one fetch of the epoch's totals
             self.ds._pending_nnz.append(self.nnz.clone())
+
+    def _audit(self):
+        """The flat layout's pad overflow audit: one fetch of the pending
+        nnz totals."""
+        if self.sparse:
             self.ds.check_overflow()
+
+    def run_epoch(self):
+        """Train one epoch; returns the device buffer of its batch losses
+        (valid until the next epoch)."""
+        self._epoch()
+        self._audit()
         return self.losses
+
+    def run_chunk(self, k, decide):
+        """Train ``k`` epochs, each ended by ``decide`` (an
+        ``EpochDecisions``) on its batch losses, with nothing fetched
+        between them; the flat layout's nnz totals are audited once, after
+        the last. Returns the device rows of ``decide.report`` (one an
+        epoch), valid until the next chunk."""
+        decide.row.zero_()
+        for _ in range(k):
+            self._epoch()
+            # draws nothing: the engine's generator is not registered
+            self._run("decide", lambda: decide(self.losses), decide.tensors,
+                      draws=False)
+        self._audit()
+        return decide.report[:k]
 
     def _permutation(self):
         """This epoch's uniform permutation, from the engine's generator:

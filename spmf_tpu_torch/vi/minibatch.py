@@ -10,16 +10,22 @@ rate on a plateau (or halve it after a non-finite epoch), and stop on the
 rel_tol / abs_tol window. Returns the best parameters and the loss trace.
 
 Persistence (spmf_tpu's npz format, utils.checkpoint): a checkpoint is
-written on every improving epoch, and a fit resumes from one; a
-KeyboardInterrupt returns the best parameters reached so far.
+written on every improving epoch (once a chunk on the chunk path), and a
+fit resumes from one; a KeyboardInterrupt returns the best parameters
+reached so far.
 
 A device-resident source (``DeviceArrayDataset``, ``DeviceSparseCounts``)
 takes the whole-epoch scan path (``vi/epoch_scan.py``): batches gathered on
 the device and, on the card, each batch's gather and step replayed from a
-CUDA graph. The control flow above stays per epoch on the host either way.
+CUDA graph. Its epochs run singly, with the control flow above on the host,
+or K to a chunk (``epoch_chunk``), with the decisions made on the device
+after each epoch and replayed on the host from one fetch a chunk. A host
+source's batches are assembled and moved to the device ``prefetch``
+batches ahead in a worker thread (``data/prefetch.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import os
@@ -33,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from spmf_tpu_torch.data.prefetch import prefetch_batches
 from spmf_tpu_torch.vi import epoch_scan as _scan
 from spmf_tpu_torch.utils.checkpoint import (
     load_fit_state,
@@ -87,9 +94,10 @@ def _leaves(params):
     return [t for sub in params.values() for t in sub.values()]
 
 
-def _detached(params):
-    return {n: {k: t.detach().clone() for k, t in sub.items()}
-            for n, sub in params.items()}
+def _like(params, tensors):
+    """``tensors`` (in ``_leaves`` order) in the nested dict of ``params``."""
+    it = iter(tensors)
+    return {n: {k: next(it) for k in sub} for n, sub in params.items()}
 
 
 def _epoch_tag(path):
@@ -156,13 +164,9 @@ def _adam_tensors(optimizer):
             for p in g["params"] for k in ("step", "exp_avg", "exp_avg_sq")]
 
 
-def _snapshot(tensors):
-    return [t.detach().clone() for t in tensors]
-
-
 def _restore(tensors, snapshot):
-    """Copy a snapshot back in place (a captured step keeps reading the
-    same storage)."""
+    """Copy ``snapshot`` into ``tensors`` in place (a captured step keeps
+    reading the same storage)."""
     with torch.no_grad():
         for t, s in zip(tensors, snapshot):
             t.copy_(s)
@@ -225,6 +229,8 @@ def fit_surrogate_posterior(
     checkpoint_full_state: bool = True,
     epoch_scan: Optional[bool] = None,
     epoch_chunk: Optional[int] = None,
+    prefetch: int = 2,
+    profile_dir: Optional[str] = None,
 ) -> FitResult:
     """Run minibatch ADVI. The displayed per-batch loss is -ELBO / rows,
     the ELBO estimated by ``sample_size`` x ``sample_batches`` samples;
@@ -271,16 +277,12 @@ def fit_surrogate_posterior(
     if epoch_chunk is not None and epoch_chunk < 1:
         raise ValueError(f"epoch_chunk must be >= 1, got {epoch_chunk}")
     scan_ds = _scan.scan_source(batched_data_factory, epoch_scan)
-    if epoch_chunk is not None and epoch_chunk > 1:
-        if scan_ds is None:
-            raise ValueError(
-                "epoch_chunk > 1 requires the epoch_scan fast path "
-                "(DeviceArrayDataset or DeviceSparseCounts source, single "
-                "process)")
-        raise NotImplementedError(
-            "epoch_chunk > 1 (K epochs a dispatch, with the best, plateau "
-            "and divergence decisions made on the device) is not ported to "
-            "spmf_tpu_torch yet; epoch_chunk=1 runs single epochs")
+    explicit_chunk = epoch_chunk is not None and epoch_chunk > 1
+    if explicit_chunk and scan_ds is None:
+        raise ValueError(
+            "epoch_chunk > 1 requires the epoch_scan fast path "
+            "(DeviceArrayDataset or DeviceSparseCounts source, single "
+            "process)")
 
     prior_weight = 1.0
     if dataset_size is not None and batch_size is not None:
@@ -358,7 +360,14 @@ def fit_surrogate_posterior(
         clip_and_step(optimizer, clip_value)
         return loss.detach()
 
-    to_device = lambda b: _device_batch(b, dtype, device)  # noqa: E731
+    # the prefetch worker's current stream is the default one: its copies
+    # go on the caller's stream, which the steps that read them run on
+    stream = (torch.cuda.current_stream(device) if device.type == "cuda"
+              else None)
+
+    def to_device(b):
+        with torch.cuda.stream(stream):      # None: no stream to set
+            return _device_batch(b, dtype, device)
 
     # a device-resident source's first rows, as a view: no shuffle epoch
     # used up and no dataset-sized gather
@@ -399,25 +408,37 @@ def fit_surrogate_posterior(
         ckpt_path = os.path.join(checkpoint_dir, run_id)
         os.makedirs(ckpt_path, exist_ok=True)
 
+    # the best epoch's parameters and Adam state, in fixed buffers that
+    # both paths write in place (the chunk path's decisions on the device;
+    # a captured decision reads this storage)
+    state = leaves + opt_tensors
+    best, best_packs = _scan.packed_clone(state)
+    best_params = _like(params, best[:len(leaves)])
+    opt_params = [p for g in optimizer.param_groups for p in g["params"]]
+    best_adam = {p: dict(zip(("step", "exp_avg", "exp_avg_sq"),
+                             best[len(leaves) + 3 * i:len(leaves) + 3 * i + 3]))
+                 for i, p in enumerate(opt_params)}
     checkpoint_seconds: List[float] = []
 
-    def save_ckpt(epoch):
-        """The improving epoch's state, written after its loss fetch."""
+    def save_ckpt(epoch, control, opt_lr):
+        """The best state, tagged with its epoch; ``control``: the (best
+        loss, stall, lr) a resume continues, ``opt_lr``: the learning rate
+        of the Adam leaves (the one the best epoch ran with)."""
         t_write = time.perf_counter()
         tag = epoch + epoch_offset
         path = os.path.join(ckpt_path, f"{run_id}-{tag}.npz")
         if checkpoint_full_state:
+            c_loss, c_stall, c_lr = control
             save_fit_state(path, best_params,
-                           adam_state_to_numpy(optimizer, params),
-                           meta={"lr": _f32(lr), "best_loss": float(best_loss),
-                                 "stall": int(stall), "epoch": tag})
+                           adam_state_to_numpy(optimizer, params,
+                                               state=best_adam, lr=opt_lr),
+                           meta={"lr": _f32(c_lr), "best_loss": float(c_loss),
+                                 "stall": int(c_stall), "epoch": tag})
         else:
             save_pytree(path, best_params)
         checkpoint_seconds.append(time.perf_counter() - t_write)
         say(f"Saved a checkpoint: {path}")
 
-    best_params = _detached(params)
-    best_opt_state = _snapshot(opt_tensors)
     converged = False
     epoch_seconds: List[float] = []
 
@@ -438,72 +459,163 @@ def fit_surrogate_posterior(
                     f"stopping at epoch {epoch}")
         return converged
 
+    def _bookkeep(epoch, epoch_loss, last_batch_loss, improved, finite,
+                  on_improve=None):
+        """One epoch's prints and best / stall / lr accounting, from the
+        host's comparisons (single epochs) or the device's flags (the chunk
+        path's replay). Returns the plateau decision."""
+        nonlocal best_loss, stall, lr
+        losses.append(epoch_loss)
+        say(f"Epoch {epoch}: average-batch loss: {epoch_loss} "
+            f"last batch loss: {last_batch_loss}")
+        if not finite:
+            # divergence: restore best and decay hard
+            say(f"Non-finite loss; restoring from a checkpoint - loss: "
+                f"{best_loss}")
+            lr = _decay_f32(lr, 0.5)
+            return False
+        if improved:
+            best_loss = epoch_loss
+            stall = 0
+            if on_improve is not None:
+                on_improve(epoch)
+        else:
+            stall += 1
+        plateau = stall >= patience
+        if plateau:
+            lr = _decay_f32(lr, decay_rate)
+            say(f"We are in a loss plateau learning rate: {lr} "
+                f"loss: {epoch_loss}")
+            say(f"Restoring from a checkpoint - loss: {best_loss}")
+            stall = 0
+        return plateau
+
+    def _on_improve(epoch):
+        _restore(best, state)
+        if ckpt_path is not None:
+            save_ckpt(epoch, (best_loss, stall, lr), lr)
+
     scan = None
     if scan_ds is not None:
         scan = _scan.EpochScan(
-            scan_ds, step, lambda: leaves + opt_tensors, generator, dtype,
-            device, capture=device.type == "cuda" and _scan._CAPTURE)
+            scan_ds, step, lambda: state, generator, dtype, device,
+            capture=device.type == "cuda" and _scan._CAPTURE)
+    chunk_size = epoch_chunk if explicit_chunk else 0
+    chunk_used = 0
+    decide = None          # the chunk path's EpochDecisions
+    carry_on_device = False
+
+    def run_chunk(epoch, k):
+        """Epochs ``epoch + 1 .. epoch + k`` as one chunk, then the host's
+        replay of their decisions and the chunk's checkpoint. Returns the
+        last epoch."""
+        nonlocal decide, carry_on_device, chunk_used
+        if decide is None:
+            decide = _scan.EpochDecisions(
+                state, best_packs, optimizer, min(chunk_size, num_steps),
+                len(scan.losses), patience, decay_rate, dtype, device)
+        if not carry_on_device:
+            decide.load(best_loss, stall, lr)
+        t_chunk = time.perf_counter()
+        with torch.profiler.record_function("fit chunk"):
+            # ONE device fetch for the chunk
+            rows = scan.run_chunk(k, decide).tolist()
+        # the carry stays in device form between chunks: re-deriving the
+        # best loss from the host's float64 means would drift from it
+        carry_on_device = True
+        per_epoch = (time.perf_counter() - t_chunk) / k
+        chunk_used = max(chunk_used, k)
+        w = decide.width
+        last_improve = None
+        for row in rows:
+            epoch += 1
+            epoch_seconds.append(per_epoch)
+            improved, plateau_dev, finite = (bool(f) for f in row[w:w + 3])
+            if improved:
+                last_improve = (epoch, row[w + 5])
+            plateau = _bookkeep(epoch, float(np.mean(row[:w])), row[w - 1],
+                                improved, finite)
+            if plateau != plateau_dev:
+                # the parameters followed the device's decisions either way
+                warnings.warn(
+                    "epoch-chunk replay drifted from the on-device decision "
+                    f"sequence at epoch {epoch} (host plateau={plateau}, "
+                    f"device={plateau_dev}); prints/lr bookkeeping may lag "
+                    "the device state", RuntimeWarning)
+        if last_improve is not None and ckpt_path is not None:
+            # the device carry is the control state a resume continues
+            c_loss, c_stall, c_lr = rows[-1][w + 3:]
+            save_ckpt(last_improve[0], (c_loss, c_stall, c_lr),
+                      last_improve[1])
+        return epoch
+
+    if profile_dir is not None:
+        profiler = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU] + (
+                [torch.profiler.ProfilerActivity.CUDA]
+                if device.type == "cuda" else []),
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                profile_dir))
+    else:
+        profiler = contextlib.nullcontext()
 
     epoch = 0
     interrupted = False
     try:
-        while epoch < num_steps:
-            epoch += 1
-            t_epoch = time.perf_counter()
-            # a named range for torch.profiler (the smoke script's per-step
-            # launches and busy share are read inside these)
-            with torch.profiler.record_function("fit epoch"):
-                if scan is not None:
-                    batch_losses = scan.run_epoch()
-                else:
-                    batch_losses = [step(to_device(b))
-                                    for b in batched_data_factory()]
-                    if not batch_losses:
-                        raise ValueError(
-                            "batched_data_factory() yielded no batches in "
-                            f"epoch {epoch} — check "
-                            "batch_size/drop_remainder vs dataset size")
-                    batch_losses = torch.stack(batch_losses)
-                # ONE device fetch for the epoch
-                batch_losses = batch_losses.cpu().tolist()
-            epoch_seconds.append(time.perf_counter() - t_epoch)
-            epoch_loss = float(np.mean(batch_losses))
-            finite = bool(np.isfinite(epoch_loss))
-            losses.append(epoch_loss)
-            say(f"Epoch {epoch}: average-batch loss: {epoch_loss} "
-                f"last batch loss: {batch_losses[-1]}")
-            plateau = False
-            if not finite:
-                # divergence: restore best and decay hard
-                say(f"Non-finite loss; restoring from a checkpoint - loss: "
-                    f"{best_loss}")
-                lr = _decay_f32(lr, 0.5)
-            else:
-                if epoch_loss < best_loss:
-                    best_loss = epoch_loss
-                    stall = 0
-                    best_params = _detached(params)
-                    best_opt_state = _snapshot(opt_tensors)
-                    if ckpt_path is not None:
-                        save_ckpt(epoch)
-                else:
-                    stall += 1
-                plateau = stall >= patience
-                if plateau:
-                    lr = _decay_f32(lr, decay_rate)
-                    say(f"We are in a loss plateau learning rate: {lr} "
-                        f"loss: {epoch_loss}")
-                    say(f"Restoring from a checkpoint - loss: {best_loss}")
-                    stall = 0
-            if not finite or plateau:
-                # in place: a captured step reads this storage
-                _restore(leaves, _leaves(best_params))
-                _restore(opt_tensors, best_opt_state)
-                _set_lr(lr)
-                if not finite:
+        with profiler:
+            while epoch < num_steps:
+                remaining = num_steps - epoch
+                if (scan is not None and epoch_chunk is None and epoch == 2
+                        and not (scan.sparse or scan.blocked)
+                        and epoch_seconds[1] <= 1.0 and remaining >= 3 * 8):
+                    # spmf_tpu's adaptive default (its sparse scans measured
+                    # slower chunked, so only the dense scan engages)
+                    chunk_size = 8
+                k = 0
+                if chunk_size > 1:
+                    # an explicit K is clamped to the epochs left; the
+                    # default leaves a shorter tail to single epochs
+                    k = (min(chunk_size, remaining) if explicit_chunk
+                         else (chunk_size if remaining >= chunk_size else 0))
+                if k >= 2:
+                    epoch = run_chunk(epoch, k)
+                    if _check_convergence(epoch):
+                        break
                     continue
-            if _check_convergence(epoch):
-                break
+
+                carry_on_device = False
+                epoch += 1
+                t_epoch = time.perf_counter()
+                # a named range for torch.profiler (the smoke script's per-
+                # step launches and busy share are read inside these)
+                with torch.profiler.record_function("fit epoch"):
+                    if scan is not None:
+                        batch_losses = scan.run_epoch()
+                    else:
+                        batch_losses = [step(b) for b in prefetch_batches(
+                            batched_data_factory(), prefetch, to_device)]
+                        if not batch_losses:
+                            raise ValueError(
+                                "batched_data_factory() yielded no batches "
+                                f"in epoch {epoch} — check "
+                                "batch_size/drop_remainder vs dataset size")
+                        batch_losses = torch.stack(batch_losses)
+                    # ONE device fetch for the epoch
+                    batch_losses = batch_losses.cpu().tolist()
+                epoch_seconds.append(time.perf_counter() - t_epoch)
+                epoch_loss = float(np.mean(batch_losses))
+                finite = bool(np.isfinite(epoch_loss))
+                plateau = _bookkeep(epoch, epoch_loss, batch_losses[-1],
+                                    finite and epoch_loss < best_loss, finite,
+                                    on_improve=_on_improve)
+                if not finite or plateau:
+                    # in place: a captured step reads this storage
+                    _restore(state, best)
+                    _set_lr(lr)
+                    if not finite:
+                        continue
+                if _check_convergence(epoch):
+                    break
     except KeyboardInterrupt:
         # Ctrl-C / SIGINT: return the best state reached so far (written
         # checkpoints stay on disk)
@@ -526,8 +638,8 @@ def fit_surrogate_posterior(
         converged=converged,
         extras={"epoch_seconds": epoch_seconds,
                 "epoch_scan": scan is not None,
-                # the largest K-epoch chunk run (always 0: not ported yet)
-                "epoch_chunk": 0,
+                # the largest K-epoch chunk run (0: none)
+                "epoch_chunk": chunk_used,
                 # each checkpoint write: the copy to the host and the npz
                 "checkpoint_seconds": checkpoint_seconds,
                 # the returned params are the best before the interrupt

@@ -148,7 +148,8 @@ def test_epoch_scan_fast_path_converges_and_is_deterministic():
     scan path."""
     result = _gaussian_run()
     assert result.extras["epoch_scan"] is True
-    assert result.extras["epoch_chunk"] == 0
+    # the default engages chunks of 8 after two fast single epochs
+    assert result.extras["epoch_chunk"] == 8
     loc = float(result.params["z"]["loc"][0, 0])
     sd = float(torch.nn.functional.softplus(
         result.params["z"]["raw_scale"][0, 0]))
@@ -186,12 +187,13 @@ def test_epoch_scan_validates_eligibility():
 
 
 @pytest.mark.parametrize("source, chunk, error", [
-    ("host", 4, ValueError), ("device", 4, NotImplementedError),
+    ("host", 4, ValueError), ("device", 4, None),
     ("device", 0, ValueError), ("device", 1, None), ("device", None, None)])
 def test_epoch_chunk_requires_scan_path(source, chunk, error):
     """tests/test_engine.py:621: epoch_chunk > 1 needs the scan path
-    (spmf_tpu's ValueError on a host source); on the scan path K > 1 is not
-    ported and raises by name; 1 and None run single epochs; < 1 raises."""
+    (spmf_tpu's ValueError on a host source); on the scan path K > 1 runs
+    one chunk, clamped to the 2 epochs; 1 and None run single epochs; < 1
+    raises."""
     surrogate, energy, factory = _problem()
     if source == "device":
         x = np.random.default_rng(0).normal(1.5, 1.0, size=64)
@@ -206,7 +208,7 @@ def test_epoch_chunk_requires_scan_path(source, chunk, error):
     result = tmb.fit_surrogate_posterior(energy, surrogate, surrogate.init(),
                                          factory, **kw)
     assert result.extras["epoch_scan"] is True
-    assert result.extras["epoch_chunk"] == 0
+    assert result.extras["epoch_chunk"] == (2 if chunk == 4 else 0)
     assert len(result.losses) == 3
 
 

@@ -119,22 +119,26 @@ def test_engine_control_flow_matches_jax(name, capsys):
     assert expect in out_t
 
 
-def test_unported_fit_options_raise():
+def test_unported_fit_options_raise(tmp_path):
+    """The options still to port raise by name; profile_dir, prefetch and
+    epoch_chunk=4 run."""
     X = counts(32, 6)
     host = ArrayDataset({"counts": X}).batch(16)
     m = PoissonFactorization(latent_dim=2, feature_dim=6, dtype="float64",
                              device="cpu", data=host)
-    for kw in (dict(profile_dir="prof"), dict(prefetch=2),
-               dict(elbo_estimator="stl")):
+    for kw in (dict(remat_sampling=True), dict(elbo_estimator="stl")):
         with pytest.raises(NotImplementedError):
             m.fit(num_steps=1, sample_size=2, verbose=False, **kw)
     # epoch_scan is ported: on a host source it raises spmf_tpu's ValueError
     with pytest.raises(ValueError, match="epoch_scan"):
         m.fit(num_steps=1, sample_size=2, verbose=False, epoch_scan=True)
-    # K epochs a dispatch (epoch_chunk > 1) is not ported
-    with pytest.raises(NotImplementedError, match="epoch_chunk"):
-        m.fit(batched_data_factory=host.to_device(device="cpu"), num_steps=1,
-              sample_size=2, verbose=False, epoch_chunk=4)
+    for kw in (dict(profile_dir=str(tmp_path / "prof")), dict(prefetch=2)):
+        assert np.isfinite(m.fit(num_steps=1, sample_size=2, verbose=False,
+                                 **kw)).all()
+    # K epochs a dispatch on the scan path
+    m.fit(batched_data_factory=host.to_device(device="cpu"), num_steps=4,
+          sample_size=2, verbose=False, rel_tol=None, epoch_chunk=4)
+    assert m.last_fit.extras["epoch_chunk"] == 4
     with pytest.raises(TypeError):
         m.fit(num_steps=1, resume_frm="x")
 

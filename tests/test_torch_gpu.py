@@ -629,7 +629,7 @@ def test_encode_batched_matches_encode_on_the_card(cuda):
 
 # ------------------------------------------------ the captured scan path
 def _scan_fit(dev, capture, dtype, monkeypatch, n=250, bs=100, d=300, k=4,
-              epochs=6, **model_kw):
+              epochs=6, fit_kw=None, **model_kw):
     """A fit over a DeviceArrayDataset through the scan path, captured in
     CUDA graphs or run eagerly on the card: 2 full batches and a 50-row
     remainder, patience=1 and a learning rate that forces plateau
@@ -647,7 +647,8 @@ def _scan_fit(dev, capture, dtype, monkeypatch, n=250, bs=100, d=300, k=4,
                              device=dev, u_tau_scale=1.0 / np.sqrt(n * d),
                              data=ds, **model_kw)
     losses = m.fit(num_steps=epochs, learning_rate=2.0, sample_size=4,
-                   patience=1, rel_tol=None, verbose=False, seed=5)
+                   patience=1, rel_tol=None, verbose=False, seed=5,
+                   **(fit_kw or {}))
     assert m.last_fit.extras["epoch_scan"] is True
     return m, losses
 
@@ -730,3 +731,78 @@ def test_failed_capture_raises(cuda):
         fit_surrogate_posterior(energy, sur, sur.init(), as_data_factory(ds),
                                 num_steps=2, verbose=False,
                                 dtype=torch.float64)
+
+
+# ------------------------------------------------ the chunk path and prefetch
+def _assert_same_fit(a, b):
+    (m_a, l_a), (m_b, l_b) = a, b
+    assert l_a == l_b
+    assert m_a.last_fit.learning_rate == m_b.last_fit.learning_rate
+    for name, sub in m_a.surrogate_params.items():
+        for leaf, t in sub.items():
+            assert torch.equal(t, m_b.surrogate_params[name][leaf]), (name,
+                                                                      leaf)
+
+
+def test_captured_chunks_equal_single_epochs_and_eager_chunks(cuda,
+                                                              monkeypatch):
+    """Chunks of 4 with the decisions replayed from their own CUDA graph
+    equal the captured single-epoch fit and the eager chunked fit bit for
+    bit at float64, across the restores patience=1 forces inside a chunk."""
+    kw = dict(epochs=8, fused_likelihood=False, gamma_sampler="fast")
+    chunk = _scan_fit(cuda, True, "float64", monkeypatch,
+                      fit_kw=dict(epoch_chunk=4), **kw)
+    single = _scan_fit(cuda, True, "float64", monkeypatch,
+                       fit_kw=dict(epoch_chunk=1), **kw)
+    eager = _scan_fit(cuda, False, "float64", monkeypatch,
+                      fit_kw=dict(epoch_chunk=4), **kw)
+    assert chunk[0].last_fit.extras["epoch_chunk"] == 4
+    assert chunk[0].last_fit.learning_rate < 2.0
+    _assert_same_fit(chunk, single)
+    _assert_same_fit(chunk, eager)
+
+
+def test_decision_graph_keeps_the_storage(cuda, monkeypatch):
+    """The captured decisions copy in place: across chunks and their
+    restores the parameters, Adam's state and the best buffers keep their
+    data_ptr()."""
+    from spmf_tpu_torch.vi import epoch_scan
+
+    ptrs = []
+    run_chunk = epoch_scan.EpochScan.run_chunk
+
+    def spy(self, k, decide):
+        ptrs.append([t.data_ptr() for t in decide.tensors()])
+        return run_chunk(self, k, decide)
+
+    monkeypatch.setattr(epoch_scan.EpochScan, "run_chunk", spy)
+    m, _ = _scan_fit(cuda, True, "float64", monkeypatch, epochs=12,
+                     fit_kw=dict(epoch_chunk=4), fused_likelihood=False,
+                     gamma_sampler="fast")
+    assert m.last_fit.learning_rate < 2.0
+    assert len(ptrs) == 3 and all(p == ptrs[0] for p in ptrs)
+
+
+def test_prefetch_on_the_card_equals_inline(cuda):
+    """The general loop over a host dataset with the batches copied to the
+    card in the prefetch worker equals the in-line loop at float64."""
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import ArrayDataset
+
+    n, d = 250, 300
+    X = np.random.default_rng(7).poisson(1.0, (n, d))
+    runs = []
+    for prefetch in (2, 0):
+        data = ArrayDataset({"counts": X, "indices": np.arange(n)}
+                            ).shuffle(seed=3).batch(100)
+        m = PoissonFactorization(latent_dim=4, feature_dim=d,
+                                 dtype="float64", device=cuda,
+                                 u_tau_scale=1.0 / np.sqrt(n * d),
+                                 fused_likelihood=False,
+                                 gamma_sampler="fast")
+        losses = m.fit(batched_data_factory=data, num_steps=3,
+                       learning_rate=0.5, sample_size=4, rel_tol=None,
+                       verbose=False, seed=5, prefetch=prefetch)
+        assert m.last_fit.extras["epoch_scan"] is False
+        runs.append((m, losses))
+    _assert_same_fit(*runs)

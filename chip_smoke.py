@@ -93,6 +93,24 @@ Phases, each printing lines; any failure raises and exits non-zero:
              general loop over the host dataset with prefetch=2 against
              prefetch=0; a captured fit with profile_dir, whose trace must
              name the kernels
+  AE         horshoe_plus=False at the scRNA width (D=20000, K=32, S=8,
+             B=4096, 16,384 rows resident): fit on the captured scan through
+             K1, then with fused_normals through K1 and K6, with launch
+             counters, ms/step and a profiled turn; one small step each of
+             PoissonFactorization and GaussianFactorization(observation_model=
+             'normal') at horshoe_plus=False against the plain float64 path.
+             The PoissonAutoencoder at its bench width (D=2000, latent 32,
+             one encoder and one decoder layer, S=8, B=1024, 8192 rows
+             resident): fits on the captured scan and the general loop, then
+             with fused_normals (K6 over the 8,134,032-element Identity
+             block, also held against its float64 twin at that total);
+             ms/step, rows/s, peak GB, busy share, host launches a step; a
+             profiler breakdown of one step (log_exp1 forward and backward,
+             the matmuls; the prior, the network and the surrogate draw run
+             alone; what the prior's autograd graph keeps); one small step
+             (D=12, S=2) against the plain float64 path on the same Philox
+             draws; save then load_model(data=..., device='cuda') with
+             encode bit-equal, waic and a held-out log_likelihood
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -478,7 +496,7 @@ def numpy_draws(model, seed):
             "ig_u": rng.uniform(1e-6, 1.0, (8, S, tot_g))}
 
 
-def philox_draws(model, seed, dev, stratified=False):
+def philox_draws(model, seed, dev, stratified=False, sample_size=S):
     """The base draws that one sample_and_log_prob call of a model with both
     fused samplers makes from a generator seeded with ``seed`` on ``dev``
     (the Normal block's Philox seed is drawn first, then the IG block's), in
@@ -486,7 +504,7 @@ def philox_draws(model, seed, dev, stratified=False):
     and K3's eps and 8 uniforms for the WH 'fast' sampler. ``stratified``:
     those of antithetic='stratified', where the Normal block draws its
     lattice's base integers from the generator (K6 takes no antithetic
-    mode) and K3 its stratified stream."""
+    mode) and K3 its stratified stream. ``sample_size`` samples."""
     import torch
 
     from spmf_tpu_torch.ops import fused_ig as tig
@@ -498,7 +516,7 @@ def philox_draws(model, seed, dev, stratified=False):
     tot_n = sum(sur._sizes[n] for n in sur._normal_names)
     tot_g = sum(sur._sizes[n] for n in sur._ig_names)
     f64 = torch.float64
-    half = S // 2
+    half = sample_size // 2
     if stratified:
         base = torch.randint(0, 1 << 23, (tot_n,), generator=g,
                              dtype=torch.int64, device=dev)
@@ -511,20 +529,21 @@ def philox_draws(model, seed, dev, stratified=False):
     if stratified:
         u = torch.stack([tig.uniforms(tot_g, 0, seeds[0], f64, dev,
                                       pair=s % half, half=half)
-                         for s in range(S)], dim=1)      # (9, S, tot_g)
+                         for s in range(sample_size)], dim=1)  # (9, S, tot_g)
         u[:, half:] = 1.0 - u[:, half:]
     else:
         u = torch.stack([tig.uniforms(tot_g, s, seeds[1], f64, dev)
-                         for s in range(S)], dim=1)
+                         for s in range(sample_size)], dim=1)
         normal_eps = torch.stack([tfn.draw_eps(tot_n, s, seeds[0], f64, dev)
-                                  for s in range(S)])
+                                  for s in range(sample_size)])
     return {"normal_eps": normal_eps.cpu().numpy(),
             "ig_eps": (2.0 ** 0.5 * torch.erfinv(2.0 * u[0] - 1.0)
                        ).cpu().numpy(),
             "ig_u": u[1:].cpu().numpy()}
 
 
-def step_grads(model, p0, batch, draws, generator=None, antithetic=False):
+def step_grads(model, p0, batch, draws, generator=None, antithetic=False,
+               sample_size=S):
     """(loss, flat gradients) of one ELBO step of ``model`` from params p0
     on ``batch`` with injected base draws, or with ``generator``'s."""
     import torch
@@ -537,7 +556,8 @@ def step_grads(model, p0, batch, draws, generator=None, antithetic=False):
         for t in sub.values():
             t.requires_grad_(True)
     loss = elbo_loss(model._surrogate, model._energy, params, batch,
-                     generator, S, antithetic=antithetic, draws=draws)
+                     generator, sample_size, antithetic=antithetic,
+                     draws=draws)
     loss.backward()
     grads = torch.cat([t.grad.reshape(-1).double().cpu()
                        for sub in params.values() for t in sub.values()])
@@ -617,8 +637,9 @@ def time_steps(step, n=13, skip=3):
 def profile_steps(step, n=5):
     """torch.profiler over ``n`` steps after one warm-up: (wall ms/step,
     device-busy ms/step, the six costliest device kernels as (name,
-    ms/step), device kernels launched per step, {kernel name: ms/step});
-    busy is None when the profiler saw no device time."""
+    ms/step), device kernels launched per step, {kernel name: ms/step},
+    {host op: ms/step of the device kernels it launched, its children's
+    included}); busy is None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -637,6 +658,10 @@ def profile_steps(step, n=5):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    def dev_total_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
     # device-side events only: a CPU op (an autograd Function, aten::bmm)
     # also reports the device time of the kernels it launched
     events = [e for e in prof.key_averages()
@@ -644,9 +669,11 @@ def profile_steps(step, n=5):
     busy = sum(dev_us(e) for e in events) / 1e3 / n
     top = sorted(events, key=dev_us, reverse=True)[:6]
     count = sum(e.count for e in events) / n
+    ops = {e.key: dev_total_us(e) / 1e3 / n for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and dev_total_us(e) > 0}
     return wall, (busy or None), [(e.key[:70], dev_us(e) / 1e3 / n)
                                   for e in top], count, {
-        e.key: dev_us(e) / 1e3 / n for e in events}
+        e.key: dev_us(e) / 1e3 / n for e in events}, ops
 
 
 def say_profile(tag, prof, smi):
@@ -717,6 +744,86 @@ def epoch_windows(prof, names=("fit epoch",), skip=1):
     return wall, (busy or None), launches, len(dev_events), fetches, by_call
 
 
+def clone_params(params):
+    return {n: {k: t.clone() for k, t in sub.items()}
+            for n, sub in params.items()}
+
+
+def run_fit(m, init, data, capture=True, profiled=False, windows=None,
+            first=1, **kw):
+    """One fit of ``m`` from ``init`` over ``data``: (losses, ms/step of
+    the epochs from ``first`` on (0-based), peak GB, epoch_windows or None,
+    whether the scan ran, the FitResult, the fit's wall s). ``capture``:
+    the scan's CUDA graphs (False runs the scan eagerly); ``windows``: the
+    ``names`` and ``skip`` of epoch_windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmf_tpu_torch.vi import epoch_scan
+
+    epoch_scan._CAPTURE = capture
+    m.surrogate_params = clone_params(init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(dict(learning_rate=0.01, sample_size=S, rel_tol=None,
+                   verbose=False, seed=0), **kw)
+    prof = None
+    t_fit = time.perf_counter()
+    try:
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                losses = m.fit(batched_data_factory=data, **kw)
+                torch.cuda.synchronize()
+        else:
+            losses = m.fit(batched_data_factory=data, **kw)
+    finally:
+        epoch_scan._CAPTURE = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_fit
+    r = m.last_fit
+    steps = steps_of(data)
+    ms = float(np.median(r.extras["epoch_seconds"][first:])) / steps * 1e3
+    win = (epoch_windows(prof, **(windows or {})) if prof is not None
+           else None)
+    return (losses, ms, torch.cuda.max_memory_allocated() / 1e9, win,
+            r.extras["epoch_scan"], r, wall)
+
+
+def steps_of(data):
+    """Steps an epoch of a batched dataset."""
+    from spmf_tpu_torch.data import ArrayDataset, DeviceArrayDataset
+
+    bs = data._batch_size
+    if getattr(data, "block_rows", None):
+        return data.n_blocks // (bs // data.block_rows)
+    if isinstance(data, (ArrayDataset, DeviceArrayDataset)) and not \
+            data._drop_remainder:
+        return -(-data.num_rows // bs)
+    return data.num_rows // bs
+
+
+def report_arm(phase, smi, tag, rows, ms, peak, win, steps):
+    """Print one fit arm: ms/step, rows/s, peak GB and, from a profiled
+    turn's epoch_windows, the busy share, host launches and device kernels
+    a step."""
+    if win is None:
+        prof_part = "not profiled"
+    else:
+        wall, busy, launches, kernels = win[:4]
+        n = steps
+        share = (f"busy {busy / n:.2f} ms/step ({busy / wall:.1%} of "
+                 f"the profiled wall)" if busy else
+                 "device time not measured")
+        names = ", ".join(f"{k} {v / n:.2f}"
+                          for k, v in launches.most_common(3))
+        prof_part = (f"{share}, {sum(launches.values()) / n:.2f} host "
+                     f"launches a step ({names}), {kernels / n:.0f} "
+                     "device kernels a step")
+    say(phase, f"{tag}: {ms:.2f} ms/step, {rows / ms * 1e3:.0f} rows/s, "
+               f"peak {peak:.2f} GB; {prof_part} ({smi})")
+
+
 def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     """Phase G: the whole-epoch scan path (a device-resident source; each
     batch's gather and step replayed from a CUDA graph). The captured scan
@@ -731,7 +838,6 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     Each arm prints ms/step, rows/s, peak GB, and from a profiled turn its
     busy share and host launches a step. Returns the kernel launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from spmf_tpu_torch import PoissonFactorization
     from spmf_tpu_torch.data import ArrayDataset, DeviceArrayDataset
@@ -739,70 +845,6 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
 
     t_phase = time.perf_counter()
     zero_launches()
-
-    def clone(params):
-        return {n: {k: t.clone() for k, t in sub.items()}
-                for n, sub in params.items()}
-
-    def run(m, init, data, capture=True, profiled=False, windows=None,
-            first=1, **kw):
-        """One fit from ``init``: (losses, ms/step of the epochs from
-        ``first`` on (0-based), peak GB, epoch_windows or None, whether
-        the scan ran, the FitResult, the fit's wall s). ``windows``: the
-        ``names`` and ``skip`` of epoch_windows."""
-        epoch_scan._CAPTURE = capture
-        m.surrogate_params = clone(init)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kw = dict(dict(learning_rate=0.01, sample_size=S, rel_tol=None,
-                       verbose=False, seed=0), **kw)
-        prof = None
-        t_fit = time.perf_counter()
-        try:
-            if profiled:
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    losses = m.fit(batched_data_factory=data, **kw)
-                    torch.cuda.synchronize()
-            else:
-                losses = m.fit(batched_data_factory=data, **kw)
-        finally:
-            epoch_scan._CAPTURE = True
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_fit
-        r = m.last_fit
-        steps = steps_of(data)
-        ms = float(np.median(r.extras["epoch_seconds"][first:])) / steps * 1e3
-        win = (epoch_windows(prof, **(windows or {})) if prof is not None
-               else None)
-        return (losses, ms, torch.cuda.max_memory_allocated() / 1e9, win,
-                r.extras["epoch_scan"], r, wall)
-
-    def steps_of(data):
-        bs = data._batch_size
-        if getattr(data, "block_rows", None):
-            return data.n_blocks // (bs // data.block_rows)
-        if isinstance(data, (ArrayDataset, DeviceArrayDataset)) and not \
-                data._drop_remainder:
-            return -(-data.num_rows // bs)
-        return data.num_rows // bs
-
-    def report(tag, rows, ms, peak, win, steps):
-        if win is None:
-            prof_part = "not profiled"
-        else:
-            wall, busy, launches, kernels = win[:4]
-            n = steps
-            share = (f"busy {busy / n:.2f} ms/step ({busy / wall:.1%} of "
-                     f"the profiled wall)" if busy else
-                     "device time not measured")
-            names = ", ".join(f"{k} {v / n:.2f}"
-                              for k, v in launches.most_common(3))
-            prof_part = (f"{share}, {sum(launches.values()) / n:.2f} host "
-                         f"launches a step ({names}), {kernels / n:.0f} "
-                         "device kernels a step")
-        say("G", f"{tag}: {ms:.2f} ms/step, {rows / ms * 1e3:.0f} rows/s, "
-                 f"peak {peak:.2f} GB; {prof_part} ({smi})")
 
     # (a) the captured scan against the eager scan on the card: bit for bit
     # at float64 (the plain path) and at float32 through K3 (plain
@@ -879,7 +921,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     cm = (colsum / (xg > 0).sum(0, keepdim=True)).cpu().numpy()
     m.eta_i = m._const(np.where(cm > 1, cm, 1.0))
     m.xi_u_global = m._const(np.nansum(cm))
-    init = clone(m.surrogate_params)
+    init = clone_params(m.surrogate_params)
     # the host arms (about 0.2 s a step) take 2 epochs, to keep the phase
     # short: their second epoch is the one measured. (g): the batches'
     # assembly and copy in line (prefetch=0, the earlier arm) and in the
@@ -897,16 +939,17 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
             kw = dict(dict(num_steps=3), **kw)
             if kw["data"] is host_ds:
                 kw["data"] = host_ds()
-            res[tag].append(run(m, init, profiled=profiled, **kw))
+            res[tag].append(run_fit(m, init, profiled=profiled, **kw))
     steps = steps_of(dds)
     for tag, turns in res.items():
         check(all(np.isfinite(t[0]).all() for t in turns),
               f"G {tag}: non-finite losses")
         check(turns[0][4] == (tag in ("captured scan", "eager scan")),
               f"G {tag}: epoch_scan {turns[0][4]}")
-        report(f"dense B={b_g} {tag} (second turn profiled: "
-               f"{turns[1][1]:.2f} ms/step)", b_g, turns[0][1], turns[0][2],
-               turns[1][3], (arms[tag].get("num_steps", 3) - 1) * steps)
+        report_arm("G", smi, f"dense B={b_g} {tag} (second turn profiled: "
+                   f"{turns[1][1]:.2f} ms/step)", b_g, turns[0][1],
+                   turns[0][2], turns[1][3],
+                   (arms[tag].get("num_steps", 3) - 1) * steps)
     # (g) prefetch=2 draws the in-line loop's samples on the same batches:
     # the traces differ only by K1's atomic sums
     pf = max(rel(a[0], b[0]) for a, b in zip(res[host],
@@ -937,12 +980,12 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
 
     # (c) the sparse configurations: captured scan against the general loop
     for tag, (ms_, data) in sparse_arms.items():
-        init_s = clone(ms_.surrogate_params)
+        init_s = clone_params(ms_.surrogate_params)
         out = {}
         for profiled in (False, True):
             for arm, kw in (("captured scan", {}),
                             ("general loop", dict(epoch_scan=False))):
-                out.setdefault(arm, []).append(run(
+                out.setdefault(arm, []).append(run_fit(
                     ms_, init_s, data, num_steps=2, profiled=profiled, **kw))
         st = steps_of(data)
         for arm, turns in out.items():
@@ -950,17 +993,17 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
                   f"G {tag} {arm}: non-finite losses")
             check(turns[0][4] == (arm == "captured scan"),
                   f"G {tag} {arm}: epoch_scan {turns[0][4]}")
-            report(f"{tag} B={data._batch_size} {arm} (second turn "
-                   f"profiled: {turns[1][1]:.2f} ms/step)",
-                   data._batch_size, turns[0][1], turns[0][2], turns[1][3],
-                   st)
+            report_arm("G", smi, f"{tag} B={data._batch_size} {arm} "
+                       f"(second turn profiled: {turns[1][1]:.2f} ms/step)",
+                       data._batch_size, turns[0][1], turns[0][2],
+                       turns[1][3], st)
         ms_.surrogate_params = init_s
 
     # (d) fused_normals on and off under capture, in turns
     ab = {True: [], False: []}
     for fused in (True, False, False, True):
         m._surrogate.fused_normals = fused
-        ab[fused].append(run(m, init, dds, num_steps=3)[1])
+        ab[fused].append(run_fit(m, init, dds, num_steps=3)[1])
     m._surrogate.fused_normals = False
     say("G", f"fused_normals under capture (dense B={b_g}, captured scan): "
              f"on {ab[True][0]:.3f} / {ab[True][1]:.3f} ms/step, off "
@@ -1018,8 +1061,8 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     def fit_arm(m_, init_, data, ckpt, profiled, **kw):
         root = tempfile.mkdtemp(prefix="chip_smoke_G_") if ckpt else None
         try:
-            out = run(m_, init_, data, profiled=profiled,
-                      checkpoint_dir=root, **kw)
+            out = run_fit(m_, init_, data, profiled=profiled,
+                          checkpoint_dir=root, **kw)
             files = (len(glob.glob(os.path.join(root, "**", "*.npz"),
                                    recursive=True)) if ckpt else 0)
         finally:
@@ -1088,7 +1131,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     # the 0.1% flat sparse set: chunks of 4 against single epochs, 8 epochs
     # each, in turns; epochs 5-8 read (the second chunk)
     ms_, data = sparse_arms["sparse 0.1% flat"]
-    init_s = clone(ms_.surrogate_params)
+    init_s = clone_params(ms_.surrogate_params)
     st = steps_of(data)
     sres = {}
     for profiled in (False, True):
@@ -1115,7 +1158,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     # the kernels of the step
     root = tempfile.mkdtemp(prefix="chip_smoke_G_prof_")
     try:
-        run(m, init, dds, num_steps=3, profile_dir=root)
+        run_fit(m, init, dds, num_steps=3, profile_dir=root)
         traces = glob.glob(os.path.join(root, "*.json"))
         check(len(traces) == 1, f"G (g) profile_dir holds {traces}")
         with open(traces[0]) as f:
@@ -1361,6 +1404,323 @@ def persistence_phase(dev, smi, zero_launches, read_launches):
     return launches
 
 
+#: the autoencoder of benchmarks/autoencoder_ablation.py and
+#: docs/model_bench.json: D=2000, B=1024, latent 32, one encoder and one
+#: decoder layer; its Normal block (every weight and bias) has 8,134,032
+#: elements
+AE_D, AE_B, AE_K = 2000, 1024, 32
+AE_TOTAL = 2 * AE_D * AE_D + 2 * AE_D * AE_K + 3 * AE_D + AE_K
+
+
+def autoencoder_phase(dev, smi, zero_launches, read_launches):
+    """Phase AE: horshoe_plus=False at the scRNA width (AbsHorseshoe priors
+    on u and s, no InverseGamma block) through K1, then with fused_normals
+    through K6; the PoissonAutoencoder at its bench width on the captured
+    scan and the general loop, then with fused_normals (K6 over the
+    8.1 M-element Identity block, held against its float64 twin at that
+    total); a profiler breakdown of one autoencoder step (the exact-E1
+    weight prior, the matmuls, the surrogate draw); one small autoencoder
+    step against the plain float64 path on the same Philox draws; save /
+    load_model (encode bit-equal), waic and held-out log_likelihood.
+    Returns the kernel launches of its fits."""
+    import torch
+
+    from spmf_tpu_torch import (PoissonAutoencoder, PoissonFactorization,
+                                load_model)
+    from spmf_tpu_torch.data import DeviceArrayDataset
+    from spmf_tpu_torch.ops import fused_normal as tfn
+
+    t_phase = time.perf_counter()
+    launches = {}
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    # (a) horshoe_plus=False at D=20000, K=32, B=4096, 16,384 rows resident:
+    # 3 epochs an arm on the captured scan, the second turn profiled
+    n_f, b_f = 16384, 4096
+    xf = torch.poisson(torch.ones(n_f, D, device=dev), generator=g)
+    dsf = DeviceArrayDataset({"counts": xf,
+                              "indices": torch.arange(n_f, device=dev)},
+                             batch_size=b_f, device=dev)
+    mf = PoissonFactorization(latent_dim=K, feature_dim=D,
+                              horshoe_plus=False, dtype="float32",
+                              device=dev, data=dsf)
+    check(list(mf.surrogate_params) == ["v", "w", "s", "u"]
+          and not mf._surrogate._ig_names and mf.gamma_sampler == "fused",
+          f"AE non-plus surrogate {list(mf.surrogate_params)}")
+    init_f = clone_params(mf.surrogate_params)
+    steps_f = n_f // b_f
+    for fused in (False, True):
+        mf._surrogate.fused_normals = fused
+        zero_launches()
+        turns = [run_fit(mf, init_f, dsf, num_steps=3, profiled=p)
+                 for p in (False, True)]
+        got = launches[f"non-plus fused_normals={fused}"] = read_launches()
+        n_steps = 2 * 3 * steps_f
+        check(all(np.isfinite(t[0]).all() and t[4] for t in turns),
+              f"AE non-plus fused_normals={fused}: losses "
+              f"{[t[0] for t in turns]}, scan {[t[4] for t in turns]}")
+        check(got["stats"] >= n_steps and got["fwd"] == got["bwd"] == 0
+              and (got["nfwd"] >= n_steps and got["nbwd"] >= n_steps
+                   if fused else got["nfwd"] == got["nbwd"] == 0),
+              f"AE non-plus fused_normals={fused}: launches {got}")
+        report_arm("AE", smi, f"horshoe_plus=False D={D} K={K} B={b_f} "
+                              f"captured scan, fused_normals={fused} "
+                              f"(second turn profiled: {turns[1][1]:.2f} "
+                              "ms/step)", b_f, turns[0][1], turns[0][2],
+                   turns[1][3], 2 * steps_f)
+        say("AE", f"  losses {[round(x, 4) for x in turns[0][0]]}; "
+                  f"launches {got}")
+    mf._surrogate.fused_normals = False
+    del mf, dsf, xf, init_f
+
+    # (b) the autoencoder at D=2000, B=1024, S=8, 8192 rows resident (8
+    # batches an epoch): the captured scan and the general loop in turns,
+    # the second turn profiled
+    n_a = 8192
+    xa = torch.poisson(torch.ones(n_a + AE_B, AE_D, device=dev), generator=g)
+    dsa = DeviceArrayDataset({"counts": xa[:n_a],
+                              "indices": torch.arange(n_a, device=dev)},
+                             batch_size=AE_B, device=dev)
+    held = DeviceArrayDataset({"counts": xa[n_a:],
+                               "indices": torch.arange(AE_B, device=dev)},
+                              batch_size=AE_B, device=dev)
+    t0 = time.perf_counter()
+    ma = PoissonAutoencoder(dsa, latent_dim=AE_K, dtype="float32",
+                            device=dev)
+    build_s = time.perf_counter() - t0
+    sur = ma._surrogate
+    names = sur._normal_names
+    check(sum(sur._sizes.values()) == AE_TOTAL and not sur._ig_names
+          and ma.neural_network_model.layer_sizes == [AE_D, AE_K, AE_D, AE_D],
+          f"AE autoencoder: {sur._sizes}")
+    init_a = clone_params(ma.surrogate_params)
+    steps_a = n_a // AE_B
+    zero_launches()
+    res = {}
+    for profiled in (False, True):
+        for arm, kw in (("captured scan", {}),
+                        ("general loop", dict(epoch_scan=False))):
+            res.setdefault(arm, []).append(run_fit(
+                ma, init_a, dsa, num_steps=3, profiled=profiled, **kw))
+    got = launches["autoencoder"] = read_launches()
+    check(not any(got.values()), f"AE autoencoder launches {got}")
+    say("AE", f"PoissonAutoencoder(D={AE_D}, latent {AE_K}, layers "
+              f"{ma.neural_network_model.layer_sizes}) built in "
+              f"{build_s:.1f} s; Normal block {AE_TOTAL} elements")
+    for arm, turns in res.items():
+        check(all(np.isfinite(t[0]).all() for t in turns)
+              and turns[0][4] == (arm == "captured scan"),
+              f"AE autoencoder {arm}: losses {turns[0][0]}, scan "
+              f"{turns[0][4]}")
+        report_arm("AE", smi, f"autoencoder D={AE_D} B={AE_B} S={S} {arm} "
+                              f"(second turn profiled: {turns[1][1]:.2f} "
+                              "ms/step)", AE_B, turns[0][1], turns[0][2],
+                   turns[1][3], 2 * steps_a)
+        say("AE", f"  losses {[round(x, 4) for x in turns[0][0]]}")
+
+    # with fused_normals: K6 draws the whole Identity block
+    sur.gamma_sampler, sur.fused_normals = "fused", True
+    zero_launches()
+    turns = [run_fit(ma, init_a, dsa, num_steps=3, profiled=p)
+             for p in (False, True)]
+    got = launches["autoencoder fused_normals"] = read_launches()
+    n_steps = 2 * 3 * steps_a
+    check(all(np.isfinite(t[0]).all() and t[4] for t in turns)
+          and got["nfwd"] >= n_steps and got["nbwd"] >= n_steps
+          and got["stats"] == 0, f"AE autoencoder fused_normals: launches "
+                                 f"{got}, losses {turns[0][0]}")
+    report_arm("AE", smi, f"autoencoder D={AE_D} B={AE_B} S={S} captured "
+                          f"scan, fused_normals=True (second turn profiled: "
+                          f"{turns[1][1]:.2f} ms/step)", AE_B, turns[0][1],
+               turns[0][2], turns[1][3], 2 * steps_a)
+    say("AE", f"  losses {[round(x, 4) for x in turns[0][0]]}; launches "
+              f"{got}")
+
+    # (c) K6 at the autoencoder's total against its float64 twin, on the
+    # fitted loc / raw_scale and the all-Identity mask; tolerances as in
+    # phase K6
+    loc = torch.cat([ma.surrogate_params[n]["loc"].reshape(-1)
+                     for n in names]).detach()
+    rs = torch.cat([ma.surrogate_params[n]["raw_scale"].reshape(-1)
+                    for n in names]).detach()
+    mask = sur._normal_mask(names)
+    check(not bool(mask.any()), "AE: the autoencoder's mask is not Identity")
+    seed = torch.tensor([24680], dtype=torch.int32, device=dev)
+    gy = torch.randn(S, AE_TOTAL, generator=g, device=dev)
+    glq = torch.randn(S, generator=g, device=dev)
+    y_k, lq_k = tfn._kernel_fwd(loc, rs, mask, seed, S)
+    gl_k, gr_k = tfn._kernel_bwd(loc, rs, mask, seed, S, gy, glq)
+    y_t, lq_t = tfn.normal_twin_fwd(loc.double(), rs.double(),
+                                    mask.double(), seed, S)
+    gl_t, gr_t = tfn.normal_twin_bwd(loc.double(), rs.double(),
+                                     mask.double(), seed, S, gy.double(),
+                                     glq.double())
+    torch.cuda.synchronize()
+    e_y, e_lq = rel_max(y_k, y_t), rel_elem(lq_k, lq_t)
+    e_g = max(rel_max(gl_k, gl_t), rel_max(gr_k, gr_t))
+    check(e_y < 1e-5, f"AE K6f y rel err {e_y}")
+    check(e_lq < 1e-6, f"AE K6f lq rel err {e_lq}")
+    check(e_g < 1e-5, f"AE K6b grads rel err {e_g}")
+    err_f = abs_max([(y_k, y_t)])
+    err_b = abs_max([(gl_k, gl_t), (gr_k, gr_t)])
+    del y_k, lq_k, gl_k, gr_k, y_t, lq_t, gl_t, gr_t
+    k6 = (cuda_ms(lambda: tfn._kernel_fwd(loc, rs, mask, seed, S)),
+          cuda_ms(lambda: tfn._kernel_bwd(loc, rs, mask, seed, S, gy, glq)))
+    twin = (cuda_ms(lambda: tfn.normal_twin_fwd(loc, rs, mask, seed, S),
+                    iters=3, warmup=1),
+            cuda_ms(lambda: tfn.normal_twin_bwd(loc, rs, mask, seed, S, gy,
+                                                glq), iters=3, warmup=1))
+    bnd = (normal_bound("fwd", AE_TOTAL, S), normal_bound("bwd", AE_TOTAL, S))
+    say("AE", f"K6 at total={AE_TOTAL} (all Identity), S={S}, against its "
+              f"float64 twin: y rel-of-max {e_y:.2e}, lq rel {e_lq:.2e}, "
+              f"gloc/grs rel-of-max {e_g:.2e}, max abs err K6f {err_f:.2e} "
+              f"K6b {err_b:.2e}; K6f {k6[0]:.3f} ms, K6b {k6[1]:.3f} ms "
+              f"(CUDA events around the call, median of 10; float32 twin "
+              f"{twin[0]:.2f} / {twin[1]:.2f} ms); bound {bnd[0][0]:.4f} / "
+              f"{bnd[1][0]:.4f} ms ({bnd[0][2]} / {bnd[1][2]}) ({smi})")
+    sur.gamma_sampler, sur.fused_normals = "fast", False
+    del gy, glq, loc, rs
+
+    # (d) one step's breakdown: the step timed and profiled; inside its
+    # profile the device time of log_exp1 forward and backward (the host
+    # ops _LogExp1 / _LogExp1Backward) and of the matmul kernels; then the
+    # weight and bias prior, the network with its likelihood, and the
+    # surrogate draw each run alone (forward and backward), and what the
+    # prior's autograd graph keeps
+    batch = dsa.peek_batch()
+    step = step_timer(ma, batch)
+    ms_step, mem = time_steps(step)
+    wall, busy, top, count, by_kernel, ops = profile_steps(step, n=3)
+    e1 = ops.get("_LogExp1", 0.0) + ops.get("_LogExp1Backward", 0.0)
+    mm = sum(v for k, v in by_kernel.items() if "gemm" in k.lower())
+    del step
+    with torch.no_grad():
+        samples = sur.sample(ma.surrogate_params,
+                             torch.Generator(device=dev).manual_seed(5), (S,))
+    leaves = {k: v.requires_grad_(True) for k, v in samples.items()}
+    saved = {}
+
+    def pack(t):
+        saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        lp = ma.joint_prior.log_prob(leaves)
+    del lp
+
+    def part(fn):
+        def run_part():
+            for t in leaves.values():
+                t.grad = None
+            fn().sum().backward()
+        return profile_steps(run_part, n=3)[1]
+
+    prior_ms = part(lambda: ma.joint_prior.log_prob(leaves))
+    net_ms = part(lambda: ma.log_likelihood_components(
+        batch, **leaves)["log_likelihood"])
+    draw_ms = profile_steps(normal_block_step(ma, False), n=3)[1]
+    del leaves, samples
+    if busy:
+        parts = (f"inside the step's profile: log_exp1 forward and backward "
+                 f"{e1:.2f} ms ({e1 / busy:.1%} of busy), matmul kernels "
+                 f"{mm:.2f} ms ({mm / busy:.1%}); run alone: the prior "
+                 f"{prior_ms or 0:.2f} ms ({(prior_ms or 0) / busy:.1%}), "
+                 f"network and likelihood {net_ms or 0:.2f} ms "
+                 f"({(net_ms or 0) / busy:.1%}), surrogate draw "
+                 f"{draw_ms or 0:.2f} ms ({(draw_ms or 0) / busy:.1%})")
+    else:
+        parts = "device time not measured (the profiler saw none)"
+    say("AE", f"one autoencoder step B={AE_B} S={S}: {ms_step:.2f} ms/step "
+              f"(median of 10), {AE_B / ms_step * 1e3:.0f} rows/s, peak "
+              f"{mem:.2f} GB; profiled {wall:.2f} ms wall, "
+              + (f"{busy:.2f} ms busy ({busy / wall:.1%}), " if busy else "")
+              + f"{count:.0f} device kernels a step; {parts}; the prior's "
+              f"autograd graph keeps {len(saved)} tensors, "
+              f"{sum(saved.values()) / 1e6:.0f} MB (one sampled-weight "
+              f"tensor is {S * AE_TOTAL * 4 / 1e6:.0f} MB); top "
+              + "; ".join(f"{k} {v:.2f} ms" for k, v in top) + f" ({smi})")
+
+    # (e) one small step (D=12, S=2) through K6 against the plain float64
+    # path on the same Philox draws: loss 1e-4, gradients 1e-4 of the
+    # largest entry. Not 1e-5: a drawn weight x = loc + scale * eps that
+    # cancels to near 0 carries the float32 rounding of loc relative to
+    # x (3.3e-6 for one weight of this step), and the horseshoe prior's
+    # gradient, about 1 / (x log(1 / x^2)), is largest at exactly such a
+    # weight: 1.05e-5 of the largest entry for the float32 plain path on
+    # the CPU, no kernel involved
+    x12 = np.random.default_rng(41).poisson(1.0, (64, 12)).astype(np.float32)
+    data12 = {"counts": x12, "indices": np.arange(64)}
+    mk = PoissonAutoencoder(data12, latent_dim=3, dtype="float32",
+                            device=dev)
+    mk._surrogate.gamma_sampler, mk._surrogate.fused_normals = "fused", True
+    mp = PoissonAutoencoder(data12, latent_dim=3, dtype="float64",
+                            device="cpu")
+    p0 = perturbed_init(mp, 41)
+    before = read_launches()
+    res_k = step_grads(mk, p0, {"counts": torch.as_tensor(x12, device=dev)},
+                       None, generator=torch.Generator(device=dev)
+                       .manual_seed(41), sample_size=2)
+    after = read_launches()
+    ran = [k for k in after if after[k] == before[k] + 1]
+    check(ran == ["nfwd", "nbwd"], f"AE small step launched {ran}")
+    res_p = step_grads(mp, p0, {"counts": torch.as_tensor(x12).double()},
+                       philox_draws(mp, 41, dev, sample_size=2),
+                       sample_size=2)
+    e_loss = abs(res_k[0] - res_p[0]) / abs(res_p[0])
+    e_grad = rel_max(res_k[1], res_p[1])
+    check(e_loss < 1e-4, f"AE small-step loss rel err {e_loss}")
+    check(e_grad < 1e-4, f"AE small-step grads rel err {e_grad}")
+    say("AE", f"small autoencoder step (D=12, S=2) through K6 vs float64 "
+              f"plain path on the same draws: loss {res_k[0]:.6f} vs "
+              f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
+              f"{e_grad:.2e}")
+
+    # (f) save / load_model on the card, encode bit-equal; waic and the
+    # held-out log_likelihood of the loaded model
+    ma.set_calibration_expectations()
+    root = tempfile.mkdtemp(prefix="chip_smoke_AE_")
+    try:
+        path = os.path.join(root, "ae.npz")
+        t0 = time.perf_counter()
+        ma.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mb = load_model(path, data=dsa, device=dev)
+        load_s = time.perf_counter() - t0
+        xe = xa[n_a:n_a + 256]
+        z_a, z_b = ma.encode(xe), mb.encode(xe)
+        check(torch.equal(ma.column_norm_factor, mb.column_norm_factor),
+              "AE load_model: other column norms")
+        check(tuple(z_b.shape) == (xe.shape[0], AE_K)
+              and torch.equal(z_a, z_b),
+              "AE save / load_model: encode not bit-equal")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = mb.waic(num_samples=8)
+        waic_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ll = mb.log_likelihood(held, num_samples=8)
+        ll_s = time.perf_counter() - t0
+        check(w["n_rows"] == n_a and np.isfinite(
+            [w["waic"], w["se"], w["lppd"], w["pwaic"]]).all(),
+            f"AE waic {w}")
+        check(ll["n_rows"] == AE_B and np.isfinite(ll["total"]),
+              f"AE log_likelihood {ll}")
+        say("AE", f"save {save_s:.2f} s ({os.path.getsize(path)} bytes), "
+                  f"load_model(data=..., device={dev.type!r}) "
+                  f"{load_s:.2f} s, encode of {xe.shape[0]} rows "
+                  f"bit-equal; waic(num_samples=8) over "
+                  f"{n_a} rows {w['waic']:.1f} (se {w['se']:.1f}) in "
+                  f"{waic_s:.2f} s; log_likelihood of {AE_B} held-out rows "
+                  f"(8 samples) per_row {ll['per_row']:.4f} in {ll_s:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(p[k] for p in launches.values())
+             for k in read_launches()}
+    say("AE", f"phase AE took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     import torch
 
@@ -1392,7 +1752,7 @@ def main():
            f"{torch.backends.cudnn.allow_tf32}")
     print(smi.splitlines()[0], flush=True)
 
-    # The small-size float64 models of the plain path (phases 6, 7, A, B)
+    # The small-size float64 models of the plain path (phases 6, 7, A, B, AE)
     # live on the CPU and need no kernel, and each takes seconds to set up
     # (its posterior means, 250 draws): two threads build them from here on,
     # under the nvcc build and the kernel checks.
@@ -1431,7 +1791,12 @@ def main():
          dense_data(np.minimum(Xs, 1.0)), {}),
         ("B gaussian normal", GaussianFactorization, dense_data(Xs_log),
          dict(observation_model="normal", scale_columns=False,
-              scale_rows=False)))}
+              scale_rows=False)),
+        ("AE poisson non-plus", PoissonFactorization, dense_data(Xs),
+         dict(horshoe_plus=False)),
+        ("AE gaussian non-plus", GaussianFactorization, dense_data(Xs_log),
+         dict(observation_model="normal", scale_columns=False,
+              scale_rows=False, horshoe_plus=False)))}
     plain_pool.shutdown(wait=False)
 
     t0 = time.perf_counter()
@@ -1817,8 +2182,11 @@ def main():
             antithetic=anti)
         after = read_launches()
         ran = [k for k in kernels if after[k] == before[k] + 1]
-        check(ran == ["stats", "fwd", "bwd"] + ([] if stratified
-                                                else ["nfwd", "nbwd"]),
+        # K3 draws the InverseGamma block, which horshoe_plus=False lacks
+        igs = (["fwd", "bwd"] if pair["kernel"]._surrogate._ig_names
+               else [])
+        check(ran == ["stats"] + igs + ([] if stratified
+                                        else ["nfwd", "nbwd"]),
               f"{tag}: small step launched {ran}")
         check(pair["kernel"].fusion_active, f"{tag}: small step unfused")
         res_p = step_grads(pair["plain"], p0,
@@ -1829,8 +2197,9 @@ def main():
         e_grad = rel_max(res_k[1], res_p[1])
         check(e_loss < 1e-4, f"{tag}: small-step loss rel err {e_loss}")
         check(e_grad < 1e-3, f"{tag}: small-step grads rel err {e_grad}")
-        say(tag, f"small step (antithetic={anti!r}) through K1, K3"
-                 f"{'' if stratified else ', K6'} vs float64 plain path on "
+        say(tag, f"small step (antithetic={anti!r}) through K1"
+                 f"{', K3' if igs else ''}{'' if stratified else ', K6'} vs "
+                 f"float64 plain path on "
                  f"the same draws: loss {res_k[0]:.6f} vs "
                  f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
                  f"{e_grad:.2e}")
@@ -2272,6 +2641,20 @@ def main():
         {"sparse 3% blocked": (sparse["blocked"], blocked),
          "sparse 0.1% flat": (coo_arms["auto"], flat_c)})
     say("G", f"launches {path_launches['G scan']}")
+
+    # ---- AE: horshoe_plus=False at the scRNA width and the
+    # PoissonAutoencoder at its bench width
+    path_launches["AE"] = autoencoder_phase(dev, smi, zero_launches,
+                                            read_launches)
+    say("AE", f"launches {path_launches['AE']}")
+    # one small non-plus step per family through K1 and K6 (no K3)
+    small_step_check("AE poisson non-plus", PoissonFactorization, Xs, 23,
+                     plain["AE poisson non-plus"].result(),
+                     horshoe_plus=False)
+    small_step_check("AE gaussian non-plus", GaussianFactorization, Xs_log,
+                     24, plain["AE gaussian non-plus"].result(),
+                     horshoe_plus=False, observation_model="normal",
+                     scale_columns=False, scale_rows=False)
 
     # ---- 9: times (medians of 10 after warmup)
     B = 4096

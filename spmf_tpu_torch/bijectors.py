@@ -1,11 +1,11 @@
 """Bijectors with forward / inverse / log-det-Jacobian (mirrors
-spmf_tpu/bijectors.py: the two the factorization models use)."""
+spmf_tpu/bijectors.py): Identity, Softplus, Exp and Chain."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Bijector", "Identity", "Softplus", "softplus"]
+__all__ = ["Bijector", "Identity", "Softplus", "Exp", "Chain", "softplus"]
 
 
 def softplus(x):
@@ -62,3 +62,41 @@ class Softplus(Bijector):
 
     def inverse_log_det_jacobian(self, y):
         return -torch.log(-torch.expm1(-y))
+
+
+class Exp(Bijector):
+    def forward(self, x):
+        return torch.exp(x)
+
+    def inverse(self, y):
+        return torch.log(y)
+
+    def forward_log_det_jacobian(self, x):
+        return x
+
+    def inverse_log_det_jacobian(self, y):
+        return -torch.log(y)
+
+
+class Chain(Bijector):
+    """Apply bijectors right-to-left: Chain([f, g]).forward(x) = f(g(x))."""
+
+    def __init__(self, bijectors):
+        self.bijectors = list(bijectors)
+
+    def forward(self, x):
+        for b in reversed(self.bijectors):
+            x = b.forward(x)
+        return x
+
+    def inverse(self, y):
+        for b in self.bijectors:
+            y = b.inverse(y)
+        return y
+
+    def forward_log_det_jacobian(self, x):
+        total = torch.zeros_like(x)
+        for b in reversed(self.bijectors):
+            total = total + b.forward_log_det_jacobian(x)
+            x = b.forward(x)
+        return total

@@ -26,6 +26,9 @@ class Distribution:
     def sample(self, generator, sample_shape=()):  # pragma: no cover
         raise NotImplementedError
 
+    def mean(self):  # pragma: no cover - interface
+        raise NotImplementedError
+
     @property
     def batch_shape(self):
         """Broadcast shape of the parameters."""
@@ -66,3 +69,6 @@ class Independent(Distribution):
 
     def sample(self, generator, sample_shape=()):
         return self.distribution.sample(generator, sample_shape)
+
+    def mean(self):
+        return self.distribution.mean()

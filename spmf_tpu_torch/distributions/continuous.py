@@ -1,9 +1,8 @@
-"""Continuous distributions (mirrors spmf_tpu/distributions/continuous.py).
-
-This slice carries the families the dense horseshoe+ PoissonFactorization
-uses: Normal, HalfNormal, InverseGamma and SqrtInverseGamma. ``sample``
-draws from an explicit ``torch.Generator`` (the JAX package takes a PRNG
-key), so the two packages agree in distribution, not draw for draw.
+"""Continuous distributions (mirrors spmf_tpu/distributions/continuous.py):
+Normal, HalfNormal, Cauchy, HalfCauchy, Gamma, InverseGamma,
+SqrtInverseGamma, LogNormal and the exact-E1 Horseshoe / AbsHorseshoe.
+``sample`` draws from an explicit ``torch.Generator`` (the JAX package takes
+a PRNG key), so the two packages agree in distribution, not draw for draw.
 """
 from __future__ import annotations
 
@@ -12,12 +11,16 @@ import math
 import torch
 
 from .base import Distribution
+from .special import log_exp1
 
-__all__ = ["Normal", "HalfNormal", "InverseGamma", "SqrtInverseGamma",
-           "standard_gamma"]
+__all__ = ["Normal", "HalfNormal", "Cauchy", "HalfCauchy", "Gamma",
+           "InverseGamma", "SqrtInverseGamma", "LogNormal", "Horseshoe",
+           "AbsHorseshoe", "standard_gamma"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _HALF_LOG_2_OVER_PI = 0.5 * math.log(2.0 / math.pi)
+# log((2 pi^3)^{-1/2}): normalizer of the exact horseshoe marginal
+_LOG_HORSESHOE_K = -0.5 * math.log(2.0 * math.pi**3)
 
 
 def _as_tensors(*arrs):
@@ -46,6 +49,13 @@ class _Base(Distribution):
         return torch.randn(tuple(sample_shape) + tuple(self.batch_shape),
                            generator=generator, dtype=self.dtype,
                            device=self.device)
+
+    def _uniform(self, generator, sample_shape):
+        """Uniforms in [1e-7, 1 - 1e-7] (the JAX samplers' bounds)."""
+        u = torch.rand(tuple(sample_shape) + tuple(self.batch_shape),
+                       generator=generator, dtype=self.dtype,
+                       device=self.device)
+        return u * (1.0 - 2e-7) + 1e-7
 
 
 def standard_gamma(generator, concentration):
@@ -91,6 +101,13 @@ class Normal(_Base):
     def sample(self, generator, sample_shape=()):
         return self.loc + self.scale * self._randn(generator, sample_shape)
 
+    def mean(self):
+        return torch.broadcast_to(self.loc, self.batch_shape)
+
+    def entropy(self):
+        return torch.broadcast_to(
+            0.5 * (1.0 + _LOG_2PI) + torch.log(self.scale), self.batch_shape)
+
 
 class HalfNormal(_Base):
     """|Z|, Z ~ Normal(0, scale)."""
@@ -109,6 +126,81 @@ class HalfNormal(_Base):
 
     def sample(self, generator, sample_shape=()):
         return torch.abs(self._randn(generator, sample_shape)) * self.scale
+
+    def mean(self):
+        return self.scale * math.sqrt(2.0 / math.pi)
+
+
+class Cauchy(_Base):
+    def __init__(self, loc, scale):
+        self.loc, self.scale = _as_tensors(loc, scale)
+        self._ref = self.loc
+
+    @property
+    def batch_shape(self):
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+    def log_prob(self, x):
+        z = (self._promote(x) - self.loc) / self.scale
+        return -torch.log(math.pi * self.scale) - torch.log1p(z * z)
+
+    def sample(self, generator, sample_shape=()):
+        u = self._uniform(generator, sample_shape)
+        return self.loc + self.scale * torch.tan(math.pi * (u - 0.5))
+
+
+class HalfCauchy(_Base):
+    def __init__(self, loc, scale):
+        self.loc, self.scale = _as_tensors(loc, scale)
+        self._ref = self.loc
+
+    @property
+    def batch_shape(self):
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+    def log_prob(self, x):
+        z = (self._promote(x) - self.loc) / self.scale
+        return (math.log(2.0 / math.pi) - torch.log(self.scale)
+                - torch.log1p(z * z))
+
+    def sample(self, generator, sample_shape=()):
+        u = self._uniform(generator, sample_shape)
+        return self.loc + self.scale * torch.tan(math.pi * u / 2.0)
+
+
+class Gamma(_Base):
+    """Gamma(concentration, rate) or Gamma(concentration, scale=): exactly
+    one of ``rate`` / ``scale``. ``sample`` draws ``standard_gamma`` and
+    divides by the rate, so its gradient reaches the rate only (the JAX
+    sampler also differentiates in the concentration)."""
+
+    def __init__(self, concentration, rate=None, scale=None):
+        if (rate is None) == (scale is None):
+            raise ValueError("Provide exactly one of rate / scale")
+        self.concentration, given = _as_tensors(
+            concentration, rate if rate is not None else scale)
+        self.rate = given if rate is not None else 1.0 / given
+        self._ref = self.concentration
+
+    @property
+    def batch_shape(self):
+        return torch.broadcast_shapes(self.concentration.shape,
+                                      self.rate.shape)
+
+    def log_prob(self, x):
+        x = self._promote(x)
+        a, b = self.concentration, self.rate
+        return (a * torch.log(b) + (a - 1.0) * torch.log(x) - b * x
+                - torch.lgamma(a))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        g = standard_gamma(generator,
+                           torch.broadcast_to(self.concentration, shape))
+        return g / self.rate
+
+    def mean(self):
+        return self.concentration / self.rate
 
 
 class InverseGamma(_Base):
@@ -134,6 +226,10 @@ class InverseGamma(_Base):
         # guard b/g against a float32 gamma underflow in the extreme tail
         g = torch.clamp_min(g, torch.finfo(self.dtype).tiny ** 0.5)
         return self.scale / g
+
+    def mean(self):
+        # defined for concentration > 1
+        return self.scale / (self.concentration - 1.0)
 
 
 class SqrtInverseGamma(_Base):
@@ -163,3 +259,60 @@ class SqrtInverseGamma(_Base):
 
     def sample(self, generator, sample_shape=()):
         return torch.sqrt(self.ig.sample(generator, sample_shape))
+
+
+class LogNormal(_Base):
+    def __init__(self, loc, scale):
+        self.normal = Normal(loc, scale)
+        self._ref = self.normal.loc
+
+    @property
+    def batch_shape(self):
+        return self.normal.batch_shape
+
+    def log_prob(self, x):
+        x = self._promote(x)
+        return self.normal.log_prob(torch.log(x)) - torch.log(x)
+
+    def sample(self, generator, sample_shape=()):
+        return torch.exp(self.normal.sample(generator, sample_shape))
+
+    def mean(self):
+        return torch.exp(self.normal.loc + 0.5 * self.normal.scale ** 2)
+
+
+class Horseshoe(_Base):
+    """Horseshoe marginal: x | lam ~ N(0, lam^2 scale^2), lam ~ C+(0, 1),
+    with the exact density p(x) = (2 pi^3)^{-1/2} e^z E1(z) / scale,
+    z = x^2 / (2 scale^2), through ``log_exp1``."""
+
+    def __init__(self, scale):
+        (self.scale,) = _as_tensors(scale)
+        self._ref = self.scale
+
+    @property
+    def batch_shape(self):
+        return self.scale.shape
+
+    def log_prob(self, x):
+        x = self._promote(x)
+        z = torch.square(x / self.scale) / 2.0
+        # the density diverges logarithmically at 0: clamp z there
+        z = torch.clamp_min(z, torch.finfo(self.dtype).tiny)
+        return _LOG_HORSESHOE_K - torch.log(self.scale) + z + log_exp1(z)
+
+    def sample(self, generator, sample_shape=()):
+        lam = torch.abs(torch.tan(
+            math.pi / 2.0 * self._uniform(generator, sample_shape)))
+        return self._randn(generator, sample_shape) * lam * self.scale
+
+
+class AbsHorseshoe(Horseshoe):
+    """|X| for X ~ Horseshoe(scale): the horseshoe density (a function of
+    x^2) times 2."""
+
+    def log_prob(self, x):
+        return super().log_prob(x) + math.log(2.0)
+
+    def sample(self, generator, sample_shape=()):
+        return torch.abs(super().sample(generator, sample_shape))

@@ -12,9 +12,25 @@ __all__ = ["Poisson", "Bernoulli"]
 
 
 class Poisson(_Base):
-    def __init__(self, rate):
-        (self.rate,) = _as_tensors(rate)
+    """Poisson(rate) or Poisson(log_rate=): exactly one of the two. Given
+    ``log_rate``, ``log_prob`` uses it as it is (no floor)."""
+
+    def __init__(self, rate=None, log_rate=None):
+        if (rate is None) == (log_rate is None):
+            raise ValueError("Provide exactly one of rate / log_rate")
+        if rate is not None:
+            (self.rate,) = _as_tensors(rate)
+            self._log_rate = None
+        else:
+            (self._log_rate,) = _as_tensors(log_rate)
+            self.rate = torch.exp(self._log_rate)
         self._ref = self.rate
+
+    @property
+    def log_rate(self):
+        if self._log_rate is not None:
+            return self._log_rate
+        return torch.log(self.rate)
 
     @property
     def batch_shape(self):
@@ -26,15 +42,20 @@ class Poisson(_Base):
         gradients through the energy's finite mask); negative rates still
         give NaN, as in the reference."""
         x = self._promote(x)
-        tiny = torch.finfo(self.dtype).tiny
-        log_rate = torch.log(torch.clamp_min(self.rate, tiny))
-        log_rate = torch.where(self.rate < 0, torch.nan, log_rate)
+        log_rate = self._log_rate
+        if log_rate is None:
+            tiny = torch.finfo(self.dtype).tiny
+            log_rate = torch.log(torch.clamp_min(self.rate, tiny))
+            log_rate = torch.where(self.rate < 0, torch.nan, log_rate)
         return x * log_rate - self.rate - torch.lgamma(x + 1.0)
 
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + tuple(self.batch_shape)
         return torch.poisson(torch.broadcast_to(self.rate, shape).contiguous(),
                              generator=generator)
+
+    def mean(self):
+        return self.rate
 
 
 class Bernoulli(_Base):
@@ -60,3 +81,6 @@ class Bernoulli(_Base):
         shape = tuple(sample_shape) + tuple(self.batch_shape)
         probs = torch.sigmoid(torch.broadcast_to(self.logits, shape))
         return torch.bernoulli(probs.contiguous(), generator=generator)
+
+    def mean(self):
+        return torch.sigmoid(self.logits)

@@ -43,8 +43,7 @@ def load_model(path, **overrides):
     if cls is None:
         raise NotImplementedError(
             f"{path} holds a {meta['class']}, a model class spmf_tpu_torch "
-            "does not have yet (PoissonAutoencoder comes with ROADMAP "
-            "section 1 item 3, M9)")
+            "does not have")
     config = dict(meta.get("config", {}))
     config.update(overrides)
     model = cls(**config)

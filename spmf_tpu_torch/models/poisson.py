@@ -1,11 +1,12 @@
-"""Sparse (horseshoe+) Poisson matrix factorization (mirrors
+"""Sparse (horseshoe(+)) Poisson matrix factorization (mirrors
 spmf_tpu/models/poisson.py).
 
     encoder   theta_i = g(x_i) @ A,  A = w1 * u   (w = s / colsum(s), w1 = w[0])
     decoder   rate    = f(theta @ v) + phi,  phi = eta_i * w2 * w
     x_ij ~ Poisson(rate_ij)
 
-with a horseshoe+ prior on the encoding loadings u and the split weights s.
+with a horseshoe+ prior on the encoding loadings u and the split weights s
+(or, with ``horshoe_plus=False``, the exact-E1 AbsHorseshoe).
 On a CUDA device the decode and clipped Poisson log-likelihood run as one
 fused kernel (spmf_tpu_torch.ops.fused_poisson) and the horseshoe+
 auxiliaries are sampled by the fused IG kernel (ops.fused_ig).
@@ -130,10 +131,6 @@ class PoissonFactorization(BayesianModel):
         self.scale_columns = scale_columns
         self.horseshoe_plus = (horshoe_plus if horseshoe_plus is None
                                else horseshoe_plus)
-        if not self.horseshoe_plus:
-            raise NotImplementedError(
-                "horshoe_plus=False (the AbsHorseshoe prior) is not ported "
-                "to spmf_tpu_torch yet")
         if aux_broadcast:
             raise NotImplementedError(
                 "aux_broadcast is not ported to spmf_tpu_torch yet")
@@ -369,7 +366,9 @@ class PoissonFactorization(BayesianModel):
             tfd.HalfNormal(scale=u_eta * u_tau * decay), 2)
 
     def create_distributions(self):
-        """Build the horseshoe+ prior joint and the trainable surrogate."""
+        """Build the prior joint and the trainable surrogate: the horseshoe+
+        (InverseGamma auxiliaries) or, with ``horshoe_plus=False``,
+        AbsHorseshoe priors on u and s and a Normal-only surrogate."""
         D, K = self.feature_dim, self.latent_dim
         dt, dev = self.dtype, self.device
         ones = lambda *shape: torch.ones(shape, dtype=dt, device=dev)  # noqa
@@ -377,8 +376,7 @@ class PoissonFactorization(BayesianModel):
         np_ones = lambda *shape: np.ones(shape, np_dt)  # noqa: E731
 
         self.bijectors = {k: tfb.Softplus() for k in (
-            "u", "u_eta", "u_tau", "s", "s_eta", "s_tau",
-            "u_eta_a", "u_tau_a", "s_eta_a", "s_tau_a")}
+            "u", "u_eta", "u_tau", "s", "s_eta", "s_tau")}
         if self._u_signed:
             self.bijectors["u"] = tfb.Identity()
         self.bijectors.update(self._vw_bijectors())
@@ -387,27 +385,40 @@ class PoissonFactorization(BayesianModel):
             ** np.arange(K, dtype=np_dt)[None, :])
 
         dist = dict(self._vw_priors(ones))
-        dist.update(
-            u=self._u_prior_plus(decay),
-            u_eta=lambda u_eta_a: tfd.Independent(
-                tfd.SqrtInverseGamma(0.5 * ones(D, K), 1.0 / u_eta_a), 2),
-            u_eta_a=tfd.Independent(
-                tfd.InverseGamma(0.5 * ones(D, K), ones(D, K)), 2),
-            u_tau=lambda u_tau_a: tfd.Independent(
-                tfd.SqrtInverseGamma(0.5 * ones(1, K), 1.0 / u_tau_a), 2),
-            u_tau_a=tfd.Independent(tfd.InverseGamma(
-                0.5 * ones(1, K), ones(1, K) / self.u_tau_scale**2), 2),
-            s=lambda s_eta, s_tau: tfd.Independent(
-                tfd.HalfNormal(scale=s_eta * s_tau), 2),
-            s_eta=lambda s_eta_a: tfd.Independent(
-                tfd.SqrtInverseGamma(0.5 * ones(2, D), 1.0 / s_eta_a), 2),
-            s_eta_a=tfd.Independent(
-                tfd.InverseGamma(0.5 * ones(2, D), ones(2, D)), 2),
-            s_tau=lambda s_tau_a: tfd.Independent(
-                tfd.SqrtInverseGamma(0.5 * ones(1, D), 1.0 / s_tau_a), 2),
-            s_tau_a=tfd.Independent(tfd.InverseGamma(
-                0.5 * ones(1, D), ones(1, D) / self.s_tau_scale**2), 2),
-        )
+        if self.horseshoe_plus:
+            dist.update(
+                u=self._u_prior_plus(decay),
+                u_eta=lambda u_eta_a: tfd.Independent(
+                    tfd.SqrtInverseGamma(0.5 * ones(D, K), 1.0 / u_eta_a), 2),
+                u_eta_a=tfd.Independent(
+                    tfd.InverseGamma(0.5 * ones(D, K), ones(D, K)), 2),
+                u_tau=lambda u_tau_a: tfd.Independent(
+                    tfd.SqrtInverseGamma(0.5 * ones(1, K), 1.0 / u_tau_a), 2),
+                u_tau_a=tfd.Independent(tfd.InverseGamma(
+                    0.5 * ones(1, K), ones(1, K) / self.u_tau_scale**2), 2),
+                s=lambda s_eta, s_tau: tfd.Independent(
+                    tfd.HalfNormal(scale=s_eta * s_tau), 2),
+                s_eta=lambda s_eta_a: tfd.Independent(
+                    tfd.SqrtInverseGamma(0.5 * ones(2, D), 1.0 / s_eta_a), 2),
+                s_eta_a=tfd.Independent(
+                    tfd.InverseGamma(0.5 * ones(2, D), ones(2, D)), 2),
+                s_tau=lambda s_tau_a: tfd.Independent(
+                    tfd.SqrtInverseGamma(0.5 * ones(1, D), 1.0 / s_tau_a), 2),
+                s_tau_a=tfd.Independent(tfd.InverseGamma(
+                    0.5 * ones(1, D), ones(1, D) / self.s_tau_scale**2), 2),
+            )
+            self.bijectors.update({k: tfb.Softplus() for k in (
+                "u_eta_a", "u_tau_a", "s_eta_a", "s_tau_a")})
+        else:
+            # AbsHorseshoe on u in every family, the signed ones included
+            # (spmf_tpu runs this branch; its _u_prior_nonplus hook is
+            # never called); the (1, D) s scale broadcasts over (2, D)
+            dist.update(
+                u=tfd.Independent(tfd.AbsHorseshoe(
+                    scale=self.u_tau_scale * decay * ones(D, K)), 2),
+                s=tfd.Independent(tfd.AbsHorseshoe(
+                    scale=self.s_tau_scale * ones(1, D)), 2),
+            )
         self.prior_distribution = tfd.JointDistributionNamed(dist)
 
         def inv_gamma(conc, scale, name):
@@ -415,26 +426,37 @@ class PoissonFactorization(BayesianModel):
                 TrainableInverseGamma(conc, scale, 2, dtype=dt, device=dev),
                 self.bijectors[name])
 
+        s_sur = self._normal_surrogate(
+            np_ones(2, D) * np.asarray([[-2.0], [-1.0]], np_dt),
+            1e-3 * np_ones(2, D), "s")
         # v and w go through the hook so that a family controls their
         # initial values (GaussianFactorization: v loc -5, w loc +0.5)
         sur = dict(self._vw_surrogates(np_ones))
-        sur.update(
-            u=self._normal_surrogate(-6.0 * np_ones(D, K),
-                                     5e-4 * np_ones(D, K), "u"),
-            u_eta=inv_gamma(3.0 * np_ones(D, K), np_ones(D, K), "u_eta"),
-            u_tau=inv_gamma(3.0 * np_ones(1, K), np_ones(1, K), "u_tau"),
-            s_eta=inv_gamma(np_ones(2, D), np_ones(2, D), "s_eta"),
-            s_tau=inv_gamma(np_ones(1, D), np_ones(1, D), "s_tau"),
-            s=self._normal_surrogate(
-                np_ones(2, D) * np.asarray([[-2.0], [-1.0]], np_dt),
-                1e-3 * np_ones(2, D), "s"),
-            u_eta_a=inv_gamma(2.0 * np_ones(D, K), np_ones(D, K), "u_eta_a"),
-            u_tau_a=inv_gamma(2.0 * np_ones(1, K),
-                              np_ones(1, K) / self.u_tau_scale**2, "u_tau_a"),
-            s_eta_a=inv_gamma(2.0 * np_ones(2, D), np_ones(2, D), "s_eta_a"),
-            s_tau_a=inv_gamma(2.0 * np_ones(1, D),
-                              np_ones(1, D) / self.s_tau_scale**2, "s_tau_a"),
-        )
+        if self.horseshoe_plus:
+            sur.update(
+                u=self._normal_surrogate(-6.0 * np_ones(D, K),
+                                         5e-4 * np_ones(D, K), "u"),
+                u_eta=inv_gamma(3.0 * np_ones(D, K), np_ones(D, K), "u_eta"),
+                u_tau=inv_gamma(3.0 * np_ones(1, K), np_ones(1, K), "u_tau"),
+                s_eta=inv_gamma(np_ones(2, D), np_ones(2, D), "s_eta"),
+                s_tau=inv_gamma(np_ones(1, D), np_ones(1, D), "s_tau"),
+                s=s_sur,
+                u_eta_a=inv_gamma(2.0 * np_ones(D, K), np_ones(D, K),
+                                  "u_eta_a"),
+                u_tau_a=inv_gamma(2.0 * np_ones(1, K),
+                                  np_ones(1, K) / self.u_tau_scale**2,
+                                  "u_tau_a"),
+                s_eta_a=inv_gamma(2.0 * np_ones(2, D), np_ones(2, D),
+                                  "s_eta_a"),
+                s_tau_a=inv_gamma(2.0 * np_ones(1, D),
+                                  np_ones(1, D) / self.s_tau_scale**2,
+                                  "s_tau_a"),
+            )
+        else:
+            # s before u: the order of the Normal block K6 and the eps
+            # draw flatten
+            sur.update(s=s_sur, u=self._normal_surrogate(
+                -9.0 * np_ones(D, K), 5e-4 * np_ones(D, K), "u"))
         self._surrogate = SurrogatePosterior(sur,
                                              gamma_sampler=self.gamma_sampler)
         self.surrogate_params = self._surrogate.init()

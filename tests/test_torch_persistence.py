@@ -3,6 +3,7 @@
 format, with the parameters in JAX leaf order (``flatten_jax_order``), for
 the Poisson, Bernoulli, Gaussian and Mixed families (float64, CPU)."""
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -227,14 +228,13 @@ def test_flatten_order_treedef_and_pytree_files_match_jax(tmp_path):
 
 
 def test_load_model_of_an_unported_class_raises_by_name(tmp_path):
-    """A file of a model class the port does not have yet (spmf_tpu's
-    PoissonAutoencoder) is refused by name, not with a bare
-    AttributeError."""
-    x = np.random.default_rng(5).poisson(1.0, (N, D)).astype(np.float64)
-    jm = spmf_tpu.models.PoissonAutoencoder(
-        JaxDS({"counts": x}).batch(N), latent_dim=2, dtype="float64")
-    path = str(tmp_path / "ae.npz")
-    jm.save(path)
-    with pytest.raises(NotImplementedError,
-                       match="PoissonAutoencoder.*M9"):
+    """A file naming a model class that neither package has is refused by
+    name, not with a bare AttributeError."""
+    name = "PoissonTransformer"
+    assert not hasattr(spmf_tpu.models, name)
+    assert not hasattr(spmf_tpu_torch.models, name)
+    path = str(tmp_path / "other.npz")
+    np.savez(path, __meta__=json.dumps({"class": name, "config": {},
+                                        "treedef": "PyTreeDef({})"}))
+    with pytest.raises(NotImplementedError, match=name):
         load_model(path, device="cpu")

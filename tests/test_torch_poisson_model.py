@@ -85,8 +85,12 @@ def test_defaults_and_unported_options():
     assert set(m.surrogate_params["u_eta"]) == {"raw_concentration",
                                                 "raw_scale"}
     assert set(m.surrogate_params["u"]) == {"loc", "raw_scale"}
-    for kw in (dict(horshoe_plus=False), dict(aux_broadcast=True),
-               dict(mesh=object()), dict(gamma_sampler="exact")):
+    # horshoe_plus=False is ported: AbsHorseshoe priors, no IG block
+    nonplus = PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
+                                   horshoe_plus=False)
+    assert list(nonplus.surrogate_params) == ["v", "w", "s", "u"]
+    for kw in (dict(aux_broadcast=True), dict(mesh=object()),
+               dict(gamma_sampler="exact")):
         with pytest.raises(NotImplementedError):
             PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
                                  **kw)

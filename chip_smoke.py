@@ -111,6 +111,30 @@ Phases, each printing lines; any failure raises and exits non-zero:
              (D=12, S=2) against the plain float64 path on the same Philox
              draws; save then load_model(data=..., device='cuda') with
              encode bit-equal, waic and a held-out log_likelihood
+  O options  the engine options at the dense scRNA width (D=20000, K=32,
+             S=8, B=4096, 16,384 rows resident, the captured scan), arms in
+             turns with ms/step, rows/s, peak GB, busy share and host
+             launches a step: the default, elbo_estimator='stl',
+             aux_broadcast (K3 at S=1), gamma_sampler='exact',
+             remat_sampling=True with 'fused' (K3 re-runs), with 'fused' and
+             fused_normals (K3 and K6 re-run), with 'fast', and
+             remat_sampling=False with 'fast'; remat on the captured scan
+             against no remat on the eager scan (bit for bit through K3 and
+             K6, 1e-5 through K1); K3 at S=1 against its float64 twin and
+             its time beside S=8; the exact sampler over S x the IG block
+             (KS distance from Gamma(a), gradient against the float64
+             formula); one small STL step on shared draws and one small
+             aux_broadcast step on the same Philox draws against the plain
+             float64 path
+  CLI        the entry points at full width: a synthetic 10x directory
+             (8,192 cells x 24,000 genes at 3%) through
+             preprocess_scrnaseq_counts (numpy backend, the native
+             MatrixMarket parser, 20,000 top genes), factorize_scrnaseq_counts
+             -d 32 -b 4096 -e 3 dense (the captured scan) and --sparse, and
+             factorize_csv on an 8,192 x 500 CSV (the native CSV parser):
+             parse and preprocessing times, ms/step, encode_batched rows/s,
+             launches; every artifact of tests/test_cli.py, and the CSV
+             run's model file reloaded with encode bit-equal
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -162,6 +186,14 @@ PEAK_FMA_PER_S = 128 * SM_CLOCKS_PER_S
 PEAK_MUFU_PER_S = 16 * SM_CLOCKS_PER_S
 PEAK_IMUL_PER_S = 64 * SM_CLOCKS_PER_S
 IG_MODES = (False, True, "stratified")
+#: phase G's and phase O's small scan: rows, columns, batch (3 full batches
+#: and a remainder)
+SMALL_SCAN = (350, 300, 100)
+#: phase O's resident rows and batch at the dense width
+OPT_ROWS, OPT_BATCH = 16384, 4096
+#: phase CLI's synthetic 10x matrix (3% nonzero: 720 genes a cell), its
+#: top genes kept and the fits' batch
+CLI_CELLS, CLI_GENES, CLI_TOP, CLI_BATCH = 8192, 24000, 20000, 4096
 
 
 _START = time.perf_counter()
@@ -504,7 +536,9 @@ def philox_draws(model, seed, dev, stratified=False, sample_size=S):
     and K3's eps and 8 uniforms for the WH 'fast' sampler. ``stratified``:
     those of antithetic='stratified', where the Normal block draws its
     lattice's base integers from the generator (K6 takes no antithetic
-    mode) and K3 its stratified stream. ``sample_size`` samples."""
+    mode) and K3 its stratified stream. ``sample_size`` samples. With
+    aux_broadcast (every IG variable broadcast) K3 draws the IG block once,
+    at S=1, as ``bc_ig_eps`` / ``bc_ig_u``."""
     import torch
 
     from spmf_tpu_torch.ops import fused_ig as tig
@@ -515,6 +549,10 @@ def philox_draws(model, seed, dev, stratified=False, sample_size=S):
     sur = model._surrogate
     tot_n = sum(sur._sizes[n] for n in sur._normal_names)
     tot_g = sum(sur._sizes[n] for n in sur._ig_names)
+    broadcast = bool(sur.broadcast_names)
+    check(not broadcast or (set(sur._ig_names) == set(sur.broadcast_names)
+                            and not stratified),
+          "philox_draws: a broadcast block other than the whole IG block")
     f64 = torch.float64
     half = sample_size // 2
     if stratified:
@@ -533,9 +571,15 @@ def philox_draws(model, seed, dev, stratified=False, sample_size=S):
         u[:, half:] = 1.0 - u[:, half:]
     else:
         u = torch.stack([tig.uniforms(tot_g, s, seeds[1], f64, dev)
-                         for s in range(sample_size)], dim=1)
+                         for s in range(1 if broadcast else sample_size)],
+                        dim=1)
         normal_eps = torch.stack([tfn.draw_eps(tot_n, s, seeds[0], f64, dev)
                                   for s in range(sample_size)])
+    if broadcast:
+        return {"normal_eps": normal_eps.cpu().numpy(),
+                "bc_ig_eps": (2.0 ** 0.5 * torch.erfinv(2.0 * u[0, 0] - 1.0)
+                              ).cpu().numpy(),
+                "bc_ig_u": u[1:, 0].cpu().numpy()}
     return {"normal_eps": normal_eps.cpu().numpy(),
             "ig_eps": (2.0 ** 0.5 * torch.erfinv(2.0 * u[0] - 1.0)
                        ).cpu().numpy(),
@@ -543,9 +587,10 @@ def philox_draws(model, seed, dev, stratified=False, sample_size=S):
 
 
 def step_grads(model, p0, batch, draws, generator=None, antithetic=False,
-               sample_size=S):
+               sample_size=S, stl=False):
     """(loss, flat gradients) of one ELBO step of ``model`` from params p0
-    on ``batch`` with injected base draws, or with ``generator``'s."""
+    on ``batch`` with injected base draws, or with ``generator``'s;
+    ``stl``: log q at the parameters detached (elbo_estimator='stl')."""
     import torch
 
     from spmf_tpu_torch.utils import params_from_numpy
@@ -555,9 +600,15 @@ def step_grads(model, p0, batch, draws, generator=None, antithetic=False,
     for sub in params.values():
         for t in sub.values():
             t.requires_grad_(True)
+    def draw(p, j):
+        stopped = {n: {k: t.detach() for k, t in sub.items()}
+                   for n, sub in p.items()}
+        return model._surrogate.sample_and_log_prob(
+            p, generator, (sample_size,), antithetic=antithetic, draws=draws,
+            logq_params=stopped if stl else None)
+
     loss = elbo_loss(model._surrogate, model._energy, params, batch,
-                     generator, sample_size, antithetic=antithetic,
-                     draws=draws)
+                     generator, sample_size, draw=draw)
     loss.backward()
     grads = torch.cat([t.grad.reshape(-1).double().cpu()
                        for sub in params.values() for t in sub.values()])
@@ -851,31 +902,16 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     # likelihood); through K1 its float32 atomic sums (dv across warps,
     # dphi in shared memory) vary from run to run even at one row tile, so
     # there the two are held to 1e-5 relative beside two eager runs' spread
-    n_b, d_b, b_b = 350, 300, 100          # 3 full batches and 50 rows
-    xb = np.random.default_rng(7).poisson(1.0, (n_b, d_b))
+    n_b, d_b, b_b = SMALL_SCAN             # 3 full batches and 50 rows
 
-    def small_scan(capture, dtype, fit_kw=None, **kw):
-        ds = DeviceArrayDataset({"counts": xb, "indices": np.arange(n_b)},
-                                batch_size=b_b, shuffle=True, seed=3,
-                                dtype=dtype, device=dev)
-        m = PoissonFactorization(latent_dim=4, feature_dim=d_b, dtype=dtype,
-                                 device=dev,
-                                 u_tau_scale=1.0 / np.sqrt(n_b * d_b), **kw)
-        epoch_scan._CAPTURE = capture
-        try:
-            losses = m.fit(batched_data_factory=ds, **dict(dict(
-                num_steps=4, learning_rate=2.0, sample_size=4, patience=1,
-                rel_tol=None, verbose=False, seed=5), **(fit_kw or {})))
-        finally:
-            epoch_scan._CAPTURE = True
-        return (losses, m.last_fit.learning_rate, m.surrogate_params,
-                m.last_fit.extras)
+    def small_scan_g(capture, dtype, fit_kw=None, **kw):
+        return small_scan(dev, capture, dtype, fit_kw, **kw)
 
     for dtype, kw in (("float64", dict(fused_likelihood=False,
                                        gamma_sampler="fast")),
                       ("float32", dict(fused_likelihood=False,
                                        gamma_sampler="fused"))):
-        (lc, lrc, pc, _), (le, lre, pe, _) = (small_scan(c, dtype, **kw)
+        (lc, lrc, pc, _), (le, lre, pe, _) = (small_scan_g(c, dtype, **kw)
                                               for c in (True, False))
         same = all(torch.equal(pc[n][k], pe[n][k]) for n in pc for k in pc[n])
         check(lc == le and lrc == lre and same,
@@ -889,7 +925,7 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
                  f"{'K3' if dtype == 'float32' else 'the plain path'})")
     k1 = dict(fused_likelihood=True, gamma_sampler="fused")
     (lc, lrc, _, _), (le, lre, _, _), (le2, _, _, _) = (
-        small_scan(c, "float32", **k1) for c in (True, False, False))
+        small_scan_g(c, "float32", **k1) for c in (True, False, False))
     rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b))  # noqa: E731
                                     / np.abs(b)))
     check(lrc == lre and rel(lc, le) < 1e-5,
@@ -1015,8 +1051,9 @@ def scan_phase(dev, smi, zero_launches, read_launches, sparse_arms):
     # captured single epochs and the eager chunks; through K1 within 1e-5
     # beside two eager runs' spread, as (a)
     def chunk_runs(dtype, kw, arms):
-        return [small_scan(c, dtype, fit_kw=dict(num_steps=8, epoch_chunk=e),
-                           **kw) for c, e in arms]
+        return [small_scan_g(c, dtype,
+                             fit_kw=dict(num_steps=8, epoch_chunk=e), **kw)
+                for c, e in arms]
 
     for dtype, kw in (("float64", dict(fused_likelihood=False,
                                        gamma_sampler="fast")),
@@ -1721,6 +1758,395 @@ def autoencoder_phase(dev, smi, zero_launches, read_launches):
     return total
 
 
+def small_scan(dev, capture, dtype, fit_kw=None, fused_normals=False, **kw):
+    """A fit over a small DeviceArrayDataset through the scan path, captured
+    in CUDA graphs or run eagerly on the card: N=350, D=300, B=100 (3 full
+    batches and a 50-row remainder), patience 1 and a learning rate that
+    forces plateau restores. Returns (losses, lr, params, extras)."""
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import DeviceArrayDataset
+    from spmf_tpu_torch.vi import epoch_scan
+
+    n_b, d_b, b_b = SMALL_SCAN
+    xb = np.random.default_rng(7).poisson(1.0, (n_b, d_b))
+    ds = DeviceArrayDataset({"counts": xb, "indices": np.arange(n_b)},
+                            batch_size=b_b, shuffle=True, seed=3,
+                            dtype=dtype, device=dev)
+    m = PoissonFactorization(latent_dim=4, feature_dim=d_b, dtype=dtype,
+                             device=dev,
+                             u_tau_scale=1.0 / np.sqrt(n_b * d_b), **kw)
+    m._surrogate.fused_normals = fused_normals
+    epoch_scan._CAPTURE = capture
+    try:
+        losses = m.fit(batched_data_factory=ds, **dict(dict(
+            num_steps=4, learning_rate=2.0, sample_size=4, patience=1,
+            rel_tol=None, verbose=False, seed=5), **(fit_kw or {})))
+    finally:
+        epoch_scan._CAPTURE = True
+    return (losses, m.last_fit.learning_rate, m.surrogate_params,
+            m.last_fit.extras)
+
+
+def options_phase(dev, smi, zero_launches, read_launches):
+    """Phase O: the engine options at the dense scRNA width (D=20000, K=32,
+    S=8, B=4096, float32, N=16384 resident, the captured scan, 3 epochs an
+    arm, epochs 2-3 read), arms in turns, the second turn profiled: the
+    default, elbo_estimator='stl', aux_broadcast, gamma_sampler='exact',
+    remat_sampling=True with 'fused' (K3 re-runs), with 'fused' and
+    fused_normals (K3 and K6 re-run), with 'fast', and remat_sampling=False
+    with 'fast'. Then on the card: rematerialised captured fits against
+    eager fits without remat (bit for bit through K3 and K6, 1e-5 through
+    K1's atomic sums), K3 at S=1 (the broadcast block) against its float64
+    twin and its time beside S=8, and the exact sampler over the IG block
+    at S=8 (11.2 M values): its draws' KS distance from Gamma(a) and its
+    gradient against the float64 formula. Returns the kernel launches of
+    its fits, summed over the arms."""
+    import torch
+    from scipy import stats
+
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import DeviceArrayDataset
+    from spmf_tpu_torch.ops import fused_ig as tig
+    from spmf_tpu_torch.ops.gamma import sample_gamma
+
+    t_phase = time.perf_counter()
+    launches = {}
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    # (a) the arms
+    n_o, b_o = OPT_ROWS, OPT_BATCH
+    xo = torch.poisson(torch.ones(n_o, D, device=dev), generator=g)
+    ds = DeviceArrayDataset({"counts": xo,
+                             "indices": torch.arange(n_o, device=dev)},
+                            batch_size=b_o, device=dev)
+    m = PoissonFactorization(latent_dim=K, feature_dim=D, dtype="float32",
+                             device=dev, data=ds)
+    sur = m._surrogate
+    aux = frozenset(n for n in sur.names if "_eta" in n or "_tau" in n)
+    init = clone_params(m.surrogate_params)
+    steps = n_o // b_o
+    fits = 2 * 3 * steps       # steps of an arm's two fits
+    # (tag, surrogate settings, fit options, launch check)
+    arms = (
+        ("default", {}, {},
+         lambda c: c["fwd"] >= fits and c["bwd"] >= fits),
+        ("stl", {}, dict(elbo_estimator="stl"),
+         lambda c: c["bwd"] == c["nbwd"] == 0),
+        ("aux_broadcast", dict(broadcast_names=aux), {},
+         lambda c: c["fwd"] >= fits and c["bwd"] >= fits),
+        ("exact", dict(gamma_sampler="exact"), {},
+         lambda c: c["bwd"] == c["nbwd"] == 0),
+        ("remat fused", {}, dict(remat_sampling=True),
+         lambda c: c["fwd"] >= 2 * fits and c["bwd"] >= fits),
+        ("remat fused + fused_normals", dict(fused_normals=True),
+         dict(remat_sampling=True),
+         lambda c: c["fwd"] >= 2 * fits and c["nfwd"] >= 2 * fits
+         and c["nbwd"] >= fits),
+        ("remat fast", dict(gamma_sampler="fast"), dict(remat_sampling=True),
+         lambda c: c["bwd"] == c["nbwd"] == 0),
+        ("no remat fast", dict(gamma_sampler="fast"),
+         dict(remat_sampling=False),
+         lambda c: c["bwd"] == c["nbwd"] == 0))
+    base = dict(gamma_sampler="fused", broadcast_names=frozenset(),
+                fused_normals=False)
+    res = {}
+    counts = {tag: Counter() for tag, *_ in arms}
+    for profiled in (False, True):
+        for tag, settings, fit_kw, _ in arms:
+            for k, v in dict(base, **settings).items():
+                setattr(sur, k, v)
+            zero_launches()
+            res.setdefault(tag, []).append(run_fit(
+                m, init, ds, num_steps=3, profiled=profiled, **fit_kw))
+            counts[tag].update(read_launches())
+    for k, v in base.items():
+        setattr(sur, k, v)
+    for tag, settings, fit_kw, launched in arms:
+        turns = res[tag]
+        got = launches[tag] = dict(counts[tag])
+        check(all(np.isfinite(t[0]).all() and t[4] for t in turns)
+              and got["stats"] >= fits and launched(got),
+              f"O {tag}: losses {turns[0][0]}, scan "
+              f"{[t[4] for t in turns]}, launches {got}")
+        report_arm("O", smi, f"{tag} D={D} K={K} B={b_o} captured scan "
+                             f"(second turn profiled: {turns[1][1]:.2f} "
+                             "ms/step)", b_o, turns[0][1], turns[0][2],
+                   turns[1][3], 2 * steps)
+        say("O", f"  losses {[round(x, 4) for x in turns[0][0]]}; "
+                 f"launches {got}")
+    del m, ds, xo, init, res
+
+    # (b) remat on the captured scan against no remat on the eager scan
+    for dtype, kw, fn in (
+            ("float64", dict(fused_likelihood=False, gamma_sampler="fast"),
+             False),
+            ("float32", dict(fused_likelihood=False, gamma_sampler="fused"),
+             True)):
+        (lc, lrc, pc, _), (le, lre, pe, _) = (
+            small_scan(dev, c, dtype, fit_kw=dict(remat_sampling=r),
+                       fused_normals=fn, **kw)
+            for c, r in ((True, True), (False, False)))
+        same = all(torch.equal(pc[n][k], pe[n][k]) for n in pc for k in pc[n])
+        check(lc == le and lrc == lre < 2.0 and same,
+              f"O remat {dtype}: captured remat {lc} (lr {lrc}) against "
+              f"eager without {le} (lr {lre}), params equal {same}")
+        say("O", f"{dtype} remat_sampling=True on the captured scan == "
+                 f"remat_sampling=False on the eager scan bit for bit "
+                 f"(losses, every parameter, lr {lrc}; "
+                 f"{'K3 and K6' if fn else 'the plain path'})")
+    # through K1 as phase G holds it (K1 and K3; with fused_normals this
+    # trajectory diverges by epoch 4 and amplifies K1's atomic-sum noise
+    # past 1e-5, remat or not), beside two eager runs' spread
+    k1 = dict(fused_likelihood=True, gamma_sampler="fused")
+    (lc, lrc, _, _), (le, lre, _, _), (le2, _, _, _) = (
+        small_scan(dev, c, "float32", fit_kw=dict(remat_sampling=r), **k1)
+        for c, r in ((True, True), (False, False), (False, False)))
+    rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b))  # noqa: E731
+                                    / np.abs(b)))
+    check(lrc == lre and rel(lc, le) < 1e-5,
+          f"O remat through K1: {lc} (lr {lrc}) against {le} (lr {lre})")
+    say("O", f"float32 through K1 and K3: captured remat against eager "
+             f"without, losses {rel(lc, le):.2e} relative at most, two "
+             f"eager runs without {rel(le, le2):.2e} (K1's atomic sums), lr "
+             f"{lrc} both")
+
+    # (c) K3 at S=1, the broadcast block's draw, against its float64 twin
+    # (tolerances as phase 4) and its time beside S=8
+    a = torch.rand(IG_TOTAL, generator=g, device=dev) * 5 + 0.3
+    b = torch.rand(IG_TOTAL, generator=g, device=dev) * 3 + 0.1
+    seed = torch.tensor([24680], dtype=torch.int32, device=dev)
+    gy = torch.randn(1, IG_TOTAL, generator=g, device=dev)
+    glq = torch.randn(1, generator=g, device=dev)
+    y_k, lq_k = tig._kernel_fwd(a, b, seed, 1, False)
+    y_t, lq_t = tig.ig_twin_fwd(a.double(), b.double(), seed, 1, False)
+    ga_k, gb_k = tig._kernel_bwd(a, b, seed, 1, False, gy, glq)
+    ga_t, gb_t = tig.ig_twin_bwd(a.double(), b.double(), seed, 1, False,
+                                 gy.double(), glq.double())
+    e_y, e_lq = rel_elem(y_k, y_t), rel_elem(lq_k, lq_t)
+    e_g = max(rel_max(ga_k, ga_t), rel_max(gb_k, gb_t))
+    check(e_y < 1e-5 and e_lq < 1e-5 and e_g < 1e-4,
+          f"O K3 S=1: y {e_y}, lq {e_lq}, grads {e_g}")
+    ms1 = (cuda_ms(lambda: tig._kernel_fwd(a, b, seed, 1, False)),
+           cuda_ms(lambda: tig._kernel_bwd(a, b, seed, 1, False, gy, glq)))
+    gy8 = torch.randn(S, IG_TOTAL, generator=g, device=dev)
+    glq8 = torch.randn(S, generator=g, device=dev)
+    ms8 = (cuda_ms(lambda: tig._kernel_fwd(a, b, seed, S, False)),
+           cuda_ms(lambda: tig._kernel_bwd(a, b, seed, S, False, gy8, glq8)))
+    say("O", f"K3 at S=1 (total={IG_TOTAL}): y rel {e_y:.2e}, lq rel "
+             f"{e_lq:.2e}, ga/gb rel-of-max {e_g:.2e} against the float64 "
+             f"twin; K3f {ms1[0]:.4f} ms, K3b {ms1[1]:.4f} ms against "
+             f"{ms8[0]:.4f} / {ms8[1]:.4f} at S={S} (CUDA events; {smi})")
+    del y_k, y_t, ga_k, gb_k, ga_t, gb_t, gy8
+
+    # (d) the exact sampler at the IG block's size: S x IG_TOTAL draws
+    conc = a.expand(S, IG_TOTAL).clone().requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    x = sample_gamma(gen, conc, "exact")
+    w = torch.randn(x.shape, generator=g, device=dev)
+    (x * w).sum().backward()
+    pick = torch.randperm(x.numel(), generator=g, device=dev)[:200_000]
+    xs = x.detach().reshape(-1)[pick].double().cpu().numpy()
+    a_s = conc.detach().reshape(-1)[pick].double().cpu().numpy()
+    ks = stats.kstest(stats.gamma.cdf(xs, a_s), "uniform").statistic
+    ref = w.double() * torch._standard_gamma_grad(conc.detach().double(),
+                                                  x.detach().double())
+    e_grad = rel_max(conc.grad, ref)
+    check(ks < 0.01 and e_grad < 1e-4,
+          f"O exact sampler: KS {ks}, gradient rel-of-max {e_grad}")
+    draw_ms = cuda_ms(lambda: sample_gamma(gen, conc.detach(), "exact"))
+
+    def draw_and_grad():
+        conc.grad = None
+        (sample_gamma(gen, conc, "exact") * w).sum().backward()
+
+    both_ms = cuda_ms(draw_and_grad)
+    say("O", f"exact sampler over {x.numel()} values (S={S} x "
+             f"{IG_TOTAL}): KS distance of Gamma(a)'s CDF at the draws from "
+             f"U(0, 1) {ks:.2e} (200,000 draws), gradient rel-of-max "
+             f"{e_grad:.2e} against the float64 formula at the same (a, x); "
+             f"the draw {draw_ms:.3f} ms, draw and gradient {both_ms:.3f} "
+             f"ms (CUDA events; {smi})")
+    del conc, x, w, ref
+    say("O", f"phase O took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(p[k] for p in launches.values())
+            for k in next(iter(launches.values()))}
+
+
+def fixed_width_lines(cols, widths):
+    """Rows of non-negative integer columns as right-aligned decimal text,
+    one line each, as bytes: digit by digit in numpy (the millions of
+    lines of a synthetic MatrixMarket file in about a second)."""
+    n = len(cols[0])
+    buf = np.full((n, sum(widths) + 1), ord(" "), np.uint8)
+    pos = 0
+    for col, width in zip(cols, widths):
+        v = np.asarray(col, np.int64)
+        for k in range(width):
+            p = 10 ** k
+            digit = (v // p % 10 + ord("0")).astype(np.uint8)
+            buf[:, pos + width - 1 - k] = np.where((v >= p) | (k == 0),
+                                                   digit, ord(" "))
+        pos += width
+    buf[:, -1] = ord("\n")
+    return buf.tobytes()
+
+
+def write_10x(path, cells, genes, per_cell, dev, seed):
+    """A synthetic 10x directory: matrix.mtx (genes x cells, 1-based
+    integer coordinates, cell by cell) with ``per_cell`` distinct genes a
+    cell holding Poisson(1) + 1 counts, and features.tsv (no MT- gene).
+    Returns the nonzero count."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.rand(cells, genes, generator=g, device=dev).argsort(
+        dim=1)[:, :per_cell].sort(dim=1).values.cpu().numpy()
+    vals = np.random.default_rng(seed).poisson(1.0, rows.shape) + 1
+    cols = np.repeat(np.arange(cells), per_cell)
+    nnz = rows.size
+    with open(os.path.join(path, "matrix.mtx"), "wb") as f:
+        f.write(b"%%MatrixMarket matrix coordinate integer general\n")
+        f.write(f"{genes} {cells} {nnz}\n".encode())
+        f.write(fixed_width_lines((rows.reshape(-1) + 1, cols + 1,
+                                   vals.reshape(-1)), (7, 7, 4)))
+    with open(os.path.join(path, "features.tsv"), "w") as f:
+        f.writelines(f"ENSG{i:05d}\tGENE{i}\tGene Expression\n"
+                     for i in range(genes))
+    return nnz
+
+
+def cli_phase(dev, smi, zero_launches, read_launches):
+    """Phase CLI: the port's entry points at full width, as a user runs
+    them (``python -m spmf_tpu_torch.cli.*``, here their ``main``): a
+    synthetic 10x directory of CLI_CELLS cells x CLI_GENES genes at 3%
+    (720 genes a cell, inside the QC gates, no MT- gene) through
+    preprocess_scrnaseq_counts (numpy backend, 20,000 top genes, the native
+    MatrixMarket parser), then factorize_scrnaseq_counts -d 32 -b 4096 -e 3
+    dense (the captured scan) and --sparse, and factorize_csv on an
+    8,192 x 500 Poisson CSV (the native CSV parser). Prints the parse and
+    preprocessing times, each fit's ms/step, encode_batched rows/s and the
+    kernels each run launched; checks every artifact of tests/test_cli.py
+    (name, shape, finite) and that the CSV run's model file reloads through
+    load_model with encode bit-equal. Returns the kernel launches of its
+    three runs, summed."""
+    import torch
+
+    from spmf_tpu_torch import load_model
+    from spmf_tpu_torch.cli import (factorize_csv, factorize_scrnaseq_counts,
+                                    preprocess_scrnaseq_counts)
+    from spmf_tpu_torch.data import native
+
+    t_phase = time.perf_counter()
+    launches = {}
+    cells, genes, top, P, bs = CLI_CELLS, CLI_GENES, CLI_TOP, K, CLI_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nnz = write_10x(tmp, cells, genes, int(round(0.03 * genes)), dev, 51)
+        say("CLI", f"wrote a 10x directory: {cells} cells x {genes} genes, "
+                   f"{nnz} nonzeros, in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rows, _, vals, shape = native.load_mtx_coo(
+            os.path.join(tmp, "matrix.mtx"))
+        parse_s = time.perf_counter() - t0
+        check(native.native_available() and len(rows) == nnz
+              and shape == (genes, cells) and vals.min() >= 1,
+              f"CLI native mtx parse: {len(rows)} of {nnz}, shape {shape}")
+        del rows, vals
+        say("CLI", f"native MatrixMarket parse: {parse_s:.2f} s "
+                   f"({nnz / parse_s:.3e} entries/s; the g++ build "
+                   f"{native.BUILD_SECONDS.get('fastio', 0.0):.1f} s)")
+        t0 = time.perf_counter()
+        preprocess_scrnaseq_counts.main([
+            "--datapath", tmp, "--dataset", "cli", "--backend", "numpy",
+            "--n-top-genes", str(top)])
+        say("CLI", f"preprocess_scrnaseq_counts: "
+                   f"{time.perf_counter() - t0:.1f} s")
+        X = np.load(os.path.join(tmp, "cli_counts.npy"))
+        check(X.shape == (cells, top)
+              and np.load(os.path.join(tmp, "cli_PCA.npy")).shape
+              == (cells, 2), f"CLI preprocess: counts {X.shape}")
+
+        for tag, extra in (("dense", []), ("sparse", ["--sparse"])):
+            zero_launches()
+            t0 = time.perf_counter()
+            f = factorize_scrnaseq_counts.main([
+                "--datapath", tmp, "--dataset", "cli", "-d", str(P), "-b",
+                str(bs), "-e", "3", "--no-figures"] + extra)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = launches[f"scrna {tag}"] = read_launches()
+            r = f.last_fit
+            steps = cells // bs
+            ms = float(np.median(r.extras["epoch_seconds"][1:])) / steps * 1e3
+            check(r.extras["epoch_scan"] == (tag == "dense")
+                  and f.device.type == "cuda" and got["stats"] >= 3 * steps
+                  and got["fwd"] >= 3 * steps and got["bwd"] >= 3 * steps,
+                  f"CLI scrna {tag}: scan {r.extras['epoch_scan']}, "
+                  f"launches {got}")
+            for art, shape in (
+                    ("U", (top, P)), ("V", (P, top)), ("W", (1, top)),
+                    ("Z", (cells, P)), ("cellscore", (cells, P)),
+                    ("genescore", (P, top)), ("interceptscore", (1, top))):
+                arr = np.load(os.path.join(tmp, f"cli_{art}_{P}.npy"))
+                check(arr.shape == shape and np.isfinite(arr).all(),
+                      f"CLI scrna {tag}: cli_{art}_{P}.npy {arr.shape}")
+            losses = np.load(os.path.join(tmp, f"cli_losses_{P}.npy"))
+            check(losses.size == 4 and np.isfinite(losses).all(),
+                  f"CLI scrna {tag}: losses {losses}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f.encode_batched(X, row_chunk=cells)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            say("CLI", f"factorize_scrnaseq_counts {tag} -d {P} -b {bs} -e "
+                       f"3: {run_s:.1f} s, {ms:.2f} ms/step (epochs 2-3), "
+                       f"epoch_scan {r.extras['epoch_scan']}, "
+                       f"{len(r.extras['epoch_seconds'])} epochs, losses "
+                       f"{[round(x, 3) for x in losses]}; encode_batched "
+                       f"{cells / enc_s:.0f} rows/s; launches {got} ({smi})")
+            del f
+
+        # factorize_csv on an 8,192 x 500 Poisson CSV
+        Xc = np.random.default_rng(52).poisson(1.0, (cells, 500))
+        csv_file = os.path.join(tmp, "counts.csv")
+        np.savetxt(csv_file, Xc, fmt="%d", delimiter=",")
+        t0 = time.perf_counter()
+        parsed = native.load_csv(csv_file)
+        csv_s = time.perf_counter() - t0
+        check(np.array_equal(parsed, Xc), "CLI native CSV parse differs")
+        zero_launches()
+        t0 = time.perf_counter()
+        f = factorize_csv.main(["-f", csv_file, "-e", "3", "-b", str(bs)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = launches["csv"] = read_launches()
+        r = f.last_fit
+        ms = float(np.median(r.extras["epoch_seconds"][1:])) / (
+            cells // bs) * 1e3
+        base, suffix = f"{csv_file}_2D", "lt_False_rn_False"
+        enc = np.loadtxt(f"{base}_encoding_{suffix}.csv", delimiter=",")
+        rep = np.loadtxt(f"{base}_representation_{suffix}.csv",
+                         delimiter=",")
+        check(enc.shape == (2, 500) and np.isfinite(enc).all()
+              and rep.shape == (cells, 3) and np.isfinite(rep).all()
+              and r.extras["epoch_scan"] and got["stats"] >= 3 * (cells // bs),
+              f"CLI csv: encoding {enc.shape}, representation {rep.shape}, "
+              f"scan {r.extras['epoch_scan']}, launches {got}")
+        restored = load_model(f"{base}_model_{suffix}.npz", device="cuda")
+        check(restored.device.type == "cuda" and torch.equal(
+            restored.encode(Xc[:bs]), f.encode(Xc[:bs])),
+            "CLI csv: the reloaded model's encode differs")
+        say("CLI", f"factorize_csv {cells} x 500 -e 3 -b {bs}: native CSV "
+                   f"parse {csv_s:.2f} s, {run_s:.1f} s, {ms:.2f} ms/step "
+                   f"(epochs 2-3), epoch_scan {r.extras['epoch_scan']}; "
+                   f"encoding {enc.shape}, representation {rep.shape}; the "
+                   f"model file reloads with encode bit-equal; launches "
+                   f"{got} ({smi})")
+    say("CLI", f"phase CLI took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(p[k] for p in launches.values())
+            for k in next(iter(launches.values()))}
+
+
 def main():
     import torch
 
@@ -1796,7 +2222,9 @@ def main():
          dict(horshoe_plus=False)),
         ("AE gaussian non-plus", GaussianFactorization, dense_data(Xs_log),
          dict(observation_model="normal", scale_columns=False,
-              scale_rows=False, horshoe_plus=False)))}
+              scale_rows=False, horshoe_plus=False)),
+        ("O aux_broadcast", PoissonFactorization, dense_data(Xs),
+         dict(aux_broadcast=True)))}
     plain_pool.shutdown(wait=False)
 
     t0 = time.perf_counter()
@@ -2150,7 +2578,7 @@ def main():
     del args, args64, codes, out_k, out_t
 
     def small_step_check(tag, cls, Xs, seed, plain_side, signed_vw=False,
-                         stratified=False, **kw):
+                         stratified=False, stl=False, **kw):
         """One ELBO step at a small size through every kernel (float32 on
         the card, both samplers fused) against ``plain_side``, the plain
         float64 model of the same arguments (CPU, unfused, the WH 'fast'
@@ -2158,7 +2586,9 @@ def main():
         ``signed_vw``: start v and w near 0 (see ``start_vw_near_zero``).
         ``stratified``: the step with antithetic='stratified' (K3's
         stratified stream; the Normal block's lattice from the generator,
-        since K6 takes no antithetic mode).
+        since K6 takes no antithetic mode). ``stl``: the STL step, which
+        takes the plain samplers: both sides get the same numpy draws, and
+        only K1 runs.
         Tolerances as phase 6's first small step: loss 1e-4, gradients
         1e-3 of the largest entry."""
         pair = {"kernel": cls(
@@ -2174,31 +2604,34 @@ def main():
                 p0[name]["loc"] = 0.05 * rng.standard_normal(
                     p0[name]["loc"].shape)
         anti = "stratified" if stratified else False
+        shared = numpy_draws(pair["plain"], seed) if stl else None
         before = read_launches()
         res_k = step_grads(
             pair["kernel"], p0,
-            {"counts": torch.as_tensor(Xs[:b_s], device=dev).float()}, None,
-            generator=torch.Generator(device=dev).manual_seed(seed),
-            antithetic=anti)
+            {"counts": torch.as_tensor(Xs[:b_s], device=dev).float()},
+            shared, generator=torch.Generator(device=dev).manual_seed(seed),
+            antithetic=anti, stl=stl)
         after = read_launches()
         ran = [k for k in kernels if after[k] == before[k] + 1]
         # K3 draws the InverseGamma block, which horshoe_plus=False lacks
         igs = (["fwd", "bwd"] if pair["kernel"]._surrogate._ig_names
-               else [])
-        check(ran == ["stats"] + igs + ([] if stratified
+               and not stl else [])
+        check(ran == ["stats"] + igs + ([] if stratified or stl
                                         else ["nfwd", "nbwd"]),
               f"{tag}: small step launched {ran}")
         check(pair["kernel"].fusion_active, f"{tag}: small step unfused")
         res_p = step_grads(pair["plain"], p0,
                            {"counts": torch.as_tensor(Xs[:b_s]).double()},
-                           philox_draws(pair["plain"], seed, dev, stratified),
-                           antithetic=anti)
+                           shared if stl else philox_draws(
+                               pair["plain"], seed, dev, stratified),
+                           antithetic=anti, stl=stl)
         e_loss = abs(res_k[0] - res_p[0]) / abs(res_p[0])
         e_grad = rel_max(res_k[1], res_p[1])
         check(e_loss < 1e-4, f"{tag}: small-step loss rel err {e_loss}")
         check(e_grad < 1e-3, f"{tag}: small-step grads rel err {e_grad}")
-        say(tag, f"small step (antithetic={anti!r}) through K1"
-                 f"{', K3' if igs else ''}{'' if stratified else ', K6'} vs "
+        say(tag, f"small step (antithetic={anti!r}, stl={stl}) through K1"
+                 f"{', K3' if igs else ''}"
+                 f"{'' if stratified or stl else ', K6'} vs "
                  f"float64 plain path on "
                  f"the same draws: loss {res_k[0]:.6f} vs "
                  f"{res_p[0]:.6f} (rel {e_loss:.2e}), grads rel-of-max "
@@ -2655,6 +3088,20 @@ def main():
                      24, plain["AE gaussian non-plus"].result(),
                      horshoe_plus=False, observation_model="normal",
                      scale_columns=False, scale_rows=False)
+
+    # ---- O: the engine options at the dense width
+    path_launches["O options"] = options_phase(dev, smi, zero_launches,
+                                               read_launches)
+    # one small step per option against the plain float64 path: STL on
+    # shared numpy draws (K1), aux_broadcast on the same Philox draws (K1,
+    # K3 at S=1, K6)
+    small_step_check("O stl", PoissonFactorization, Xs, 25,
+                     plain["poisson"].result(), stl=True)
+    small_step_check("O aux_broadcast", PoissonFactorization, Xs, 26,
+                     plain["O aux_broadcast"].result(), aux_broadcast=True)
+
+    # ---- CLI: the entry points at full width
+    path_launches["CLI"] = cli_phase(dev, smi, zero_launches, read_launches)
 
     # ---- 9: times (medians of 10 after warmup)
     B = 4096

@@ -14,11 +14,13 @@ setup(
     license="MIT",
     packages=find_packages(include=["spmf_tpu", "spmf_tpu.*",
                                     "spmf_tpu_torch", "spmf_tpu_torch.*"]),
-    # the native fast-ingest source (compiled on demand by data/native.py,
-    # numpy fallback when no toolchain) must ship with the package, and so
-    # must the CUDA sources the port builds with nvcc on first use
+    # the native fast-ingest sources (compiled on demand by each package's
+    # data/native.py, numpy fallback when no toolchain) must ship with the
+    # packages, and so must the CUDA sources the port builds with nvcc on
+    # first use
     package_data={"spmf_tpu.data": ["_native/*.cpp"],
-                  "spmf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "spmf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "spmf_tpu_torch.data": ["_native/*.cpp"]},
     scripts=[
         "bin/factorize_csv.py",
         "bin/factorize_scrnaseq_counts.py",

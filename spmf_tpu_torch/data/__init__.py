@@ -200,6 +200,8 @@ def as_data_factory(data) -> Callable[[], Iterable[dict]]:
 
 
 def load_csv_counts(path: str, dtype=np.float64) -> np.ndarray:
-    """Load a headerless CSV count matrix (the JAX package's numpy path;
-    its native C++ parser is not ported)."""
-    return np.loadtxt(path, delimiter=",", dtype=dtype, ndmin=2)
+    """Load a headerless CSV count matrix with the native C++ parser
+    (``data/native.py``), or numpy where it cannot build or parse."""
+    from spmf_tpu_torch.data.native import load_csv
+
+    return load_csv(path, dtype=dtype)

@@ -72,18 +72,16 @@ class SparseCounts:
 
     @classmethod
     def from_mtx(cls, path, transpose=False, extras=None):
-        """10x matrix.mtx (genes x cells) -> cells x genes when transpose.
-        Read with scipy (the JAX package's native parser is not ported)."""
-        from scipy.io import mmread
+        """10x matrix.mtx (genes x cells) -> cells x genes when transpose,
+        read by the native MatrixMarket parser (``data/native.py``; scipy
+        where it cannot build or parse)."""
+        from spmf_tpu_torch.data.native import load_mtx_coo
 
-        m = mmread(path).tocoo()
-        rows, cols = m.row.astype(np.int64), m.col.astype(np.int64)
-        shape = m.shape
+        rows, cols, vals, shape = load_mtx_coo(path)
         if transpose:
             rows, cols = cols, rows
             shape = (shape[1], shape[0])
-        return cls.from_coo(rows, cols, m.data.astype(np.float64), shape,
-                            extras)
+        return cls.from_coo(rows, cols, vals, shape, extras)
 
     # ----------------------------------------------------------- accessors
     def _positions(self, row_ids):

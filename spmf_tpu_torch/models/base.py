@@ -89,11 +89,13 @@ class BoundSurrogate:
         return self._model.surrogate_params
 
 
-#: fit() options of the JAX engine that this port does not carry yet
-_NOT_PORTED = ("remat_sampling", "param_sharding")
+#: fit() options of the JAX engine that this port does not carry yet (they
+#: belong to multi-device training)
+_NOT_PORTED = ("param_sharding",)
 _ENGINE = ("convergence_window", "decay_schedule", "elbo_estimator",
            "antithetic", "opt_state", "resume_from", "checkpoint_full_state",
-           "epoch_scan", "epoch_chunk", "prefetch", "profile_dir")
+           "epoch_scan", "epoch_chunk", "prefetch", "profile_dir",
+           "remat_sampling")
 
 
 class BayesianModel:

@@ -1,4 +1,6 @@
-"""Fast differentiable Gamma sampling (mirrors spmf_tpu/ops/gamma.py).
+"""Differentiable Gamma sampling (mirrors spmf_tpu/ops/gamma.py): the
+'fast' pathwise sampler below and the 'exact' rejection sampler
+(``exact_gamma``).
 
 Boosted Wilson–Hilferty: for shape a + B (B = 8 boost) the WH cube
 approximation draws G_{a+B} from one standard normal eps, and Stuart's
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lattice_shift", "lattice_uniform", "sample_gamma",
+__all__ = ["exact_gamma", "lattice_shift", "lattice_uniform", "sample_gamma",
            "wilson_hilferty_gamma"]
 
 _BOOST = 8
@@ -209,15 +211,36 @@ def wilson_hilferty_gamma(generator, concentration, boost: int = _BOOST,
     return _WHReduce.apply(a, eps, torch.log(u))
 
 
-def sample_gamma(generator, concentration, method: str = "fast",
+def exact_gamma(generator, concentration):
+    """Gamma(concentration, 1) by torch's rejection sampler, drawn from
+    ``generator``, with the implicit reparameterisation gradient of
+    ``torch._standard_gamma`` (one kernel each way, and capturable: no
+    loop reads a value on the host), floored at sqrt(tiny) as the JAX
+    package floors ``jax.random.gamma``. The draws match spmf_tpu's in
+    distribution only; the gradient at the same (a, x) agrees with
+    ``jax.lax.random_gamma_grad`` to about 1e-3 relative (a deliberate
+    difference: JAX's series and continued fraction loop on convergence)."""
+    a = concentration
+    g = torch._standard_gamma(a, generator=generator)
+    return torch.clamp_min(g, torch.finfo(g.dtype).tiny ** 0.5)
+
+
+def sample_gamma(generator, concentration, method: str = "exact",
                  antithetic: bool = False, draws=None):
-    """Gamma(concentration, 1). Only the pathwise 'fast' sampler is ported;
-    'exact' (rejection sampling with implicit gradients) raises.
-    ``antithetic``: False, True or 'stratified' (see
-    ``wilson_hilferty_gamma``)."""
-    if method != "fast":
-        raise NotImplementedError(
-            f"gamma_sampler={method!r} is not ported to spmf_tpu_torch yet "
-            "(use 'fast' or 'fused')")
-    return wilson_hilferty_gamma(generator, concentration,
-                                 antithetic=antithetic, draws=draws)
+    """Gamma(concentration, 1) with selectable gradient machinery:
+    - 'exact': rejection sampling with implicit reparameterisation
+      gradients (``exact_gamma``);
+    - 'fast': the boosted Wilson–Hilferty pathwise sampler above.
+    ``antithetic`` ('fast' only): False, True or 'stratified' (see
+    ``wilson_hilferty_gamma``); 'exact' draws by rejection, which has no
+    base randomness to mirror."""
+    if method == "fast":
+        return wilson_hilferty_gamma(generator, concentration,
+                                     antithetic=antithetic, draws=draws)
+    if method != "exact":
+        raise ValueError(f"unknown gamma sampler {method!r}")
+    if antithetic:
+        raise ValueError("antithetic sampling requires gamma_sampler "
+                         "'fast' or 'fused' (rejection sampling has no "
+                         "pathwise base draws to mirror)")
+    return exact_gamma(generator, concentration)

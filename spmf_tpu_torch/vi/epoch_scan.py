@@ -82,13 +82,18 @@ def _launch_counters():
 class _Replay:
     """One captured step: ``replay()`` launches the graph and adds the
     kernel launches the capture recorded to the wrappers' counters (their
-    Python increments ran once, at capture, where nothing was launched)."""
+    Python increments ran once, at capture, where nothing was launched).
+    ``before``: called before each replay (the rematerialised draw's
+    generator replicas take the engine generator's state there)."""
 
-    def __init__(self, graph, launches):
+    def __init__(self, graph, launches, before=None):
         self.graph = graph
         self.launches = launches
+        self.before = before
 
     def __call__(self):
+        if self.before is not None:
+            self.before()
         self.graph.replay()
         for (d, k), n in self.launches:
             d[k] += n
@@ -210,15 +215,18 @@ class EpochScan:
     loss as a 0-d tensor. ``state()``: the tensors the step updates in
     place (parameters, Adam's moments and count), which the warm-up before
     a capture restores. ``generator``: the engine's generator, which draws
-    the permutations and the step's samples. Batches follow spmf_tpu's
+    the permutations and the step's samples; ``remat``: the step's
+    ``RematDraw`` (vi/remat.py) when it rematerialises its draw, whose
+    generator replicas each capture registers. Batches follow spmf_tpu's
     scan: a dense remainder batch is trained; the sparse layouts drop it,
     and only with ``drop_remainder=True``; the blocked layout needs
     ``bs % block_rows == 0``; with no full batch the remainder is the one
     batch."""
 
     def __init__(self, ds, step: Callable, state: Callable[[], List],
-                 generator, dtype, device, capture: bool):
+                 generator, dtype, device, capture: bool, remat=None):
         self.ds = ds
+        self.remat = remat
         self.step = step
         self.state = state
         self.generator = generator
@@ -347,8 +355,11 @@ class EpochScan:
         counters = _launch_counters()
         before = [d[k] for d, k in counters]
         graph = torch.cuda.CUDAGraph()
+        remat = self.remat if draws else None
         if draws:
             graph.register_generator_state(self.generator)
+        if remat is not None:
+            remat.register(graph)
         try:
             with torch.cuda.graph(graph):
                 fn()
@@ -361,7 +372,8 @@ class EpochScan:
             if d[k] != n0:
                 launches.append(((d, k), d[k] - n0))
                 d[k] = n0      # capture launches nothing
-        return _Replay(graph, launches)
+        return _Replay(graph, launches,
+                       before=remat.sync if remat is not None else None)
 
     def _run(self, kind, fn, tensors, draws=True):
         """Run ``fn``: eagerly, or on the card as the graph ``kind``,

@@ -41,6 +41,7 @@ import torch
 
 from spmf_tpu_torch.data.prefetch import prefetch_batches
 from spmf_tpu_torch.vi import epoch_scan as _scan
+from spmf_tpu_torch.vi.remat import RematDraw
 from spmf_tpu_torch.utils.checkpoint import (
     load_fit_state,
     save_fit_state,
@@ -174,15 +175,20 @@ def _restore(tensors, snapshot):
 
 def elbo_loss(surrogate, energy_fn, params, batch, generator, sample_size,
               prior_weight=1.0, sample_batches=1, antithetic=False,
-              draws=None):
+              draws=None, draw=None):
     """-ELBO / rows of one batch, estimated from ``sample_size`` x
     ``sample_batches`` surrogate samples (``draws``: injected base draws,
-    tests only)."""
+    tests only). ``draw(params, j) -> (samples, logq)``: the engine's draw
+    of sample batch j (the STL and rematerialised forms), in place of the
+    surrogate's plain ``sample_and_log_prob``."""
     total = 0.0
-    for _ in range(sample_batches):
-        samples, logq = surrogate.sample_and_log_prob(
-            params, generator, (sample_size,), antithetic=antithetic,
-            draws=draws)
+    for j in range(sample_batches):
+        if draw is None:
+            samples, logq = surrogate.sample_and_log_prob(
+                params, generator, (sample_size,), antithetic=antithetic,
+                draws=draws)
+        else:
+            samples, logq = draw(params, j)
         lp = energy_fn(batch, samples, prior_weight)
         total = total + torch.mean(lp - logq)
     return -(total / sample_batches) / _batch_rows(batch)
@@ -231,6 +237,7 @@ def fit_surrogate_posterior(
     epoch_chunk: Optional[int] = None,
     prefetch: int = 2,
     profile_dir: Optional[str] = None,
+    remat_sampling: Optional[bool] = None,
 ) -> FitResult:
     """Run minibatch ADVI. The displayed per-batch loss is -ELBO / rows,
     the ELBO estimated by ``sample_size`` x ``sample_batches`` samples;
@@ -259,14 +266,25 @@ def fit_surrogate_posterior(
     the device (``vi/epoch_scan.py``): one permutation drawn from the
     engine's generator, then per batch a gather and the training step, on
     the card captured once in a CUDA graph and replayed. True raises on
-    any other source; False keeps the general loop. ``epoch_chunk``: 1 or
-    None runs single epochs; K > 1 epochs a dispatch, with the control flow
-    on the device, is not ported yet and raises."""
+    any other source; False keeps the general loop. ``epoch_chunk``: K > 1
+    runs K epochs a dispatch on the scan path, with the best / plateau /
+    divergence decisions made on the device after each epoch and one fetch
+    a chunk; None (auto) runs chunks of 8 on a dense device dataset once
+    two single epochs took a second or less each and 24 epochs remain.
+
+    ``elbo_estimator``: 'standard', or 'stl' ("sticking the landing",
+    Roeder et al. 2017): log q is evaluated at the parameters detached, so
+    only the pathwise sample term carries gradient. It drops the score
+    term (zero in expectation) and its variance; unbiased, and opt-in
+    (spmf_tpu measured it converging slower on the parity config, where
+    the score term is a control variate for the heavy-tailed horseshoe
+    auxiliaries). It forces the plain samplers. ``remat_sampling``: draw
+    the samples without keeping their graph and draw them again in the
+    backward from the same generator state (``vi/remat.py``); None turns it
+    on unless the surrogate's sampler is 'fused', whose replay backward
+    keeps no residuals already (rematerialising it re-runs the kernel)."""
     say = print if verbose else (lambda *a, **k: None)
-    if elbo_estimator == "stl":
-        raise NotImplementedError(
-            "elbo_estimator='stl' is not ported to spmf_tpu_torch yet")
-    if elbo_estimator != "standard":
+    if elbo_estimator not in ("standard", "stl"):
         raise ValueError(f"unknown elbo_estimator {elbo_estimator!r}")
     if decay_schedule == "reference":
         # the reference engine's observed plateau decays are ~x0.93
@@ -348,10 +366,24 @@ def fit_surrogate_posterior(
                       and device.type == "cuda")
     opt_tensors = _adam_tensors(optimizer)
 
+    def draw(p, j=0):
+        # STL: the density's parameters are the live ones detached, the
+        # sample path stays live
+        logq_params = ({n: {k: t.detach() for k, t in sub.items()}
+                        for n, sub in p.items()}
+                       if elbo_estimator == "stl" else None)
+        return surrogate.sample_and_log_prob(
+            p, generator, (sample_size,), antithetic=antithetic,
+            logq_params=logq_params)
+
+    if remat_sampling is None:
+        remat_sampling = getattr(surrogate, "gamma_sampler", "") != "fused"
+    remat = RematDraw(draw, generator) if remat_sampling else None
+
     def _loss(batch):
         return elbo_loss(surrogate, energy_fn, params, batch, generator,
                          sample_size, prior_weight, sample_batches,
-                         antithetic)
+                         antithetic, draw=draw if remat is None else remat)
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
@@ -499,7 +531,7 @@ def fit_surrogate_posterior(
     if scan_ds is not None:
         scan = _scan.EpochScan(
             scan_ds, step, lambda: state, generator, dtype, device,
-            capture=device.type == "cuda" and _scan._CAPTURE)
+            capture=device.type == "cuda" and _scan._CAPTURE, remat=remat)
     chunk_size = epoch_chunk if explicit_chunk else 0
     chunk_used = 0
     decide = None          # the chunk path's EpochDecisions

@@ -5,8 +5,9 @@ Parameters are plain dicts of tensors ({name: {"loc", "raw_scale"}} for
 Normal surrogates, {name: {"raw_concentration", "raw_scale"}} for
 InverseGamma ones), the same leaf names as the JAX pytree. Randomness comes
 from an explicit ``torch.Generator``. Draw order within
-``sample_and_log_prob`` follows the JAX key split: the Normal block first,
-then the InverseGamma block.
+``sample_and_log_prob`` follows the JAX key split: the regular Normal
+block, the broadcast Normals, the regular InverseGamma block, then the
+broadcast InverseGammas.
 """
 from __future__ import annotations
 
@@ -136,22 +137,29 @@ class SurrogatePosterior:
 
     Base samples are drawn with ONE flattened draw for all Normal
     surrogates and ONE IG-block draw for all InverseGamma surrogates.
-    ``gamma_sampler``: 'fast' (boosted Wilson–Hilferty from generator
-    draws, spmf_tpu_torch.ops.gamma) or 'fused' (the fused IG sampler:
-    the CUDA kernel for CUDA tensors, its Philox twin on the CPU).
-    ``fused_normals`` (attribute, off by default): with 'fused', draw the
-    Normal block through the fused Normal sampler too (ops.fused_normal)."""
+    ``gamma_sampler``: 'exact' (rejection sampling with implicit
+    reparameterisation gradients), 'fast' (boosted Wilson–Hilferty from
+    generator draws; both in spmf_tpu_torch.ops.gamma) or 'fused' (the
+    fused IG sampler: the CUDA kernel for CUDA tensors, its Philox twin on
+    the CPU). ``fused_normals`` (attribute, off by default): with 'fused',
+    draw the Normal block through the fused Normal sampler too
+    (ops.fused_normal).
+
+    ``broadcast_names``: variables sampled ONCE per step and shared across
+    the S ELBO samples (values without the sample axis; their log q counted
+    in every sample). Marginally each (main_s, aux) pair is a draw from the
+    full mean-field q, so the ELBO estimate stays unbiased; the S terms are
+    correlated through the shared draw."""
 
     #: opt-in for the fused Normal sampler (see ``_fused_normals_ok``)
     fused_normals = False
 
     def __init__(self, surrogates: Dict[str, TransformedSurrogate],
-                 gamma_sampler: str = "fast"):
-        if gamma_sampler not in ("fast", "fused"):
-            raise NotImplementedError(
-                f"gamma_sampler={gamma_sampler!r} is not ported to "
-                "spmf_tpu_torch yet (use 'fast' or 'fused')")
+                 gamma_sampler: str = "exact", broadcast_names=()):
+        if gamma_sampler not in ("exact", "fast", "fused"):
+            raise ValueError(f"unknown gamma_sampler {gamma_sampler!r}")
         self.gamma_sampler = gamma_sampler
+        self.broadcast_names = frozenset(broadcast_names)
         self.surrogates = dict(surrogates)
         self._normal_names = [n for n, s in self.surrogates.items()
                               if isinstance(s.base, TrainableNormal)]
@@ -244,8 +252,8 @@ class SurrogatePosterior:
         return values
 
     def _sample_normals(self, names, params, generator, sample_shape,
-                        antithetic=False, eps=None):
-        if (eps is None and not antithetic
+                        logq_params=None, antithetic=False, eps=None):
+        if (logq_params is None and eps is None and not antithetic
                 and self._fused_normals_ok(names, sample_shape)):
             return self._sample_normals_fused(names, params, generator,
                                               sample_shape)
@@ -278,9 +286,11 @@ class SurrogatePosterior:
                 dtype=self.dtype, device=self.device)
         # eps-form logq: at x = loc + scale*eps the mean-field normal density
         # is exactly -0.5 eps^2 - log(scale) - 0.5 log(2 pi) per coordinate,
-        # gradients included (needs fully summed events)
-        eps_logq = all(self.surrogates[n].event_ndims
-                       == len(self.surrogates[n].shape) for n in names)
+        # gradients included (needs the live parameters as the density's and
+        # fully summed events)
+        eps_logq = logq_params is None and all(
+            self.surrogates[n].event_ndims == len(self.surrogates[n].shape)
+            for n in names)
         scale_logsum = 0.0
         off = 0
         for n in names:
@@ -297,8 +307,16 @@ class SurrogatePosterior:
                     logq = logq - _sum_event(
                         s.bijector.forward_log_det_jacobian(x), s.event_ndims)
             else:
+                # STL (logq_params): the density's parameters come from the
+                # stopped tree while the sample path stays live, evaluated
+                # here in pre-bijector space (a constrained-space inverse
+                # would clamp softplus-floored samples)
+                loc_q, scale_q = p["loc"], scale
+                if logq_params is not None:
+                    loc_q = logq_params[n]["loc"]
+                    scale_q = _softplus.forward(logq_params[n]["raw_scale"])
                 logq = logq + _sum_event(
-                    tfd.Normal(p["loc"], scale).log_prob(x), s.event_ndims
+                    tfd.Normal(loc_q, scale_q).log_prob(x), s.event_ndims
                 ) - _sum_event(s.bijector.forward_log_det_jacobian(x),
                                s.event_ndims)
             values[n] = s.bijector.forward(x)
@@ -340,10 +358,11 @@ class SurrogatePosterior:
             (logq if sample_shape else logq[0])
 
     def _sample_igs(self, names, params, generator, sample_shape,
-                    antithetic=False, draws=None):
+                    logq_params=None, antithetic=False, draws=None):
         from spmf_tpu_torch.ops.gamma import sample_gamma
 
-        if draws is None and self._fused_igs_ok(names, sample_shape):
+        if (logq_params is None and draws is None
+                and self._fused_igs_ok(names, sample_shape)):
             return self._sample_igs_fused(names, params, generator,
                                           sample_shape, antithetic=antithetic)
         values, logq = {}, 0.0
@@ -352,8 +371,10 @@ class SurrogatePosterior:
             for n in names])
         conc_b = conc_flat.expand(sample_shape + conc_flat.shape)
         # 'fused' degrades to the same WH sampler where the kernel's rules
-        # do not hold (float64, multi-dim sample shapes, injected draws)
-        g = sample_gamma(generator, conc_b, "fast", antithetic=antithetic,
+        # do not hold (float64, multi-dim sample shapes, injected draws, STL)
+        method = ("fast" if self.gamma_sampler == "fused" or draws is not None
+                  else self.gamma_sampler)
+        g = sample_gamma(generator, conc_b, method, antithetic=antithetic,
                          draws=draws)
         off = 0
         for n in names:
@@ -364,6 +385,9 @@ class SurrogatePosterior:
             gs = g[..., off:off + sz].reshape(sample_shape + s.shape)
             off += sz
             x = b / gs
+            if logq_params is not None:  # STL: the stopped parameters
+                a = _softplus.forward(logq_params[n]["raw_concentration"])
+                b = _softplus.forward(logq_params[n]["raw_scale"])
             logq = logq + _sum_event(
                 tfd.InverseGamma(a, b).log_prob(x), s.event_ndims
             ) - _sum_event(s.bijector.forward_log_det_jacobian(x),
@@ -372,36 +396,57 @@ class SurrogatePosterior:
         return values, logq
 
     def sample_and_log_prob(self, params, generator, sample_shape=(),
-                            antithetic=False, draws=None):
+                            antithetic=False, draws=None,
+                            apply_broadcast=True, logq_params=None):
         """Joint reparameterized sample and log q. ``antithetic``: mirror
         the base draws across the (1-d, even) sample axis; 'stratified'
         also lattice-couples the pairs (``ops.gamma.lattice_uniform``, and
         the stratified stream of the fused IG sampler).
 
+        ``apply_broadcast``: draw the ``broadcast_names`` once, at sample
+        shape (), as four blocks in the JAX order (regular Normals,
+        broadcast Normals, regular IGs, broadcast IGs); False draws every
+        variable per sample. ``logq_params``: a second parameter tree the
+        DENSITY is evaluated with while the sample path uses ``params``
+        (the STL estimator passes the parameters detached); it forces the
+        plain samplers, whose densities stay in pre-bijector space.
+
         ``draws`` (tests): a dict replacing the generator's draws —
-        ``normal_eps`` (sample_shape + (total normal,)), and ``ig_eps`` /
+        ``normal_eps`` (sample_shape + (total normal,)), ``ig_eps`` /
         ``ig_u`` (sample_shape + (total IG,), and (8,) + that) for the
-        'fast' IG sampler."""
+        'fast' IG sampler, and ``bc_normal_eps`` / ``bc_ig_eps`` /
+        ``bc_ig_u`` for the broadcast blocks (no sample axis)."""
         sample_shape = tuple(sample_shape)
         if antithetic and (len(sample_shape) != 1 or sample_shape[0] % 2):
             raise ValueError("antithetic sampling needs a 1-d even sample "
                              f"shape, got {sample_shape}")
         draws = draws or {}
+        bset = (self.broadcast_names if apply_broadcast and sample_shape
+                else frozenset())
+        normals = [n for n in self._normal_names if n not in bset]
+        bc_normals = [n for n in self._normal_names if n in bset]
+        igs = [n for n in self._ig_names if n not in bset]
+        bc_igs = [n for n in self._ig_names if n in bset]
+
+        def ig_draws(prefix):
+            if prefix + "ig_eps" in draws:
+                return draws[prefix + "ig_eps"], draws[prefix + "ig_u"]
+            return None
+
         values, logq = {}, 0.0
-        if self._normal_names:
-            v, lp = self._sample_normals(
-                self._normal_names, params, generator, sample_shape,
-                antithetic, eps=draws.get("normal_eps"))
-            values.update(v)
-            logq = logq + lp
-        if self._ig_names:
-            ig_draws = None
-            if "ig_eps" in draws:
-                ig_draws = (draws["ig_eps"], draws["ig_u"])
-            v, lp = self._sample_igs(self._ig_names, params, generator,
-                                     sample_shape, antithetic, ig_draws)
-            values.update(v)
-            logq = logq + lp
+        for names, fn, shape, anti, inject in (
+                (normals, self._sample_normals, sample_shape, antithetic,
+                 draws.get("normal_eps")),
+                (bc_normals, self._sample_normals, (), False,
+                 draws.get("bc_normal_eps")),
+                (igs, self._sample_igs, sample_shape, antithetic,
+                 ig_draws("")),
+                (bc_igs, self._sample_igs, (), False, ig_draws("bc_"))):
+            if names:
+                v, lp = fn(names, params, generator, shape, logq_params,
+                           anti, inject)
+                values.update(v)
+                logq = logq + lp
         logq = torch.as_tensor(logq, dtype=self.dtype, device=self.device)
         return values, torch.broadcast_to(logq, sample_shape)
 
@@ -422,7 +467,9 @@ class SurrogatePosterior:
                               device=s.base.device)
                for n, s in self.surrogates.items()}
         for _ in range(n_chunks):
-            values, _ = self.sample_and_log_prob(params, generator, (chunk,))
+            # broadcast off: calibration means need independent draws
+            values, _ = self.sample_and_log_prob(params, generator, (chunk,),
+                                                 apply_broadcast=False)
             for n, v in values.items():
                 out[n] = out[n] + torch.mean(v, dim=0) / n_chunks
         return out

@@ -120,15 +120,19 @@ def test_engine_control_flow_matches_jax(name, capsys):
 
 
 def test_unported_fit_options_raise(tmp_path):
-    """The options still to port raise by name; profile_dir, prefetch and
+    """The option still to port (param_sharding, multi-device) raises by
+    name; remat_sampling, elbo_estimator='stl', profile_dir, prefetch and
     epoch_chunk=4 run."""
     X = counts(32, 6)
     host = ArrayDataset({"counts": X}).batch(16)
     m = PoissonFactorization(latent_dim=2, feature_dim=6, dtype="float64",
                              device="cpu", data=host)
+    with pytest.raises(NotImplementedError, match="param_sharding"):
+        m.fit(num_steps=1, sample_size=2, verbose=False,
+              param_sharding="replicated")
     for kw in (dict(remat_sampling=True), dict(elbo_estimator="stl")):
-        with pytest.raises(NotImplementedError):
-            m.fit(num_steps=1, sample_size=2, verbose=False, **kw)
+        assert np.isfinite(m.fit(num_steps=1, sample_size=2, verbose=False,
+                                 **kw)).all()
     # epoch_scan is ported: on a host source it raises spmf_tpu's ValueError
     with pytest.raises(ValueError, match="epoch_scan"):
         m.fit(num_steps=1, sample_size=2, verbose=False, epoch_scan=True)

@@ -79,8 +79,13 @@ def test_port_antithetic_draws_mirror_exactly():
 
 
 def test_odd_antithetic_and_exact_sampler_raise():
+    """An odd antithetic sample axis raises; the exact sampler draws, and
+    refuses antithetic draws with spmf_tpu's ValueError."""
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(ValueError):
         tgamma.wilson_hilferty_gamma(gen, torch.ones(3, 4), antithetic=True)
-    with pytest.raises(NotImplementedError):
-        tgamma.sample_gamma(gen, torch.ones(4), method="exact")
+    g = tgamma.sample_gamma(gen, torch.ones(4), method="exact")
+    assert g.shape == (4,) and bool((g > 0).all())
+    with pytest.raises(ValueError, match="antithetic"):
+        tgamma.sample_gamma(gen, torch.ones(2, 4), method="exact",
+                            antithetic=True)

@@ -629,11 +629,11 @@ def test_encode_batched_matches_encode_on_the_card(cuda):
 
 # ------------------------------------------------ the captured scan path
 def _scan_fit(dev, capture, dtype, monkeypatch, n=250, bs=100, d=300, k=4,
-              epochs=6, fit_kw=None, **model_kw):
+              epochs=6, fit_kw=None, fused_normals=False, **model_kw):
     """A fit over a DeviceArrayDataset through the scan path, captured in
     CUDA graphs or run eagerly on the card: 2 full batches and a 50-row
     remainder, patience=1 and a learning rate that forces plateau
-    restores."""
+    restores; ``fused_normals`` sets the surrogate's opt-in."""
     from spmf_tpu_torch import PoissonFactorization
     from spmf_tpu_torch.data import DeviceArrayDataset
     from spmf_tpu_torch.vi import epoch_scan
@@ -646,6 +646,7 @@ def _scan_fit(dev, capture, dtype, monkeypatch, n=250, bs=100, d=300, k=4,
     m = PoissonFactorization(latent_dim=k, feature_dim=d, dtype=dtype,
                              device=dev, u_tau_scale=1.0 / np.sqrt(n * d),
                              data=ds, **model_kw)
+    m._surrogate.fused_normals = fused_normals
     losses = m.fit(num_steps=epochs, learning_rate=2.0, sample_size=4,
                    patience=1, rel_tol=None, verbose=False, seed=5,
                    **(fit_kw or {}))
@@ -806,3 +807,95 @@ def test_prefetch_on_the_card_equals_inline(cuda):
         assert m.last_fit.extras["epoch_scan"] is False
         runs.append((m, losses))
     _assert_same_fit(*runs)
+
+
+# ------------------------------- engine options: remat, exact, broadcast, stl
+@pytest.mark.parametrize("dtype, model_kw, fused_normals", [
+    ("float64", dict(fused_likelihood=False, gamma_sampler="fast"), False),
+    # through K3, and through K3 and K6 (both deterministic)
+    ("float32", dict(fused_likelihood=False, gamma_sampler="fused"), False),
+    ("float32", dict(fused_likelihood=False, gamma_sampler="fused"), True)])
+def test_captured_remat_equals_eager_without_remat(cuda, monkeypatch, dtype,
+                                                   model_kw, fused_normals):
+    """remat_sampling=True on the captured scan redraws each step's samples
+    in the backward from generator replicas registered with the graph: the
+    fit equals remat_sampling=False on the eager scan bit for bit (losses,
+    parameters, learning rate), across restores and a remainder batch."""
+    remat = _scan_fit(cuda, True, dtype, monkeypatch,
+                      fit_kw=dict(remat_sampling=True),
+                      fused_normals=fused_normals, **model_kw)
+    plain = _scan_fit(cuda, False, dtype, monkeypatch,
+                      fit_kw=dict(remat_sampling=False),
+                      fused_normals=fused_normals, **model_kw)
+    assert np.isfinite(remat[1]).all() and remat[0].last_fit.learning_rate < 2
+    _assert_same_fit(remat, plain)
+
+
+def test_exact_sampler_draws_and_gradient_on_the_card(cuda):
+    """sample_gamma(method='exact') on the card: the draws' KS distance
+    from Gamma(a) (scipy) and their implicit gradient against the float64
+    formula at the same (a, x)."""
+    from scipy import stats
+
+    from spmf_tpu_torch.ops.gamma import sample_gamma
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for a in (0.3, 1.0, 4.0):
+        conc = torch.full((200_000,), a, device=cuda, requires_grad=True)
+        x = sample_gamma(gen, conc, "exact")
+        w = torch.rand(x.shape, generator=gen, device=cuda)
+        (x * w).sum().backward()
+        xs = x.detach().double().cpu().numpy()
+        assert stats.kstest(xs[:50_000], "gamma", args=(a,)).statistic < 0.01
+        ref = w.double().cpu() * torch._standard_gamma_grad(
+            conc.detach().double().cpu(), x.detach().double().cpu())
+        np.testing.assert_allclose(conc.grad.double().cpu().numpy(),
+                                   ref.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+def test_aux_broadcast_draws_k3_at_one_sample(cuda):
+    """aux_broadcast=True on the card: the IG block is drawn once a step
+    through K3 at S=1 (values without the sample axis), the Normal block
+    per sample, and one training step runs through K3f and K3b."""
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import ArrayDataset
+
+    n, d = 256, 300
+    X = np.random.default_rng(7).poisson(1.0, (n, d))
+    m = PoissonFactorization(latent_dim=4, feature_dim=d, device=cuda,
+                             dtype="float32", aux_broadcast=True,
+                             u_tau_scale=1.0 / np.sqrt(n * d),
+                             data=ArrayDataset({"counts": X}).batch(128))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    values, lq = m._surrogate.sample_and_log_prob(m.surrogate_params, gen,
+                                                  (8,))
+    assert values["u_eta"].shape == (d, 4) and values["u"].shape == (8, d, 4)
+    assert lq.shape == (8,)
+    for k in tig.LAUNCHES:
+        tig.LAUNCHES[k] = 0
+    losses = m.fit(num_steps=2, sample_size=8, verbose=False, rel_tol=None)
+    assert np.isfinite(losses).all()
+    assert tig.LAUNCHES["fwd"] > 0 and tig.LAUNCHES["bwd"] > 0
+
+
+def test_stl_fit_on_the_card_skips_the_samplers(cuda):
+    """elbo_estimator='stl' forces the plain samplers: a float32 'fused'
+    model trains through K1 and no step launches K3 (its backward K3b never
+    runs; the posterior means after the fit draw through K3f)."""
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import ArrayDataset
+
+    n, d = 256, 300
+    X = np.random.default_rng(7).poisson(1.0, (n, d))
+    m = PoissonFactorization(latent_dim=4, feature_dim=d, device=cuda,
+                             dtype="float32",
+                             u_tau_scale=1.0 / np.sqrt(n * d),
+                             data=ArrayDataset({"counts": X}).batch(128))
+    for d_ in (tig.LAUNCHES, tfp.LAUNCHES):
+        for k in d_:
+            d_[k] = 0
+    losses = m.fit(num_steps=2, sample_size=8, verbose=False, rel_tol=None,
+                   elbo_estimator="stl")
+    assert np.isfinite(losses).all()
+    assert tig.LAUNCHES["bwd"] == 0 and tfp.LAUNCHES["stats"] > 0

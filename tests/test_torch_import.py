@@ -12,7 +12,7 @@ SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, files in os.walk(PKG) if "_build" not in d.split(os.sep)
     for f in files if f.endswith(".py")
-)
+) + ["chip_smoke.py"]
 
 
 def test_import_leaves_jax_out_and_builds_nothing():
@@ -25,11 +25,17 @@ def test_import_leaves_jax_out_and_builds_nothing():
         "import spmf_tpu_torch.models.gaussian, spmf_tpu_torch.models.legacy\n"
         "import spmf_tpu_torch.ops.sparse_encode, spmf_tpu_torch.data.sparse\n"
         "import spmf_tpu_torch.vi, spmf_tpu_torch.vi.waic, spmf_tpu_torch.utils\n"
+        "import spmf_tpu_torch.vi.remat, spmf_tpu_torch.data.native\n"
+        "import spmf_tpu_torch.cli.factorize_csv\n"
+        "import spmf_tpu_torch.cli.preprocess_scrnaseq_counts\n"
+        "import spmf_tpu_torch.cli.factorize_scrnaseq_counts\n"
+        "from spmf_tpu_torch.data import native\n"
         "from spmf_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spmf_tpu'))\n"
         "assert not bad, bad\n"
         "assert not _build._LIBS and not _build.BUILD_SECONDS\n"
+        "assert native._lib is None and not native.BUILD_SECONDS\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -89,11 +89,16 @@ def test_defaults_and_unported_options():
     nonplus = PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
                                    horshoe_plus=False)
     assert list(nonplus.surrogate_params) == ["v", "w", "s", "u"]
-    for kw in (dict(aux_broadcast=True), dict(mesh=object()),
-               dict(gamma_sampler="exact")):
-        with pytest.raises(NotImplementedError):
-            PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
-                                 **kw)
+    # aux_broadcast and the exact sampler are ported; a mesh still refuses
+    bc = PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
+                              aux_broadcast=True, gamma_sampler="exact")
+    assert bc._surrogate.gamma_sampler == "exact"
+    assert bc._surrogate.broadcast_names == {
+        "u_eta", "u_tau", "s_eta", "s_tau", "u_eta_a", "u_tau_a", "s_eta_a",
+        "s_tau_a"}
+    with pytest.raises(NotImplementedError):
+        PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
+                             mesh=object())
     # COO batches are ported: on the CPU they take the COO energy
     parts = m.unormalized_log_prob_parts(
         {"coo_rows": np.array([0, 1, 1]), "coo_cols": np.array([0, 2, 4]),

@@ -189,6 +189,7 @@ def test_surrogate_with_jax_stratified_draws_matches_jax():
 # ------------------------------------- tests/test_antithetic.py on the port
 def _mixed_surrogate():
     f64 = dict(dtype=torch.float64, device="cpu")
+    # the pathwise sampler, which antithetic draws need ('exact' refuses)
     return tsur.SurrogatePosterior({
         "a": tsur.TransformedSurrogate(tsur.TrainableNormal(
             1.5 * np.ones((3, 2)), 0.7 * np.ones((3, 2)), 2, **f64),
@@ -199,7 +200,7 @@ def _mixed_surrogate():
         "t": tsur.TransformedSurrogate(tsur.TrainableInverseGamma(
             5.0 * np.ones((5,)), 1.0 * np.ones((5,)), 1, **f64),
             tb.Softplus()),
-    })
+    }, gamma_sampler="fast")
 
 
 def test_stratified_marginals_match_independent():
@@ -288,7 +289,7 @@ def test_eps_form_logq_matches_per_variable_density(antithetic):
     log q and parameter gradients at 1e-10."""
     sur = _mixed_surrogate()
     del sur.surrogates["t"]
-    sur = tsur.SurrogatePosterior(sur.surrogates)
+    sur = tsur.SurrogatePosterior(sur.surrogates, gamma_sampler="fast")
     params = {k: {kk: t.clone().requires_grad_(True) for kk, t in sub.items()}
               for k, sub in sur.init().items()}
     values, lq = sur.sample_and_log_prob(

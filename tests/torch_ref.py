@@ -82,15 +82,22 @@ def random_samples(model, sample_size=3, seed=4):
 def jax_draws(model, key, sample_size, antithetic=False):
     """The base draws JAX's SurrogatePosterior.sample_and_log_prob makes from
     ``key`` with gamma_sampler='fast': the 5-way split, one flattened
-    normal for the Normal block, and wilson_hilferty_gamma's normal and
-    uniforms for the IG block (ops/gamma.py), in any antithetic mode."""
+    normal for the regular Normal block, and wilson_hilferty_gamma's normal
+    and uniforms for the regular IG block (ops/gamma.py), in any antithetic
+    mode; with broadcast names, the broadcast Normals' normal from ``kbn``
+    and the broadcast IGs' WH draws from ``kbg``, at sample shape ()."""
     from spmf_tpu.ops.gamma import _mirror_base_draws
 
     sur = model._surrogate
     dtype = model.dtype
-    kn, kg, _, _, _ = jax.random.split(key, 5)
-    tot_n = sum(sur._sizes[n] for n in sur._normal_names)
-    tot_g = sum(sur._sizes[n] for n in sur._ig_names)
+    bset = sur.broadcast_names
+    kn, kg, _, kbn, kbg = jax.random.split(key, 5)
+
+    def total(names, keep):
+        return sum(sur._sizes[n] for n in names if (n in bset) == keep)
+
+    tot_n = total(sur._normal_names, False)
+    tot_g = total(sur._ig_names, False)
     shape = (sample_size, tot_g)
     if antithetic:
         if antithetic == "stratified":
@@ -107,12 +114,23 @@ def jax_draws(model, key, sample_size, antithetic=False):
             kg, shape, dtype, 8, stratified=antithetic == "stratified")
     else:
         normal_eps = jax.random.normal(kn, (sample_size, tot_n), dtype)
-        kn2, ku = jax.random.split(kg)
-        ig_eps = jax.random.normal(kn2, shape, dtype)
-        ig_u = jax.random.uniform(ku, (8,) + shape, dtype,
-                                  minval=jnp.finfo(dtype).tiny, maxval=1.0)
-    return {"normal_eps": np.asarray(normal_eps), "ig_eps": np.asarray(ig_eps),
-            "ig_u": np.asarray(ig_u)}
+        ig_eps, ig_u = _wh_draws(kg, shape, dtype)
+    out = {"normal_eps": np.asarray(normal_eps), "ig_eps": np.asarray(ig_eps),
+           "ig_u": np.asarray(ig_u)}
+    if bset:
+        out["bc_normal_eps"] = np.asarray(jax.random.normal(
+            kbn, (total(sur._normal_names, True),), dtype))
+        bc_eps, bc_u = _wh_draws(kbg, (total(sur._ig_names, True),), dtype)
+        out["bc_ig_eps"], out["bc_ig_u"] = np.asarray(bc_eps), np.asarray(bc_u)
+    return out
+
+
+def _wh_draws(key, shape, dtype):
+    """wilson_hilferty_gamma's normal and 8 boost uniforms from ``key``."""
+    kn, ku = jax.random.split(key)
+    return (jax.random.normal(kn, shape, dtype),
+            jax.random.uniform(ku, (8,) + shape, dtype,
+                               minval=jnp.finfo(dtype).tiny, maxval=1.0))
 
 
 def torch_params(tree_np, dtype):

@@ -135,6 +135,30 @@ Phases, each printing lines; any failure raises and exits non-zero:
              parse and preprocessing times, ms/step, encode_batched rows/s,
              launches; every artifact of tests/test_cli.py, and the CSV
              run's model file reloaded with encode bit-equal
+  M mesh     multi-rank training (spmf_tpu_torch.parallel): the
+             one-process arms first, then this script run twice more with
+             --mesh-rank as two gloo ranks on card 0 (a rank that exits
+             non-zero or writes no result fails the run), then once with
+             --nccl-check. (a) at phase 3's inputs, on dp=2 and fp=2: K1 /
+             K2 on each rank's tile with the statistics combined over the
+             ranks and K4 summed over fp, against the float64 twin on the
+             full tile; K3 on the fp slices (seed base + fp index) bit for
+             bit against per-slice calls. (b) at the dense width (B=4096,
+             16,384 rows resident, 3 epochs): one process (twice, for the
+             spread of K1's atomic sums), dp=2, fp=2 with 'fused' (the
+             ranks' traces bit for bit, decreasing) and with 'fast', and
+             fp=2 at horshoe_plus=False with fused_normals (K6 at full
+             width, then sliced); each but fp=2 'fused' against one
+             process at the same settings: losses within 1e-6 relative,
+             and the first step's loss (1e-6) and gradients (1e-4 of each
+             leaf's largest entry) at the initial parameters. (c) the 0.1%
+             flat set, one epoch at dp=2 through the COO energy and K5,
+             within 1e-6. (d) log_likelihood of 4096 held-out rows and waic
+             at dp=2 through the sharded K4, within 1e-6. (e) NCCL at world
+             size 1: the
+             collectives on CUDA tensors. Each arm: ms/step, peak GB and
+             kernel launches per rank, the gradient all-reduce's ms and
+             bytes a step; two ranks on one card are no scaling numbers
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -1972,6 +1996,538 @@ def options_phase(dev, smi, zero_launches, read_launches):
             for k in next(iter(launches.values()))}
 
 
+#: phase M's two gloo ranks on card 0, and its time limit for them
+MESH_RANKS, MESH_TIMEOUT = 2, 900
+#: the kernels phase M counts, as the JSON line names them
+MESH_KERNELS = ("stats", "static", "fwd", "bwd", "row_ll", "expsum",
+                "nfwd", "nbwd")
+MESH_NOTE = ("two ranks share one card through gloo: not a scaling "
+             "measurement")
+
+
+def mesh_kernel_checks(mesh, dev, layout):
+    """Phase M (a) on one rank: K1 / K2 / K4 on this rank's tile of phase
+    3's inputs (S=8, B=1024, D=20000, K=32, a rescue batch) with the
+    statistics combined over the ranks, against the float64 twin on the
+    full tile; on the fp layout K3's sharded assembly against per-slice
+    calls. Returns the errors (checks raise)."""
+    import torch
+
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.ops import fused_ig as tig
+    from spmf_tpu_torch.ops import fused_poisson as tfp
+    from spmf_tpu_torch.vi.minibatch import _MeshPlan
+    from spmf_tpu_torch.vi.surrogates import _softplus
+
+    B = 1024
+    full = stats_inputs(B, dev, seed=1, rescue=True)
+    r0, r1 = mesh.local_rows(B)
+    c0, c1 = mesh.feature_slice(D)
+    tile = [full[0][:, r0:r1], full[1][..., c0:c1], full[2][..., c0:c1],
+            full[3][r0:r1, c0:c1], full[4][..., c0:c1]]
+    tile = [t.contiguous() for t in tile]
+    out = {}
+    axes = tuple(mesh.live_axes)
+    for static in (False, True):
+        twin = tfp.stats_twin(*[a.double() for a in full], static=static)
+        want = (twin[0] if static else
+                twin[0] + twin[1].double()
+                * tfp._floor_min_val(twin[2] - 10.0)[0])
+        th, vv, ph = (t.clone().requires_grad_(True) for t in tile[:3])
+        got = tfp.fused_poisson_loglik_sharded(
+            th, vv, ph, tile[3], tile[4], mesh,
+            clip="static" if static else "reference")
+        # every rank holds the global sums: each backpropagates its share,
+        # and the copies' gradients are summed (theta's over fp, v's and
+        # phi's over the row ranks), as the engine's reduction does
+        (got.sum() / mesh.size).backward()
+        if mesh.fp_axis is not None:
+            mesh.all_sum_(th.grad, (mesh.fp_axis,))
+        if mesh.row_axes:
+            mesh.all_sum_(vv.grad, mesh.row_axes)
+            mesh.all_sum_(ph.grad, mesh.row_axes)
+        e_sum = rel_elem(got, want)
+        e_grad = max(rel_max(th.grad, twin[3][:, r0:r1]),
+                     rel_max(vv.grad, twin[4][..., c0:c1]),
+                     rel_max(ph.grad, twin[5][..., c0:c1]))
+        check(e_sum < 1e-5 and e_grad < 1e-4,
+              f"M {layout} {'K2' if static else 'K1'}: sums {e_sum}, "
+              f"gradients {e_grad}")
+        key = "static" if static else "stats"
+        out[key] = {"sum": e_sum, "grad": e_grad}
+        if not static:
+            # the statistics themselves, combined as the wrapper does
+            _, cnt, gmin, *_ = tfp._kernel_stats(*tile, False, False)
+            cnt = mesh.all_sum_(cnt.clone(), axes)
+            gmin = mesh.all_min_(gmin.clone(), axes)
+            check(torch.equal(cnt.cpu(), twin[1].cpu())
+                  and rel_elem(gmin, twin[2]) < 1e-6,
+                  f"M {layout} K1 statistics: counts {cnt.tolist()} vs "
+                  f"{twin[1].tolist()}, gmin {gmin.item()} vs "
+                  f"{twin[2].item()}")
+            out["stats"]["counts"] = cnt.tolist()
+        torch.cuda.synchronize()
+    # K4 on the healthy inputs (the rescue batch's rows are all NaN)
+    full = stats_inputs(B, dev, seed=1)
+    tile = [full[0][:, r0:r1], full[1][..., c0:c1], full[2][..., c0:c1],
+            full[3][r0:r1, c0:c1], full[4][..., c0:c1]]
+    rows = tfp.fused_poisson_row_loglik_sharded(
+        *[t.contiguous() for t in tile], mesh, log_transform=True)
+    want = tfp.row_loglik_twin(*[a.double() for a in full],
+                               log_transform=True)[:, r0:r1]
+    out["row_ll"] = rel_max(rows, want)
+    check(out["row_ll"] < 1e-5, f"M {layout} K4: {out['row_ll']}")
+
+    if mesh.fp_axis is not None:
+        m = PoissonFactorization(latent_dim=K, feature_dim=D, dtype="float32",
+                                 device=dev, mesh=mesh, gamma_sampler="fused")
+        sur = m._surrogate
+        names = sur._ig_names
+        params = _MeshPlan(mesh, sur, "fp").local_params(m.surrogate_params)
+        with torch.no_grad():
+            g = torch.Generator(device=dev).manual_seed(123)
+            values, logq = sur._sample_igs(names, params, g, (S,))
+            g = torch.Generator(device=dev).manual_seed(123)
+            split = [n for n in names if sur._split_axis(n) is not None]
+            repl = [n for n in names if n not in split]
+
+            def flat(ns, key):
+                return torch.cat([_softplus.forward(params[n][key])
+                                  .reshape(-1) for n in ns])
+
+            seed_r = torch.randint(0, 2**31 - 1, (1,), generator=g,
+                                   dtype=torch.int32, device=dev)
+            y_r, lq_r = tig.fused_ig_sample_logq(
+                flat(repl, "raw_concentration"), flat(repl, "raw_scale"),
+                seed_r, S)
+            seed_s = torch.randint(0, 2**31 - 1, (1,), generator=g,
+                                   dtype=torch.int32, device=dev) \
+                + mesh.fp_index
+            y_s, lq_s = tig.fused_ig_sample_logq(
+                flat(split, "raw_concentration"), flat(split, "raw_scale"),
+                seed_s, S)
+            ys = torch.cat([y_r, y_s], dim=1)
+            got = torch.cat([values[n].reshape(S, -1) for n in repl + split],
+                            dim=1)
+            bits = torch.equal(got, ys)
+            e_lq = rel_elem(logq, lq_r + mesh.all_sum(lq_s, ("fp",)))
+        check(bits and e_lq < 1e-6,
+              f"M {layout} K3: bit for bit {bits}, log q {e_lq}")
+        out["ig"] = {"bit_for_bit": bits, "logq": e_lq,
+                     "local_elements": int(y_s.shape[1])}
+    return out
+
+
+def first_step_grads(model, mesh, batch):
+    """One training step's loss and the gradient of every surrogate
+    parameter, whole, at the model's initial parameters on ``batch`` (the
+    global batch) and a fixed seed, as the fit engine computes them on
+    ``mesh`` (None: one process): this rank's part of the batch, the
+    gradient reduction, the fp slices gathered."""
+    import torch
+
+    from spmf_tpu_torch.parallel import collectives
+    from spmf_tpu_torch.vi.minibatch import _MeshPlan
+
+    plan = None if mesh is None else _MeshPlan(mesh, model._surrogate,
+                                               "fp")
+    params = (model.surrogate_params if plan is None
+              else plan.local_params(model.surrogate_params))
+    params = {n: {k: t.detach().clone().requires_grad_(True)
+                  for k, t in sub.items()} for n, sub in params.items()}
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    samples, logq = model._surrogate.sample_and_log_prob(params, gen, (S,))
+    lp = model.unormalized_log_prob(
+        data=batch if plan is None else plan.batch(batch), **samples)
+    loss = -torch.mean(lp - logq) / len(batch["indices"])
+    if plan is None:
+        loss.backward()
+    else:
+        (loss / mesh.size).backward()
+        collectives.reduce_gradients(plan.buckets(params))
+    grads = {n: {k: t.grad for k, t in sub.items()}
+             for n, sub in params.items()}
+    if plan is not None:
+        grads = plan.full_params(grads)
+    return float(loss.detach()), grads
+
+
+def mesh_arms(mesh_dp, mesh_fp, dev, zero_launches, read_launches, outdir):
+    """Phase M (b)-(d) on one rank (both meshes) or in one process (no
+    mesh): the fits at full width, the 0.1% COO epoch, the scoring. Each
+    arm: its losses, ms/step, peak GB, kernel launches, the gradient
+    reduction's calls, bytes and seconds. The arms held to one process
+    also take their first step's loss and gradients at the initial
+    parameters: one process writes them to ``outdir``, each rank compares
+    its own (each leaf's largest difference over its largest entry)."""
+    import torch
+
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import DeviceArrayDataset
+    from spmf_tpu_torch.parallel import collectives
+
+    collectives.TIME_GRADIENTS = True
+    n_m, b_m = OPT_ROWS, OPT_BATCH
+    g = torch.Generator(device=dev).manual_seed(41)
+    xm = torch.poisson(torch.ones(n_m, D, device=dev), generator=g)
+    ds = DeviceArrayDataset({"counts": xm,
+                             "indices": torch.arange(n_m, device=dev)},
+                            batch_size=b_m, device=dev)
+    arms = {}
+
+    def arm(tag, mesh, source, steps, **kw):
+        fit_kw = kw.pop("fit", {})
+        grads_as = kw.pop("grads_as", None)
+        normals = kw.pop("fused_normals", False)
+        m = PoissonFactorization(latent_dim=K, feature_dim=D,
+                                 dtype="float32", device=dev, mesh=mesh, **kw)
+        m._surrogate.fused_normals = normals
+        step_grads = None
+        if grads_as is not None:
+            path = os.path.join(outdir, f"grads_{grads_as}.pt")
+            first = {"counts": xm[:b_m],
+                     "indices": torch.arange(b_m, device=dev)}
+            loss1, g1 = first_step_grads(m, mesh, first)
+            if mesh is None:
+                torch.save({"loss": loss1, "grads": g1}, path)
+            else:
+                ref = torch.load(path, map_location=dev)
+                step_grads = {
+                    "loss": abs(loss1 - ref["loss"]) / abs(ref["loss"]),
+                    "grads": max(
+                        float((g1[n][k] - r).abs().max() / r.abs().max())
+                        for n, sub in ref["grads"].items()
+                        for k, r in sub.items())}
+            del g1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_stats()
+        zero_launches()
+        losses = m.fit(batched_data_factory=source, **dict(dict(
+            num_steps=3, learning_rate=0.01, sample_size=S, rel_tol=None,
+            verbose=False, seed=0), **fit_kw))
+        torch.cuda.synchronize()
+        ex = m.last_fit.extras
+        first = 1 if len(ex["epoch_seconds"]) > 1 else 0
+        arms[tag] = {
+            "losses": [float(x) for x in losses],
+            "ms": float(np.median(ex["epoch_seconds"][first:])) / steps * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": read_launches(),
+            "grad": dict(collectives.STATS),
+            "steps": steps * len(ex["epoch_seconds"]),
+            "scan": ex["epoch_scan"], "captured": ex.get("captured"),
+            "first_step": step_grads}
+        return m
+
+    steps = n_m // b_m
+    # K6 on the mesh: horshoe_plus=False has no IG block, so with
+    # fused_normals every draw of an fp=2 step is K6's at full width (the
+    # one-process seed), then sliced
+    k6 = dict(horshoe_plus=False, fused_normals=True, grads_as="k6")
+    if mesh_dp is None:
+        arm("one process, fused", None, ds, steps, grads_as="fused")
+        # a second run: the spread K1's atomic sums leave between two runs
+        arm("one process, fused, again", None, ds, steps)
+        arm("one process, fast", None, ds, steps, gamma_sampler="fast",
+            grads_as="fast")
+        arm("one process, non-plus, fused_normals", None, ds, steps, **k6)
+    else:
+        arm("dp=2, fused", mesh_dp, ds, steps, grads_as="fused")
+        arm("fp=2, fused, param_sharding='fp'", mesh_fp, ds, steps,
+            fit=dict(param_sharding="fp"))
+        arm("fp=2, fast, param_sharding='fp'", mesh_fp, ds, steps,
+            gamma_sampler="fast", fit=dict(param_sharding="fp"),
+            grads_as="fast")
+        arm("fp=2, non-plus, fused_normals, param_sharding='fp'", mesh_fp,
+            ds, steps, fit=dict(param_sharding="fp"), **k6)
+    del ds, xm
+
+    # (c) the 0.1% flat set, one epoch through the COO energy and K5 (the
+    # general loop: a sparse source keeps it on a mesh)
+    sp_c, norms_c = sparse_counts(N_SPARSE, D, DENSITY_COO, 41, dev)
+    sp_c.shuffle(seed=0).batch(B_SPARSE, drop_remainder=True).as_coo()
+    flat_c = sp_c.to_device(device=dev)
+    coo = dict(log_transform=True, column_norms=norms_c,
+               u_tau_scale=1.0 / np.sqrt(N_SPARSE * D), data=flat_c)
+    tag = "COO 0.1%, " + ("one process" if mesh_dp is None else "dp=2")
+    m_c = arm(tag, mesh_dp, flat_c, N_SPARSE // B_SPARSE,
+              fit=dict(num_steps=1, epoch_scan=False), **coo)
+    arms[tag]["dispatch"] = m_c.fusion_inactive_reason
+    del flat_c, sp_c
+
+    # (d) scoring: 4096 held-out sparse rows, 100 samples, and waic
+    held, _ = sparse_counts(B_SPARSE, D, DENSITY, 13, dev)
+    held.batch(B_SPARSE).as_coo()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = m_c.log_likelihood(held, num_samples=100, sample_chunk=8)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
+    w = m_c.waic(held, num_samples=32)
+    tag = "scoring, " + ("one process" if mesh_dp is None else "dp=2")
+    arms[tag] = {"log_likelihood": ll, "waic": w, "seconds": ll_s,
+                 "launches": read_launches()}
+    return arms
+
+
+def mesh_rank_main(rank, port, outdir):
+    """One of phase M's gloo ranks on card 0: (a), then (b)-(d) with the
+    counters zeroed first; writes rank{rank}.json."""
+    import torch
+
+    from spmf_tpu_torch.ops import fused_ig as tig
+    from spmf_tpu_torch.ops import fused_normal as tfn
+    from spmf_tpu_torch.ops import fused_poisson as tfp
+    from spmf_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                           backend="gloo")
+    counters = {"stats": (tfp.LAUNCHES, "stats"),
+                "static": (tfp.LAUNCHES, "static"),
+                "row_ll": (tfp.LAUNCHES, "row_ll"),
+                "expsum": (tfp.LAUNCHES, "expsum"),
+                "fwd": (tig.LAUNCHES, "fwd"), "bwd": (tig.LAUNCHES, "bwd"),
+                "nfwd": (tfn.LAUNCHES, "fwd"), "nbwd": (tfn.LAUNCHES, "bwd")}
+
+    def zero():
+        for d, k in counters.values():
+            d[k] = 0
+
+    def read():
+        return {n: d[k] for n, (d, k) in counters.items()}
+
+    mesh_dp = make_mesh((MESH_RANKS,), ("dp",))
+    mesh_fp = make_mesh((1, MESH_RANKS), ("dp", "fp"))
+    out = {"rank": rank, "checks": {}}
+    t0 = time.perf_counter()
+    for layout, mesh in (("dp=2", mesh_dp), ("fp=2", mesh_fp)):
+        out["checks"][layout] = mesh_kernel_checks(mesh, dev, layout)
+    out["checks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["arms"] = mesh_arms(mesh_dp, mesh_fp, dev, zero, read, outdir)
+    out["arms_s"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"M rank {rank}: done", flush=True)
+
+
+def nccl_main(outdir):
+    """Phase M (e): NCCL at world size 1 on the card: the collectives
+    module's SUM (with its backward), MIN, broadcast and bucketed gradient
+    reduction on CUDA tensors against their expected values."""
+    import torch
+
+    from spmf_tpu_torch.parallel import collectives as coll
+    from spmf_tpu_torch.parallel import free_port, initialize_distributed
+    from spmf_tpu_torch.parallel.mesh import make_mesh
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                           backend="nccl")
+    dev = torch.device("cuda", 0)
+    group = torch.distributed.group.WORLD
+    x = torch.arange(6.0, device=dev).requires_grad_(True)
+    y = coll.all_reduce_sum(x * 2.0, group)
+    y.sum().backward()
+    res = {"sum": torch.equal(y.detach(), torch.arange(6.0, device=dev) * 2),
+           "sum_grad": torch.equal(x.grad, torch.full((6,), 2.0, device=dev))}
+    m = torch.tensor([3.0, -1.0], device=dev)
+    res["min"] = torch.equal(coll.all_min_(m.clone(), group), m)
+    b = torch.tensor([7.0], device=dev)
+    res["broadcast"] = torch.equal(coll.broadcast_(b.clone(), group, 0), b)
+    p = [torch.ones(3, device=dev, requires_grad=True),
+         torch.ones(2, 2, device=dev, requires_grad=True)]
+    p[0].grad = torch.full((3,), 1.5, device=dev)
+    coll.reduce_gradients([(group, p)])
+    res["buckets"] = (torch.equal(p[0].grad, torch.full((3,), 1.5,
+                                                        device=dev))
+                      and torch.equal(p[1].grad, torch.zeros(2, 2,
+                                                             device=dev)))
+    res["gather"] = torch.equal(coll.gather_full(m, 0, 1, 0, group), m)
+    res["mesh"] = make_mesh((1,), ("dp",)).trivial
+    res["backend"] = torch.distributed.get_backend()
+    with open(os.path.join(outdir, "nccl.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(dev, smi, zero_launches, read_launches):
+    """Phase M: multi-rank training. The one-process arms here first (the
+    card to themselves), then two gloo ranks on card 0 (this script run
+    with --mesh-rank; a rank that exits non-zero or writes no result fails
+    the phase), then NCCL at world size 1. Returns the main path's kernel
+    launches: this process's arms and both ranks'."""
+    from spmf_tpu_torch.parallel import free_port
+
+    t_phase = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        single = mesh_arms(None, None, dev, zero_launches, read_launches,
+                           outdir)
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), port, outdir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_RANKS)]
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            path = os.path.join(outdir, f"rank{r}.json")
+            check(p.returncode == 0 and os.path.exists(path),
+                  f"M rank {r} exited {p.returncode}:\n{out[-6000:]}")
+            with open(path) as f:
+                ranks.append(json.load(f))
+        nccl = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--nccl-check", outdir], capture_output=True,
+                              text=True, timeout=300)
+        path = os.path.join(outdir, "nccl.json")
+        check(nccl.returncode == 0 and os.path.exists(path),
+              f"M NCCL check exited {nccl.returncode}:\n"
+              f"{(nccl.stdout + nccl.stderr)[-4000:]}")
+        with open(path) as f:
+            nccl_res = json.load(f)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+    r0 = ranks[0]
+    for layout, c in r0["checks"].items():
+        say("M", f"(a) {layout}, rank 0 of {MESH_RANKS}, phase 3's inputs "
+                 f"(S={S}, B=1024, D={D}, K={K}, rescue batch): K1 on the "
+                 f"tile, statistics combined: sums {c['stats']['sum']:.2e}, "
+                 f"gradients {c['stats']['grad']:.2e}, counts "
+                 f"{c['stats']['counts']} = the float64 twin's; K2 "
+                 f"{c['static']['sum']:.2e} / {c['static']['grad']:.2e}; K4 "
+                 f"{c['row_ll']:.2e}" + (
+                     f"; K3 on {c['ig']['local_elements']} local elements, "
+                     f"seed base + fp index: bit for bit "
+                     f"{c['ig']['bit_for_bit']}, log q {c['ig']['logq']:.2e}"
+                     if "ig" in c else ""))
+    for r in ranks[1:]:
+        check(r["checks"].keys() == r0["checks"].keys(), "M checks differ")
+
+    def same(tag):
+        traces = [r["arms"][tag]["losses"] for r in ranks]
+        check(all(t == traces[0] for t in traces),
+              f"M {tag}: the ranks' traces differ {traces}")
+        return traces[0]
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    def first_step(tag):
+        """The largest first-step loss and gradient differences from one
+        process over the ranks (gradients: each leaf's largest difference
+        over its largest entry; K1's atomic sums leave about 1e-6, a
+        different draw about 1e-1)."""
+        fs = [r["arms"][tag]["first_step"] for r in ranks]
+        return (max(f["loss"] for f in fs), max(f["grads"] for f in fs))
+
+    # loss traces within 1e-6 relative: two sound runs read at most
+    # 1.1e-7, and the fp=2 'fused' trace (other IG draws by design) reads
+    # 6.5e-6 from dp=2
+    dp_l = same("dp=2, fused")
+    e_dp = rel(dp_l, single["one process, fused"]["losses"])
+    e_again = rel(single["one process, fused, again"]["losses"],
+                  single["one process, fused"]["losses"])
+    g_dp = first_step("dp=2, fused")
+    check(e_dp < 1e-6 and g_dp[0] < 1e-6 and g_dp[1] < 1e-4,
+          f"M dp=2 against one process: losses {e_dp} ({dp_l}), first "
+          f"step loss and gradients {g_dp}")
+    fp_l = same("fp=2, fused, param_sharding='fp'")
+    check(np.isfinite(fp_l).all() and fp_l[2] < fp_l[1] and fp_l[3] < fp_l[2],
+          f"M fp=2 fused: not finite and decreasing {fp_l}")
+    e_fused = rel(fp_l, dp_l)
+    fpf_l = same("fp=2, fast, param_sharding='fp'")
+    e_fp = rel(fpf_l, single["one process, fast"]["losses"])
+    g_fp = first_step("fp=2, fast, param_sharding='fp'")
+    check(e_fp < 1e-6 and g_fp[0] < 1e-6 and g_fp[1] < 1e-4,
+          f"M fp=2 fast against one process: losses {e_fp}, first step "
+          f"loss and gradients {g_fp}")
+    k6_l = same("fp=2, non-plus, fused_normals, param_sharding='fp'")
+    e_k6 = rel(k6_l, single["one process, non-plus, fused_normals"]["losses"])
+    g_k6 = first_step("fp=2, non-plus, fused_normals, param_sharding='fp'")
+    check(e_k6 < 1e-6 and g_k6[0] < 1e-6 and g_k6[1] < 1e-4,
+          f"M fp=2 K6 (fused_normals) against one process: losses {e_k6}, "
+          f"first step loss and gradients {g_k6}")
+    coo_l = same("COO 0.1%, dp=2")
+    e_coo = rel(coo_l, single["COO 0.1%, one process"]["losses"])
+    check(e_coo < 1e-6
+          and "COO" in str(r0["arms"]["COO 0.1%, dp=2"]["dispatch"]),
+          f"M COO dp=2 against one process: {e_coo}, dispatch "
+          f"{r0['arms']['COO 0.1%, dp=2']['dispatch']}")
+    sc, sc1 = r0["arms"]["scoring, dp=2"], single["scoring, one process"]
+    e_ll = rel(sc["log_likelihood"]["total"], sc1["log_likelihood"]["total"])
+    e_w = max(rel(sc["waic"][k], sc1["waic"][k]) for k in ("waic", "lppd"))
+    check(e_ll < 1e-6 and e_w < 1e-6 and sc["log_likelihood"]["n_rows"]
+          == B_SPARSE, f"M scoring dp=2 against one process: "
+          f"log_likelihood {e_ll}, waic {e_w}")
+    check(all(nccl_res[k] for k in ("sum", "sum_grad", "min", "broadcast",
+                                    "buckets", "gather", "mesh")),
+          f"M NCCL checks {nccl_res}")
+    say("M", f"(b) dp=2 against one process: losses {e_dp:.2e} relative "
+             f"(K1's atomic sums; two one-process runs {e_again:.2e}), first "
+             f"step loss {g_dp[0]:.2e}, gradients {g_dp[1]:.2e}; fp=2 "
+             f"fused: the ranks' traces bit for "
+             f"bit, decreasing {[round(x, 4) for x in fp_l]}, {e_fused:.2e} "
+             f"from dp=2 (its split IG block draws other seeds); fp=2 fast "
+             f"against one process fast: {e_fp:.2e}, first step "
+             f"{g_fp[0]:.2e} / {g_fp[1]:.2e}; fp=2 non-plus fused_normals "
+             f"(K6 at full width, sliced) against one process: "
+             f"{e_k6:.2e}, first step {g_k6[0]:.2e} / {g_k6[1]:.2e}; "
+             f"(c) COO 0.1% dp=2: "
+             f"{e_coo:.2e}; (d) log_likelihood {e_ll:.2e}, waic {e_w:.2e}; "
+             f"(e) NCCL ({nccl_res['backend']}) at world size 1: SUM, its "
+             f"backward, MIN, broadcast, buckets, gather all equal")
+
+    launches = Counter()
+    rows = [("this process", single)] + [(f"rank {r['rank']}", r["arms"])
+                                         for r in ranks]
+    for who, arms in rows:
+        note = f"{MESH_NOTE}; {smi}" if who.startswith("rank") else smi
+        for tag, a in arms.items():
+            launches.update(a["launches"])
+            lc = {k: a["launches"][k] for k in MESH_KERNELS}
+            if tag.startswith("scoring"):
+                say("M", f"{who}, {tag}: log_likelihood of {B_SPARSE} "
+                         f"held-out rows (100 samples) in {a['seconds']:.3f} "
+                         f"s ({B_SPARSE / a['seconds']:.0f} rows/s); "
+                         f"launches {lc} ({note})")
+                continue
+            gr = a["grad"]
+            n = max(a["steps"], 1)
+            grad = (f"gradient all-reduce {gr['grad_seconds'] / n * 1e3:.2f} "
+                    f"ms and {gr['grad_bytes'] / n / 1e6:.2f} MB a step "
+                    f"({gr['grad_calls'] / n:.0f} call)"
+                    if gr["grad_calls"] else "no gradient all-reduce")
+            say("M", f"{who}, {tag}: {a['ms']:.2f} ms/step, peak "
+                     f"{a['peak_gb']:.2f} GB, {grad}; scan {a['scan']} "
+                     f"captured {a['captured']}; launches {lc}; losses "
+                     f"{[round(x, 4) for x in a['losses']]} ({note})")
+    for who, arms in rows[1:]:
+        got = Counter()
+        for a in arms.values():
+            got.update(a["launches"])
+        check(all(got[k] > 0 for k in MESH_KERNELS if k != "static"),
+              f"M {who}: a kernel of the path never launched {dict(got)}")
+    say("M", f"phase M took {time.perf_counter() - t_phase:.1f} s (rank "
+             f"checks {r0['checks_s']:.1f} s, rank arms {r0['arms_s']:.1f} "
+             f"s)")
+    return dict(launches)
+
+
 def fixed_width_lines(cols, widths):
     """Rows of non-negative integer columns as right-aligned decimal text,
     one line each, as bytes: digit by digit in numpy (the millions of
@@ -3103,6 +3659,10 @@ def main():
     # ---- CLI: the entry points at full width
     path_launches["CLI"] = cli_phase(dev, smi, zero_launches, read_launches)
 
+    # ---- M: multi-rank training, two gloo ranks on this card
+    path_launches["M mesh"] = mesh_phase(dev, smi, zero_launches,
+                                         read_launches)
+
     # ---- 9: times (medians of 10 after warmup)
     B = 4096
     for Bt in (B, 32768):
@@ -3328,4 +3888,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        mesh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif len(sys.argv) > 1 and sys.argv[1] == "--nccl-check":
+        nccl_main(sys.argv[2])
+    else:
+        main()

@@ -10,8 +10,13 @@ Loads the ``<name>_counts.npy`` / ``<name>_genenames.npy`` /
 ``preprocess_scrnaseq_counts`` writes, fits PoissonMatrixFactorization
 (log link, column means as norms, u_tau_scale = 1/sqrt(D N)), and saves
 U / V / W / Z, the cell, gene and intercept scores and the loss trace as
-.npy, then the figures (skipped without matplotlib). ``--data-parallel``
-(several devices) is not ported and raises.
+.npy, then the figures (skipped without matplotlib).
+
+``--data-parallel`` trains on a dp mesh over every rank of the process
+group: under ``torchrun --nproc_per_node=N`` each rank feeds its rows of
+every batch (NCCL, one card a rank; ``--backend gloo`` lets several ranks
+share one card) and rank 0 writes the outputs. In one process the mesh is
+trivial and the fit is the plain one.
 """
 import argparse
 import os
@@ -43,8 +48,14 @@ def main(argv=None):
                          "multiple); epochs shuffle row BLOCKS, so shuffle "
                          "a structured cell order once beforehand")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard minibatch rows over several devices (not "
-                         "ported: raises)")
+                    help="shard minibatch rows over the ranks of the "
+                         "process group (launch with torchrun; one process: "
+                         "a trivial mesh)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="with --data-parallel: the torch.distributed "
+                         "backend (default nccl with --device cuda, gloo "
+                         "with --device cpu; gloo for several ranks on one "
+                         "card)")
     ap.add_argument("-s", "--sample-size", type=int, default=8,
                     help="ELBO samples per step (default 8)")
     ap.add_argument("--antithetic", action="store_true",
@@ -65,11 +76,18 @@ def main(argv=None):
                          "card pass --device cpu)")
     args = ap.parse_args(argv)
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel (multi-device training) is not ported to "
-            "spmf_tpu_torch yet")
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        from spmf_tpu_torch.parallel import (
+            data_parallel_mesh,
+            initialize_distributed,
+        )
+
+        initialize_distributed(backend=args.backend, device=device)
+        mesh = data_parallel_mesh()
+        print(f"data-parallel mesh: {mesh.size} ranks")
+    writes = mesh is None or mesh.rank == 0
 
     from spmf_tpu_torch import PoissonMatrixFactorization
     from spmf_tpu_torch.data import ArrayDataset, SparseCounts
@@ -132,6 +150,7 @@ def main(argv=None):
         u_tau_scale=1.0 / np.sqrt(D * N),
         likelihood_clip=args.likelihood_clip,
         device=device,
+        mesh=mesh,
     )
 
     losses = factor.calibrate_advi(
@@ -155,6 +174,8 @@ def main(argv=None):
     cell_score = Z * row_norm[:, np.newaxis]
     V = to_numpy(factor.decoding_matrix())
     gene_score = V * col_norm[np.newaxis, :]
+    if not writes:
+        return factor
 
     for tag, arr in (("U", U), ("V", V), ("W", W), ("Z", Z),
                      ("cellscore", cell_score), ("genescore", gene_score),

@@ -3,7 +3,9 @@ spmf_tpu/models/autoencoder.py): a DenseHorseshoe MLP
 [D]*encoder_layers + [K] + [D]*decoder_layers + [D] with rates
 ``exp(net(x / colnorm)) * colnorm`` and a Poisson likelihood, trained by the
 same ADVI engine over a mean-field Normal surrogate of every weight and
-bias. There is no kernel of its own: the network is ``torch.matmul``, the
+bias. On a row-parallel mesh (dp, dcn) the weights are replicated, each
+rank's batch holds its rows, and the likelihood is summed over the row
+ranks. There is no kernel of its own: the network is ``torch.matmul``, the
 weight prior the exact-E1 Horseshoe, and with ``surrogate.fused_normals``
 (and ``gamma_sampler='fused'``) the Normal block is drawn by the fused
 Normal sampler."""
@@ -51,6 +53,11 @@ class PoissonAutoencoder(BayesianModel):
         super().__init__(data=data, data_transform_fn=data_transform_fn,
                          strategy=strategy, mesh=mesh, dtype=dtype,
                          device=device)
+        if self.mesh is not None and self.mesh.fp_axis is not None:
+            raise ValueError(
+                "PoissonAutoencoder trains on row-parallel meshes (dp, dcn); "
+                "its weights have no feature split, so an fp axis is not "
+                "taken")
         record = next(iter(self.data()))
         if count_key is None:
             count_key = "data" if "data" in record else "counts"
@@ -131,6 +138,10 @@ class PoissonAutoencoder(BayesianModel):
         prior_parts = {k: v * prior_weight for k, v in prior_parts.items()}
         ll = self.log_likelihood_components(data, **params)["log_likelihood"]
         prior_parts["x"] = torch.sum(ll, dim=(-1, -2))
+        if self.mesh is not None and self.mesh.row_axes:
+            # this rank's rows: the sum over the row ranks
+            prior_parts["x"] = self.mesh.all_sum(prior_parts["x"],
+                                                 self.mesh.row_axes)
         return prior_parts
 
     def unormalized_log_prob(self, data=None, prior_weight=1.0, **params):

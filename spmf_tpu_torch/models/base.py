@@ -89,25 +89,28 @@ class BoundSurrogate:
         return self._model.surrogate_params
 
 
-#: fit() options of the JAX engine that this port does not carry yet (they
-#: belong to multi-device training)
-_NOT_PORTED = ("param_sharding",)
 _ENGINE = ("convergence_window", "decay_schedule", "elbo_estimator",
            "antithetic", "opt_state", "resume_from", "checkpoint_full_state",
            "epoch_scan", "epoch_chunk", "prefetch", "profile_dir",
-           "remat_sampling")
+           "remat_sampling", "param_sharding")
 
 
 class BayesianModel:
     def __init__(self, data=None, data_transform_fn=None, strategy=None,
                  mesh=None, dtype=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (multi-device) training is not ported to "
-                "spmf_tpu_torch yet")
+        """``mesh``: a ``spmf_tpu_torch.parallel.Mesh`` of the ranks this
+        model trains on (rows over dp, the feature dim over fp), or None
+        for one process."""
+        from spmf_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be a spmf_tpu_torch.parallel.Mesh (make_mesh, "
+                "data_parallel_mesh, global_mesh, make_multislice_mesh), "
+                f"got {type(mesh).__name__}")
         # ``strategy`` kept for reference API parity and ignored
         self.strategy = strategy
-        self.mesh = None
+        self.mesh = mesh
         self.dtype = canonical_dtype(dtype)
         self.device = canonical_device(device)
         self.data = None
@@ -170,17 +173,11 @@ class BayesianModel:
         if factory is None:
             raise ValueError(
                 "No data bound: pass batched_data_factory or set_data()")
-        unknown = set(kwargs) - set(_NOT_PORTED) - set(_ENGINE)
+        unknown = set(kwargs) - set(_ENGINE)
         if unknown:
             raise TypeError(
                 f"fit() got unknown keyword argument(s) {sorted(unknown)}; "
                 f"engine options: {sorted(_ENGINE)}")
-        given = sorted(k for k in _NOT_PORTED
-                       if kwargs.get(k) not in (None, False))
-        if given:
-            raise NotImplementedError(
-                f"fit() option(s) {given} are not ported to spmf_tpu_torch "
-                "yet")
         engine_kwargs = {k: kwargs[k] for k in _ENGINE if k in kwargs}
         result = fit_surrogate_posterior(
             energy_fn=self._energy,
@@ -201,6 +198,7 @@ class BayesianModel:
             seed=seed,
             dtype=self.dtype,
             device=self.device,
+            mesh=self.mesh,
             checkpoint_dir=checkpoint_dir,
             verbose=verbose,
             **engine_kwargs,
@@ -264,6 +262,7 @@ class BayesianModel:
             sample_chunk=sample_chunk,
             dtype=self.dtype,
             device=self.device,
+            mesh=self.mesh,
         )
 
     def log_likelihood(self, data=None, num_samples: int = 100, seed: int = 1,
@@ -298,7 +297,10 @@ class BayesianModel:
         """Write ``__meta__`` (class, config, the params' treedef string),
         the parameters as ``param_{i}`` in JAX leaf order and the
         normalization constants as ``extra_*``: the file spmf_tpu's
-        ``save`` writes."""
+        ``save`` writes. On a mesh rank 0 alone writes (the parameters are
+        whole on every rank after ``fit``)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         arrays = {f"param_{i}": to_numpy(x) for i, x in
                   enumerate(flatten_jax_order(self.surrogate_params))}
         extras = {f"extra_{name}": to_numpy(getattr(self, name))

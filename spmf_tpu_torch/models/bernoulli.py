@@ -86,5 +86,6 @@ class BernoulliFactorization(PoissonFactorization):
         u = self.calibrated_expectations["u"] if u is None else u
         s = self.calibrated_expectations["s"] if s is None else s
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        return torch.matmul(self.encoder_function(x),
-                            self.encoding_matrix(u, s))
+        return self._feature_sum(torch.matmul(self.encoder_function(x),
+                                              self.encoding_matrix(u, s)),
+                                 x.shape[-1])

@@ -12,7 +12,9 @@ real-valued Normal priors with Identity bijectors (as in the Bernoulli
 model) and Poisson columns are kept positive through a softplus link. The
 column types are static and ride a (1, D) code lane into one fused kernel
 pass (ops.fused_poisson, likelihood=('mixed', obs_scale)): a per-column
-select, no gather or scatter.
+select, no gather or scatter. On an fp mesh the lane (and the type masks of
+the plain path) split over fp like eta, so each rank's tile takes its
+columns' codes.
 """
 from __future__ import annotations
 
@@ -87,8 +89,9 @@ class MixedFactorization(BernoulliFactorization):
                 for t, m in self._masks.items() if m.any()}
         for name, dist in families:
             if name in self._device_masks:
-                ll = torch.where(self._device_masks[name], dist().log_prob(x),
-                                 ll)
+                # the lane at x's width: this rank's columns on an fp mesh
+                mask = self._lane(self._device_masks[name], x.shape[-1])
+                ll = torch.where(mask, dist().log_prob(x), ll)
         return {"log_likelihood": ll, "rate": rate}
 
     def _config(self):

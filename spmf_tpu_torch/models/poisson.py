@@ -18,6 +18,17 @@ energy, which never materialises (B, D): a gather-dot over the nonzeros
 plus the rate total over all cells, in closed form for the identity link
 and through the exp-rate kernel (K5) for the log link. WAIC and held-out
 scoring stream per-row log-likelihoods through the row kernel (K4).
+
+On a rank mesh (``mesh=``, ``parallel.Mesh``) each rank evaluates the
+energy of its tile: its rows of a dense batch and, with an fp axis, its
+columns and its slices of the fp-split variables. Every sum that crosses
+ranks is one collective (the encode's contraction and row sums over fp,
+the theta prior over the row ranks, the likelihood over all ranks, the
+priors of the fp-split variables over fp), so each part the energy
+returns is the whole batch's, on every rank. A sparse (COO) batch is the
+whole batch on every rank: the COO energies take this rank's share of the
+triplets and sum the partial segment sums over the mesh, and the dense
+scatter builds this rank's tile.
 """
 from __future__ import annotations
 
@@ -80,15 +91,126 @@ class PoissonFactorization(BayesianModel):
     def encoder_function(self, x):
         """g(x)."""
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        eta = self._lane(self.eta_i, x.shape[-1])
         if self.log_transform:
-            return torch.log(x / self.eta_i + 1.0)
-        return x / self.eta_i
+            return torch.log(x / eta + 1.0)
+        return x / eta
 
     def decoder_function(self, x):
         """f(x) = g^{-1}(x)."""
+        eta = self._lane(self.eta_i, x.shape[-1])
         if self.log_transform:
-            return torch.exp(x * self.eta_i) - 1.0
-        return x * self.eta_i
+            return torch.exp(x * eta) - 1.0
+        return x * eta
+
+    # ----------------------------------------------------------- the mesh
+    def _meshed(self):
+        return self.mesh is not None and not self.mesh.trivial
+
+    def _fp_split(self):
+        """Whether the mesh splits the feature dim."""
+        return self._meshed() and self.mesh.fp_axis is not None
+
+    def _lane(self, lane, width):
+        """A (1, D) per-column lane (eta_i, the mixed codes, a mask) at the
+        column width of a tensor: its local columns where ``width`` is this
+        rank's share of D."""
+        if (lane is None or lane.dim() == 0 or lane.shape[-1] == width
+                or not self._fp_split()):
+            return lane
+        c0, c1 = self.mesh.feature_slice(lane.shape[-1])
+        return lane[..., c0:c1]
+
+    def _local_cols(self, x):
+        """This rank's columns of a full-width (.., D) tensor."""
+        if self._fp_split() and x.shape[-1] == self.feature_dim:
+            c0, c1 = self.mesh.feature_slice(self.feature_dim)
+            return x[..., c0:c1]
+        return x
+
+    def _feature_sum(self, t, width):
+        """A sum over features ``t`` completed over the fp line when it
+        covered this rank's columns only (differentiable)."""
+        if self._fp_split() and width != self.feature_dim:
+            return self.mesh.all_sum(t, (self.mesh.fp_axis,))
+        return t
+
+    def _full_cols(self, t, dim):
+        """A tensor of this rank's columns along ``dim`` gathered to the
+        full feature dim over fp (differentiable; as it is when full)."""
+        if self._fp_split() and t.shape[dim] != self.feature_dim:
+            return self.mesh.gather(t, dim % t.dim(), (self.mesh.fp_axis,),
+                                    grad=True)
+        return t
+
+    def _local_samples(self, params):
+        """The samples with every fp-split variable at this rank's
+        columns."""
+        if not self._fp_split():
+            return params
+        return self._surrogate._local_values(params)
+
+    def _local_prior(self):
+        """The prior joint at this rank's share of D (its factors are
+        elementwise along D, so the local slice's log-density is its part
+        of the whole): built once per mesh."""
+        if getattr(self, "_mesh_prior", None) is None:
+            full = self.feature_dim
+            c0, c1 = self.mesh.feature_slice(full)
+            self.feature_dim = c1 - c0
+            try:
+                self._mesh_prior = self._prior_joint()
+            finally:
+                self.feature_dim = full
+        return self._mesh_prior
+
+    def _prior_parts(self, params, prior_weight):
+        """The weighted prior parts of the whole variables on every rank:
+        on an fp mesh the split variables' parts from this rank's slices,
+        summed over the fp line in one collective."""
+        if not self._fp_split():
+            parts = self.prior_distribution.log_prob_parts(params)
+        else:
+            parts = self._local_prior().log_prob_parts(params)
+            split = [k for k in parts
+                     if self._surrogate._split_axis(k) is not None]
+            if split:
+                summed = self.mesh.all_sum(torch.stack(
+                    torch.broadcast_tensors(*[parts[k] for k in split])),
+                    (self.mesh.fp_axis,))
+                parts.update(zip(split, summed.unbind(0)))
+        return {k: v * prior_weight for k, v in parts.items()}
+
+    def _row_total(self, t):
+        """A sum over this rank's rows completed over the row ranks."""
+        if self._meshed() and self.mesh.row_axes:
+            return self.mesh.all_sum(t, self.mesh.row_axes)
+        return t
+
+    def _coo_share(self, rows, cols, vals):
+        """This rank's contiguous share of a padded triplet batch (the
+        triplets split over every axis of the mesh larger than 1)."""
+        n = self.mesh.size
+        nnz = rows.shape[-1]
+        if nnz % n:
+            raise ValueError(
+                f"padded nnz {nnz} must divide the mesh device count {n} "
+                "(SparseCounts.as_coo pads to 1024-multiples, which covers "
+                "any mesh up to 1024 devices)")
+        per = nnz // n
+        lo = per * self.mesh.index_of(self.mesh.live_axes)
+        return rows[lo:lo + per], cols[lo:lo + per], vals[lo:lo + per]
+
+    def _row_mesh_axes(self):
+        """The mesh axes the batch rows shard over: ('dp',), or the joint
+        ('dcn', 'dp') on a multi-slice mesh."""
+        return self.mesh.row_axes if self.mesh is not None else ()
+
+    def _global_shape(self, shape):
+        """The (B, D) of the whole batch whose tile has ``shape``."""
+        if not self._meshed():
+            return tuple(shape)
+        return (int(shape[-2]) * self.mesh.rows, int(self.feature_dim))
 
     def __init__(
         self,
@@ -265,16 +387,21 @@ class PoissonFactorization(BayesianModel):
         w = self.calibrated_expectations["w"] if w is None else w
         s = self.calibrated_expectations["s"] if s is None else s
         weights = s / torch.sum(s, dim=-2, keepdim=True)
-        return self.eta_i * weights[..., 1:2, :] * w
+        return self._lane(self.eta_i, w.shape[-1]) * weights[..., 1:2, :] * w
 
     def encode(self, x, u=None, s=None):
-        """theta = g(x) @ A, with optional row scaling."""
+        """theta = g(x) @ A, with optional row scaling. On an fp mesh, with
+        this rank's columns of x and slices of u, s: the contraction and
+        the row sums are summed over the fp line."""
         u = self.calibrated_expectations["u"] if u is None else u
         s = self.calibrated_expectations["s"] if s is None else s
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        z = torch.matmul(self.encoder_function(x), self.encoding_matrix(u, s))
+        width = x.shape[-1]
+        z = self._feature_sum(torch.matmul(self.encoder_function(x),
+                                           self.encoding_matrix(u, s)), width)
         if self.scale_rows:
-            z = z * (torch.sum(x, dim=-1, keepdim=True) / self.xi_u_global)
+            z = z * (self._feature_sum(torch.sum(x, dim=-1, keepdim=True),
+                                       width) / self.xi_u_global)
         return z
 
     @torch.no_grad()
@@ -367,21 +494,14 @@ class PoissonFactorization(BayesianModel):
         return lambda u_eta, u_tau: tfd.Independent(
             tfd.HalfNormal(scale=u_eta * u_tau * decay), 2)
 
-    def create_distributions(self):
-        """Build the prior joint and the trainable surrogate: the horseshoe+
-        (InverseGamma auxiliaries) or, with ``horshoe_plus=False``,
-        AbsHorseshoe priors on u and s and a Normal-only surrogate."""
+    def _prior_joint(self):
+        """The prior joint at ``feature_dim``: horseshoe+ (InverseGamma
+        auxiliaries) or, with ``horshoe_plus=False``, AbsHorseshoe priors on
+        u and s."""
         D, K = self.feature_dim, self.latent_dim
         dt, dev = self.dtype, self.device
         ones = lambda *shape: torch.ones(shape, dtype=dt, device=dev)  # noqa
         np_dt = np.float64 if dt == torch.float64 else np.float32
-        np_ones = lambda *shape: np.ones(shape, np_dt)  # noqa: E731
-
-        self.bijectors = {k: tfb.Softplus() for k in (
-            "u", "u_eta", "u_tau", "s", "s_eta", "s_tau")}
-        if self._u_signed:
-            self.bijectors["u"] = tfb.Identity()
-        self.bijectors.update(self._vw_bijectors())
         decay = self._const(
             np.asarray(self.symmetry_breaking_decay, np_dt)
             ** np.arange(K, dtype=np_dt)[None, :])
@@ -421,7 +541,28 @@ class PoissonFactorization(BayesianModel):
                 s=tfd.Independent(tfd.AbsHorseshoe(
                     scale=self.s_tau_scale * ones(1, D)), 2),
             )
-        self.prior_distribution = tfd.JointDistributionNamed(dist)
+        return tfd.JointDistributionNamed(dist)
+
+    def create_distributions(self):
+        """Build the prior joint and the trainable surrogate: the horseshoe+
+        (InverseGamma auxiliaries) or, with ``horshoe_plus=False``,
+        AbsHorseshoe priors on u and s and a Normal-only surrogate."""
+        D, K = self.feature_dim, self.latent_dim
+        dt, dev = self.dtype, self.device
+        np_dt = np.float64 if dt == torch.float64 else np.float32
+        np_ones = lambda *shape: np.ones(shape, np_dt)  # noqa: E731
+
+        if self._fp_split() and D % self.mesh.fp:
+            raise ValueError(
+                f"feature_dim {D} does not divide over the mesh's fp axis "
+                f"of {self.mesh.fp}: pad the features to a multiple")
+        self.bijectors = {k: tfb.Softplus() for k in (
+            "u", "u_eta", "u_tau", "s", "s_eta", "s_tau")}
+        if self._u_signed:
+            self.bijectors["u"] = tfb.Identity()
+        self.bijectors.update(self._vw_bijectors())
+        self.prior_distribution = self._prior_joint()
+        self._mesh_prior = None
 
         def inv_gamma(conc, scale, name):
             return TransformedSurrogate(
@@ -462,8 +603,12 @@ class PoissonFactorization(BayesianModel):
         aux_names = ()
         if self.aux_broadcast:
             aux_names = tuple(n for n in sur if "_eta" in n or "_tau" in n)
+        from spmf_tpu_torch.parallel.mesh import _feature_axis_for
+
         self._surrogate = SurrogatePosterior(
-            sur, gamma_sampler=self.gamma_sampler, broadcast_names=aux_names)
+            sur, gamma_sampler=self.gamma_sampler, broadcast_names=aux_names,
+            mesh=self.mesh,
+            feature_axes={n: _feature_axis_for(n) for n in sur})
         self.surrogate_params = self._surrogate.init()
         self.var_list = list(sur.keys())
         self.set_calibration_expectations()
@@ -476,14 +621,15 @@ class PoissonFactorization(BayesianModel):
         scatter into the fused path or a COO energy (see below)."""
         if data is None:
             data = self._next_batch()
-        prior_parts = self.prior_distribution.log_prob_parts(params)
-        prior_parts = {k: v * prior_weight for k, v in prior_parts.items()}
+        params = self._local_samples(params)
+        prior_parts = self._prior_parts(params, prior_weight)
 
         if isinstance(data, dict) and "coo_rowl" in data:
             # block-aligned batches (DeviceSparseCounts block_rows): the
-            # blocked energy when this class's COO math is authoritative;
-            # otherwise flatten to the triplet format and dispatch below
-            if self._coo_energy_supported():
+            # blocked energy when this class's COO math is authoritative
+            # and no mesh splits the batch; otherwise flatten to the
+            # triplet format and dispatch below
+            if self._coo_energy_supported() and not self._meshed():
                 self._fusion_last_ok = False
                 self.fusion_inactive_reason = (
                     "blocked COO energy dispatched (block-aligned batch)")
@@ -499,7 +645,7 @@ class PoissonFactorization(BayesianModel):
             if self._sparse_dense_scatter(data["indices"].shape[0],
                                           data["coo_rows"].shape[-1]):
                 data = self._densify_coo(data, enforce_slab_limit=False)
-            elif self._coo_energy_supported() and self._coo_energy_mesh_ok():
+            elif self._coo_energy_supported():
                 # the intended sparse path: record the dispatch without the
                 # fallback warning, which would be false here
                 self._fusion_last_ok = False
@@ -514,11 +660,11 @@ class PoissonFactorization(BayesianModel):
                 # checked) and take the generic dense path
                 data = self._densify_coo(data)
 
-        x = self._counts(data)
+        x = self._local_cols(self._counts(data))
         theta = self.encode(x, params["u"], params["s"])
-        prior_parts["z"] = self._theta_prior_log_prob(theta)
+        prior_parts["z"] = self._row_total(self._theta_prior_log_prob(theta))
 
-        if self._can_fuse(x.shape):
+        if self._can_fuse(self._global_shape(x.shape)):
             phi = self.intercept_matrix(params["w"], params["s"])
             B = self.decoding_matrix(params["v"])
             squeeze = theta.dim() == 2
@@ -533,25 +679,42 @@ class PoissonFactorization(BayesianModel):
 
         ll = self.log_likelihood_components(data=x, **params)["log_likelihood"]
         finite = torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll))
-        min_val = torch.min(finite) - 10.0
+        min_val = torch.min(finite)
+        if self._meshed():
+            min_val = self.mesh.all_min(min_val)
+        min_val = min_val - 10.0
         if self.dtype == torch.float32:
             # keep sum(clip(ll, min_val, 0)) representable
             min_val = torch.clamp_min(min_val, -1e27)
         ll = torch.minimum(torch.maximum(ll, min_val), torch.zeros_like(ll))
         ll = torch.where(torch.isfinite(ll), ll, min_val)
         prior_parts["x"] = torch.sum(ll, dim=(-1, -2))
+        if self._meshed():
+            prior_parts["x"] = self.mesh.all_sum(prior_parts["x"])
         return prior_parts
 
     def _fused_x_part(self, theta, B, phi, x):
         """Fused-kernel 'x' energy part, (S,) float32. theta (S,B,K),
         B (S,K,D), phi (S,1,D), x (B,D). The mixed family rides the same
         kernels through its per-column ``codes`` lane (_fused_codes)."""
-        from spmf_tpu_torch.ops.fused_poisson import fused_poisson_loglik
+        from spmf_tpu_torch.ops.fused_poisson import (
+            fused_poisson_loglik,
+            fused_poisson_loglik_sharded,
+        )
 
-        return fused_poisson_loglik(theta, B, phi, x, self.eta_i,
-                                    self.log_transform, self._fused_kind(),
-                                    self.likelihood_clip,
-                                    codes=self._codes_lane())
+        if not self._meshed():
+            return fused_poisson_loglik(theta, B, phi, x, self.eta_i,
+                                        self.log_transform,
+                                        self._fused_kind(),
+                                        self.likelihood_clip,
+                                        codes=self._codes_lane())
+        width = x.shape[-1]
+        return fused_poisson_loglik_sharded(
+            theta, B, phi, x, self._lane(self.eta_i, width), self.mesh,
+            self.log_transform, data_axis=self._row_mesh_axes(),
+            likelihood=self._fused_kind(),
+            codes=self._lane(self._codes_lane(), width),
+            clip=self.likelihood_clip)
 
     # ------------------------------------------------------ sparse energies
     def _coo_arrays(self, data):
@@ -564,21 +727,28 @@ class PoissonFactorization(BayesianModel):
                 data["indices"].shape[0])
 
     def _coo_encode_nz(self, rows, cols, vals, B, A, v, phi, eta,
-                       per_row=False):
+                       per_row=False, mesh=None):
         """Shared COO math: theta encoded from the triplets, and the
         nonzero likelihood term sum_nz [x log(rate) - lgamma(x+1)] (zero
         padding is an exact no-op: x = 0 and the rate floored positive).
         With ``per_row`` the nonzero term keeps the row axis, lead + (B,),
         for the row scorer; otherwise it is summed over rows, lead. Sample
         dims are flattened into the gathered width: (B, L*K) and (D, L*K)
-        tables."""
+        tables. With ``mesh`` the triplets are this rank's share and the
+        segment sums, row sums and nonzero sums are summed over the mesh
+        (the row scaling after the sum, so each row's full triplet set
+        counts whatever rank holds it)."""
         from spmf_tpu_torch.ops.sparse_encode import sparse_encode_coo
 
         theta = sparse_encode_coo(rows, cols, vals, B, A, self.eta_i,
                                   self.log_transform, xi_global=None)
+        if mesh is not None:
+            theta = mesh.all_sum(theta)
         if self.scale_rows:
             rowsums = torch.zeros(B, dtype=vals.dtype,
                                   device=vals.device).index_add(0, rows, vals)
+            if mesh is not None:
+                rowsums = mesh.all_sum_(rowsums)
             theta = theta * (rowsums / self.xi_u_global)[:, None]
         K = theta.shape[-1]
         lead = theta.shape[:-2]
@@ -607,6 +777,8 @@ class PoissonFactorization(BayesianModel):
             nz_term = nz_row.movedim(0, -1).reshape(lead + (B,))
         else:
             nz_term = (x_log_rate.sum(0) - lgx.sum()).reshape(lead)
+        if mesh is not None:
+            nz_term = mesh.all_sum(nz_term)
         return theta, nz_term
 
     def _coo_log_prob_parts(self, data, prior_parts, params):
@@ -618,14 +790,12 @@ class PoissonFactorization(BayesianModel):
         Poisson log-likelihood is finite by construction here, so the
         reference's data-dependent clip is a no-op and is not applied (as in
         the JAX package)."""
-        rows, cols, vals, B = self._coo_arrays(data)
-        A = self.encoding_matrix(params["u"], params["s"])   # (..., D, K)
-        v = self.decoding_matrix(params["v"])                # (..., K, D)
-        phi = self.intercept_matrix(params["w"], params["s"])  # (..., 1, D)
+        rows, cols, vals, B, A, v, phi, mesh = self._coo_operands(data,
+                                                                  params)
         D = v.shape[-1]
         eta = self.eta_i.broadcast_to((1, D))[0]
         theta, nz_term = self._coo_encode_nz(rows, cols, vals, B, A, v, phi,
-                                             eta)
+                                             eta, mesh=mesh)
         prior_parts["z"] = self._theta_prior_log_prob(theta)
         if self.log_transform:
             # rate = exp(tv*eta) - 1 + phi
@@ -639,6 +809,21 @@ class PoissonFactorization(BayesianModel):
             ) + B * torch.sum(phi, dim=(-1, -2))
         prior_parts["x"] = nz_term - total_rate
         return prior_parts
+
+    def _coo_operands(self, data, params):
+        """(rows, cols, vals, B, A, v, phi, mesh) of a triplet batch: on a
+        mesh this rank's share of the triplets and the full-width A, v and
+        phi (gathered over fp where the samples are slices), with the mesh
+        the sums run over; else the batch and None."""
+        rows, cols, vals, B = self._coo_arrays(data)
+        A = self.encoding_matrix(params["u"], params["s"])   # (..., D, K)
+        v = self.decoding_matrix(params["v"])                # (..., K, D)
+        phi = self.intercept_matrix(params["w"], params["s"])  # (..., 1, D)
+        if not self._meshed():
+            return rows, cols, vals, B, A, v, phi, None
+        rows, cols, vals = self._coo_share(rows, cols, vals)
+        return (rows, cols, vals, B, self._full_cols(A, -2),
+                self._full_cols(v, -1), self._full_cols(phi, -1), self.mesh)
 
     def _coo_log_prob_parts_blocked(self, data, prior_parts, params):
         """Blocked COO energy: the block-aligned layout (``coo_rowl`` /
@@ -712,8 +897,7 @@ class PoissonFactorization(BayesianModel):
                 if (pad_nnz is not None
                         and int(pad_nnz) < self._COO_ENERGY_MAX_DENSITY
                         * shape[0] * shape[1]
-                        and self._coo_energy_supported()
-                        and self._coo_energy_mesh_ok()):
+                        and self._coo_energy_supported()):
                     return False
             # record=False: a rejection routes to the COO energy (the
             # designed sparse path), not to the plain fallback, and the
@@ -738,9 +922,22 @@ class PoissonFactorization(BayesianModel):
                     "_DENSE_SCATTER_MAX_SLAB_BYTES)"
                 )
         rows, cols, vals, _ = self._coo_arrays(batch)
+        if self._meshed():
+            # this rank's tile: triplets outside it add 0 into cell (0, 0)
+            r0, r1 = self.mesh.local_rows(B)
+            c0, c1 = self.mesh.feature_slice(D)
+            keep = (rows >= r0) & (rows < r1) & (cols >= c0) & (cols < c1)
+            rows = torch.where(keep, rows - r0, 0)
+            cols = torch.where(keep, cols - c0, 0)
+            vals = torch.where(keep, vals, 0.0)
+            out = dict(batch, indices=batch["indices"][r0:r1])
+            B, D = r1 - r0, c1 - c0
+        else:
+            out = dict(batch)
         x = torch.zeros((B, D), dtype=self.dtype, device=self.device)
         x.index_put_((rows, cols), vals, accumulate=True)
-        return dict(batch, **{self.count_key: x})
+        out[self.count_key] = x
+        return out
 
     def _coo_energy_supported(self):
         """Whether the COO energies compute this model's likelihood: their
@@ -763,24 +960,17 @@ class PoissonFactorization(BayesianModel):
                 return False
         return True
 
-    def _coo_energy_mesh_ok(self):
-        """Whether the COO energies serve the model's device layout: always
-        on one device (the port has no meshes yet)."""
-        return True
-
     # ------------------------------------------------------------ scoring
     def _coo_row_log_likelihood(self, batch, samples):
         """Per-row Poisson log-likelihood over COO triplets without
         densifying (B, D). Identity link only: the per-row rate total
         collapses to theta_i . (v @ eta) + sum_j(phi_j), so each row's ll
         is [nonzero term] - [closed-form rate total] exactly."""
-        rows, cols, vals, B = self._coo_arrays(batch)
-        A = self.encoding_matrix(samples["u"], samples["s"])
-        v = self.decoding_matrix(samples["v"])
-        phi = self.intercept_matrix(samples["w"], samples["s"])
+        rows, cols, vals, B, A, v, phi, mesh = self._coo_operands(batch,
+                                                                  samples)
         eta = self.eta_i.broadcast_to((1, v.shape[-1]))[0]
         theta, nz_row = self._coo_encode_nz(rows, cols, vals, B, A, v, phi,
-                                            eta, per_row=True)
+                                            eta, per_row=True, mesh=mesh)
         v_eta = torch.sum(v * eta, dim=-1)                   # (..., K)
         row_rate = torch.einsum("...bk,...k->...b", theta, v_eta) \
             + torch.sum(phi, dim=(-1, -2))[..., None]
@@ -791,7 +981,10 @@ class PoissonFactorization(BayesianModel):
         batches take the COO row scorer where the training dispatch would
         not densify (identity link), else densify; dense batches stream the
         row kernel (K4) when fusion is active. Query only: the fusion
-        record of the last training dispatch is left as it is."""
+        record of the last training dispatch is left as it is. On a mesh
+        the rows are this rank's (a dense batch's tile; a COO batch's share
+        of its rows), each summed over every feature."""
+        samples = self._local_samples(samples)
         if isinstance(batch, dict) and "coo_rowl" in batch:
             batch = self._flatten_blocked_coo(batch)
         if isinstance(batch, dict) and "coo_vals" in batch:
@@ -799,31 +992,41 @@ class PoissonFactorization(BayesianModel):
                     batch["indices"].shape[0],
                     batch["coo_rows"].shape[-1])
                     and not self.log_transform
-                    and self._coo_energy_supported()
-                    and self._coo_energy_mesh_ok()):
-                return self._coo_row_log_likelihood(batch, samples)
+                    and self._coo_energy_supported()):
+                out = self._coo_row_log_likelihood(batch, samples)
+                if self._meshed():
+                    r0, r1 = self.mesh.local_rows(out.shape[-1])
+                    out = out[..., r0:r1]
+                return out
             batch = self._densify_coo(batch)
-        x = self._counts(batch)
-        if self._can_fuse(tuple(x.shape), record=False):
+        x = self._local_cols(self._counts(batch))
+        if self._can_fuse(self._global_shape(x.shape), record=False):
             from spmf_tpu_torch.ops.fused_poisson import (
                 fused_poisson_row_loglik,
+                fused_poisson_row_loglik_sharded,
             )
 
             theta = self.encode(x, samples["u"], samples["s"])
             phi = self.intercept_matrix(samples["w"], samples["s"])
             B = self.decoding_matrix(samples["v"])
             squeeze = theta.dim() == 2
-            out = fused_poisson_row_loglik(
-                theta[None] if squeeze else theta,
-                B[None] if squeeze else B,
-                phi[None] if squeeze else phi,
-                x, self.eta_i, log_transform=self.log_transform,
-                likelihood=self._fused_kind(), codes=self._codes_lane(),
-            ).to(self.dtype)
+            args = (theta[None] if squeeze else theta,
+                    B[None] if squeeze else B,
+                    phi[None] if squeeze else phi, x,
+                    self._lane(self.eta_i, x.shape[-1]))
+            kw = dict(log_transform=self.log_transform,
+                      likelihood=self._fused_kind(),
+                      codes=self._lane(self._codes_lane(), x.shape[-1]))
+            if self._meshed():
+                out = fused_poisson_row_loglik_sharded(
+                    *args, self.mesh, data_axis=self._row_mesh_axes(), **kw)
+            else:
+                out = fused_poisson_row_loglik(*args, **kw)
+            out = out.to(self.dtype)
             return out[0] if squeeze else out
         ll = self.log_likelihood_components(data=x, **samples)[
             "log_likelihood"]
-        return torch.sum(ll, dim=-1)                         # (S, B)
+        return self._feature_sum(torch.sum(ll, dim=-1), x.shape[-1])
 
     def _can_fuse(self, batch_shape=None, record=True):
         """Fused kernel only for the stock decode path. A rejection
@@ -856,6 +1059,16 @@ class PoissonFactorization(BayesianModel):
             return False, "fused_likelihood=False (CPU default)"
         if self._fused_kind() is None:
             return False, "model family has no fused-kernel likelihood"
+        if batch_shape is not None and self._meshed():
+            for dim, ax in zip(batch_shape[-2:], (self._row_mesh_axes(),
+                                                  ("fp",))):
+                nsh = self.mesh.size_of([a for a in ax
+                                         if a in self.mesh.axis_names])
+                if dim % nsh:
+                    return False, (
+                        f"batch dim {dim} does not divide mesh axes "
+                        f"{ax!r} (total {nsh} shards) — pad the "
+                        "batch/feature dim to a multiple")
         mro = type(self).__mro__
         kind_depth = _def_depth(mro, "_fused_kind")
         if _def_depth(mro, "_observation_distribution") < kind_depth:

@@ -52,7 +52,9 @@ from spmf_tpu_torch.ops import _build
 __all__ = ["CODE_BERNOULLI", "CODE_NORMAL", "CODE_POISSON", "FLOOR",
            "LAUNCHES", "LaunchGeometry", "bernoulli_loglik_reference",
            "expsum_twin", "fused_exp_rate_sum", "fused_poisson_loglik",
-           "fused_poisson_row_loglik", "kernel_info", "launch_geometry",
+           "fused_poisson_loglik_sharded", "fused_poisson_row_loglik",
+           "fused_poisson_row_loglik_sharded", "kernel_info",
+           "launch_geometry",
            "lgamma_table", "normal_loglik_reference",
            "poisson_loglik_reference", "row_loglik_twin", "stats_twin"]
 
@@ -557,6 +559,81 @@ def fused_poisson_loglik(theta, v, phi, x, eta, log_transform=False,
         return ssum
     m = _floor_min_val(gmin - 10.0)
     return ssum + cnt.to(f32) * m[0]
+
+
+def _row_axes(mesh, data_axis):
+    """Live row-sharding mesh axes as a tuple (or None): ``data_axis`` may
+    be one name ('dp') or a joint tuple (('dcn', 'dp') on a multi-slice
+    mesh, where rows shard over both)."""
+    names = (data_axis if isinstance(data_axis, (tuple, list))
+             else (data_axis,))
+    live = tuple(a for a in names
+                 if a in mesh.axis_names and mesh.shape[a] > 1)
+    return live or None
+
+
+def _mesh_axes(mesh, data_axis, feature_axis):
+    """(row axes or None, the fp axis or None) of ``mesh``."""
+    fp = (feature_axis if feature_axis in mesh.axis_names
+          and mesh.shape[feature_axis] > 1 else None)
+    return _row_axes(mesh, data_axis), fp
+
+
+def fused_poisson_loglik_sharded(theta, v, phi, x, eta, mesh,
+                                 log_transform=False, data_axis="dp",
+                                 feature_axis="fp", likelihood="poisson",
+                                 codes=None, clip="reference"):
+    """The clipped log-likelihood of the whole batch, (S,) float32 on
+    every rank, from this rank's tile (the port of spmf_tpu's
+    ``fused_poisson_loglik_sharded``): theta (S, B/dp, K) of its rows,
+    v (S, K, D/fp), phi (S, 1, D/fp), x (B/dp, D/fp), eta and ``codes``
+    (1, D/fp) of its columns. One K1 launch on the tile (K2 at
+    ``clip='static'``), then across the row and fp ranks: the MIN of the
+    finite minima (which start at 0.0) and the SUM of the clipped-cell
+    counts, both without gradient, and the differentiable SUM of the
+    sums; the bound ``m = _floor_min_val(gmin - 10)`` combines as on one
+    device. At ``clip='static'`` the one collective is the SUM."""
+    _check_likelihood(likelihood, codes)
+    if clip not in ("reference", "static"):
+        raise ValueError(f"unknown clip mode {clip!r}")
+    rows, fp = _mesh_axes(mesh, data_axis, feature_axis)
+    axes = (rows or ()) + ((fp,) if fp is not None else ())
+    if not axes:
+        return fused_poisson_loglik(theta, v, phi, x, eta, log_transform,
+                                    likelihood, clip, codes)
+    f32 = torch.float32
+    theta = theta.to(f32).contiguous()
+    v = v.to(f32).contiguous()
+    phi = phi.to(f32).contiguous()
+    x = torch.as_tensor(x, device=theta.device).to(f32).contiguous()
+    eta = _f32_lane(eta, x.shape[-1], theta.device)
+    codes = _f32_lane(codes, x.shape[-1], theta.device)
+    ssum, cnt, gmin = _FusedStats.apply(theta, v, phi, x, eta,
+                                        log_transform, clip == "static",
+                                        likelihood, codes)
+    total = mesh.all_sum(ssum, axes)
+    if clip == "static":
+        return total
+    gmin = mesh.all_min_(gmin.clone(), axes)
+    cnt = mesh.all_sum_(cnt.clone(), axes)
+    m = _floor_min_val(gmin - 10.0)
+    return total + cnt.to(f32) * m[0]
+
+
+def fused_poisson_row_loglik_sharded(theta, v, phi, x, eta, mesh,
+                                     log_transform=False, data_axis="dp",
+                                     feature_axis="fp", likelihood="poisson",
+                                     codes=None):
+    """Per-row log-likelihood sums of this rank's rows, (S, B/dp) float32
+    (the port of spmf_tpu's ``fused_poisson_row_loglik_sharded``): K4 on
+    the tile, then the SUM over the fp line; rows stay where they are.
+    Inputs as in ``fused_poisson_loglik_sharded``. No gradient."""
+    rows, fp = _mesh_axes(mesh, data_axis, feature_axis)
+    out = fused_poisson_row_loglik(theta, v, phi, x, eta, log_transform,
+                                   likelihood, codes)
+    if fp is not None:
+        out = mesh.all_sum_(out, (fp,))
+    return out
 
 
 def _f32_lane(lane, D, device):

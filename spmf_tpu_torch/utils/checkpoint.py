@@ -10,6 +10,10 @@ the other. A full fit state adds the optimizer leaves as ``opt_{i}``
 (``utils.convert.adam_state_to_numpy`` gives them in optax's order) and the
 control state as the ``__fit_state__`` JSON dict (lr, best_loss, stall,
 epoch). Files are read with ``np.load(..., allow_pickle=False)``.
+
+On a rank mesh a checkpoint holds the whole variables: each rank's fp
+slice is gathered (``gather_shard``, a collective every rank joins) and
+rank 0 alone writes (``writes_files``).
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["flatten_jax_order", "unflatten_jax_order", "treedef_string",
-           "save_pytree", "load_pytree", "save_fit_state", "load_fit_state"]
+           "save_pytree", "load_pytree", "save_fit_state", "load_fit_state",
+           "gather_shard", "writes_files"]
 
 
 def flatten_jax_order(tree):
@@ -134,3 +139,19 @@ def load_fit_state(path, params_like):
         meta = (json.loads(str(zf["__fit_state__"]))
                 if "__fit_state__" in zf else None)
     return unflatten_jax_order(flat, params_like), (opt or None), meta
+
+
+def gather_shard(t, axis, mesh):
+    """The whole of a variable whose fp slice along ``axis`` this rank
+    holds (``axis`` None: ``t`` is whole already), as a host array. A
+    collective: every rank of the mesh calls it, in the same order."""
+    t = torch.as_tensor(t)
+    if axis is not None and mesh is not None:
+        t = mesh.gather(t, axis, (mesh.fp_axis,))
+    return to_numpy(t)
+
+
+def writes_files(mesh):
+    """Whether this rank writes checkpoint files: rank 0 of a mesh, or the
+    one process."""
+    return mesh is None or mesh.rank == 0

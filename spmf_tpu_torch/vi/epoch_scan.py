@@ -23,6 +23,13 @@ learning rate, creates its state before the first step and restores it in
 place, and the best epoch's state lives in fixed buffers the decisions
 write in place. A failed capture raises; nothing falls back to the eager
 loop.
+
+On a rank mesh (a ``DeviceArrayDataset``; sparse sources keep the general
+loop there, as in spmf_tpu) every rank holds all rows of its columns of the
+resident tensors, draws the same global permutation from the engine's
+generator (seeded alike on every rank) and gathers its rows of each batch.
+With more than one rank the step runs uncaptured: its collectives stage
+through the host, which a CUDA graph cannot hold.
 """
 from __future__ import annotations
 
@@ -52,14 +59,25 @@ def _processes():
     return 1
 
 
-def scan_source(batched_data_factory, epoch_scan):
+def scan_source(batched_data_factory, epoch_scan, mesh=None):
     """The device-resident source whose epochs the scan path runs, or None
     for the general loop. ``epoch_scan=None`` (auto) engages for a
     ``DeviceArrayDataset`` or ``DeviceSparseCounts`` source in a single
-    process, ``False`` never, and ``True`` raises where it cannot."""
+    process, or a ``DeviceArrayDataset`` on a rank mesh (``mesh``, not
+    trivial), ``False`` never, and ``True`` raises where it cannot."""
     if epoch_scan is False:
         return None
     src = getattr(batched_data_factory, "source", None)
+    if mesh is not None and not mesh.trivial:
+        if isinstance(src, DeviceArrayDataset):
+            return src
+        if epoch_scan:
+            raise ValueError(
+                "epoch_scan=True requires a DeviceArrayDataset source "
+                "(meshes are fine) or a DeviceSparseCounts source (on a "
+                f"trivial mesh); got source={type(src).__name__}, "
+                f"mesh={mesh.shape}")
+        return None
     if (isinstance(src, (DeviceArrayDataset, DeviceSparseCounts))
             and _processes() == 1):
         return src
@@ -224,7 +242,8 @@ class EpochScan:
     batch."""
 
     def __init__(self, ds, step: Callable, state: Callable[[], List],
-                 generator, dtype, device, capture: bool, remat=None):
+                 generator, dtype, device, capture: bool, remat=None,
+                 mesh=None):
         self.ds = ds
         self.remat = remat
         self.step = step
@@ -252,6 +271,14 @@ class EpochScan:
             nb = n // bs
             rem = 0 if ds._drop_remainder else n % bs
             self.tensors = {k: cast(v) for k, v in ds.tensors.items()}
+            if mesh is not None:
+                # every row of this rank's columns (the permutation is
+                # global)
+                for k, v in self.tensors.items():
+                    if v.dim() >= 2 and v.shape[1] > 1 \
+                            and v.shape[1] % mesh.fp == 0:
+                        c0, c1 = mesh.feature_slice(v.shape[1])
+                        self.tensors[k] = v[:, c0:c1].contiguous()
             self.extras = {}
         self.n_perm = n
         if self.blocked:
@@ -281,8 +308,12 @@ class EpochScan:
                                   device=device)
         self.nnz = (torch.zeros(nb, dtype=torch.int64, device=device)
                     if self.sparse else None)
-        self.arange = torch.arange(self.rb if self.blocked else bs,
-                                   device=device)
+        # the batch positions this rank gathers: all of them, or its rows
+        lo, hi = (0, self.rb if self.blocked else bs) if mesh is None \
+            else mesh.local_rows(bs)
+        self.arange = torch.arange(lo, hi, device=device)
+        self.rem_rows = (0, rem) if mesh is None or not rem \
+            else mesh.local_rows(rem)
         self.perm = None      # this epoch's permutation (int32)
         self.perms = None     # the drawn epochs' permutations, and the next
         self.next_perm = 0
@@ -322,7 +353,8 @@ class EpochScan:
         self.counter.add_(1)
 
     def _rem_step(self):
-        rows = self.perm[self.nb * self.bs:]
+        lo, hi = self.rem_rows
+        rows = self.perm[self.nb * self.bs + lo:self.nb * self.bs + hi]
         loss = self.step({k: v.index_select(0, rows)
                           for k, v in self.tensors.items()})
         self.losses[self.nb:].copy_(loss.reshape(1).to(self.losses.dtype))

@@ -22,6 +22,19 @@ or K to a chunk (``epoch_chunk``), with the decisions made on the device
 after each epoch and replayed on the host from one fetch a chunk. A host
 source's batches are assembled and moved to the device ``prefetch``
 batches ahead in a worker thread (``data/prefetch.py``).
+
+On a rank mesh (``mesh=``, ``parallel.Mesh``) every rank runs this loop
+over the same global batch sequence and keeps its part of each batch: its
+rows and, with an fp axis, its columns (a sparse batch stays whole; the
+COO energies split its triplets). With ``param_sharding`` 'fp' (or 'auto'
+on an fp mesh) each rank holds its slice of the feature dim of the
+variables the surrogate maps to a feature axis. The energy returns the
+whole batch's energy on every rank, so each rank computes the one global
+loss L; it backpropagates L / ranks, and each gradient is summed over the
+ranks that hold the same copy of its parameter (one flat bucket a group)
+before the clip and Adam. Decisions read the global loss, so every rank
+takes the same branch. Checkpoints gather the slices and rank 0 writes;
+the returned parameters are whole on every rank.
 """
 from __future__ import annotations
 
@@ -40,12 +53,21 @@ import numpy as np
 import torch
 
 from spmf_tpu_torch.data.prefetch import prefetch_batches
+from spmf_tpu_torch.parallel import collectives as _coll
+from spmf_tpu_torch.parallel.mesh import (
+    _is_coo,
+    shard_batch,
+    shard_params_feature_dim,
+)
 from spmf_tpu_torch.vi import epoch_scan as _scan
 from spmf_tpu_torch.vi.remat import RematDraw
 from spmf_tpu_torch.utils.checkpoint import (
+    flatten_jax_order,
+    gather_shard,
     load_fit_state,
     save_fit_state,
     save_pytree,
+    writes_files,
 )
 from spmf_tpu_torch.utils.convert import (
     adam_leaf_count,
@@ -89,6 +111,90 @@ def _batch_rows(batch):
         if k in batch:
             return batch[k].shape[0]
     return next(iter(batch.values())).shape[0]
+
+
+class _MeshPlan:
+    """How one fit lays its state out on a rank mesh: which parameter
+    leaves hold this rank's fp slice (``split``: name -> axis), the
+    gradient buckets, and each batch's part on this rank."""
+
+    def __init__(self, mesh, surrogate, param_sharding):
+        self.mesh = mesh
+        split_fn = getattr(surrogate, "_split_axis", None)
+        fp_params = (param_sharding != "replicated"
+                     and mesh.fp_axis is not None and split_fn is not None
+                     and getattr(surrogate, "mesh", None) is mesh)
+        self.split = {n: split_fn(n) for n in surrogate.surrogates
+                      if fp_params and split_fn(n) is not None}
+
+    def local_params(self, params):
+        """This rank's slices of the split variables (the surrogate's
+        feature axes are ``shard_params_feature_dim``'s)."""
+        return shard_params_feature_dim(params, self.mesh) if self.split \
+            else params
+
+    @staticmethod
+    def _moments(params):
+        """(variable name, the indices of its first and second moments) of
+        each leaf of optax's flat Adam state, in its order."""
+        names = flatten_jax_order({n: {k: n for k in sub}
+                                   for n, sub in params.items()})
+        L = len(names)
+        return [(n, (3 + j, 3 + L + j)) for j, n in enumerate(names)]
+
+    def local_opt(self, leaves, params):
+        """optax's flat Adam leaves of the whole variables, with the moments
+        of the split ones at this rank's slice."""
+        out = list(leaves)
+        for n, idx in self._moments(params):
+            ax = self.split.get(n)
+            for i in idx if ax is not None else ():
+                a = np.asarray(out[i])
+                c0, c1 = self.mesh.feature_slice(a.shape[ax])
+                out[i] = np.take(a, np.arange(c0, c1), axis=ax)
+        return out
+
+    def full_params(self, params):
+        """The whole variables on every rank (a collective)."""
+        return {n: {k: torch.as_tensor(gather_shard(t, self.split.get(n),
+                                                    self.mesh)).to(t.device)
+                    for k, t in sub.items()} for n, sub in params.items()}
+
+    def full_opt(self, leaves, params):
+        """optax's flat Adam leaves with the split moments gathered whole
+        (a collective)."""
+        out = list(leaves)
+        device = _leaves(params)[0].device
+        for n, idx in self._moments(params):
+            for i in idx:
+                out[i] = gather_shard(torch.as_tensor(out[i]).to(device),
+                                      self.split.get(n), self.mesh)
+        return out
+
+    def buckets(self, params):
+        """(group, leaves) of the gradient reduction: the split leaves over
+        the row ranks (each fp line holds its own slices), the others over
+        the whole mesh; a group of one rank is left out."""
+        split = [t for n, sub in params.items() if n in self.split
+                 for t in sub.values()]
+        whole = [t for n, sub in params.items() if n not in self.split
+                 for t in sub.values()]
+        out = []
+        for axes, leaves in ((self.mesh.row_axes, split),
+                             (self.mesh.live_axes, whole)):
+            group = self.mesh.group(axes)
+            if group is not None and leaves:
+                out.append((group, leaves))
+        return out
+
+    def batch(self, batch):
+        """This rank's part of a global batch."""
+        return shard_batch(batch, self.mesh)
+
+    def rows(self, batch):
+        """The rows of the global batch whose part is ``batch``."""
+        n = _batch_rows(batch)
+        return n if _is_coo(batch) else n * self.mesh.rows
 
 
 def _leaves(params):
@@ -175,12 +281,13 @@ def _restore(tensors, snapshot):
 
 def elbo_loss(surrogate, energy_fn, params, batch, generator, sample_size,
               prior_weight=1.0, sample_batches=1, antithetic=False,
-              draws=None, draw=None):
+              draws=None, draw=None, rows=None):
     """-ELBO / rows of one batch, estimated from ``sample_size`` x
     ``sample_batches`` surrogate samples (``draws``: injected base draws,
     tests only). ``draw(params, j) -> (samples, logq)``: the engine's draw
     of sample batch j (the STL and rematerialised forms), in place of the
-    surrogate's plain ``sample_and_log_prob``."""
+    surrogate's plain ``sample_and_log_prob``. ``rows``: the global batch's
+    rows where ``batch`` is a rank's part of it."""
     total = 0.0
     for j in range(sample_batches):
         if draw is None:
@@ -191,7 +298,8 @@ def elbo_loss(surrogate, energy_fn, params, batch, generator, sample_size,
             samples, logq = draw(params, j)
         lp = energy_fn(batch, samples, prior_weight)
         total = total + torch.mean(lp - logq)
-    return -(total / sample_batches) / _batch_rows(batch)
+    return -(total / sample_batches) / (_batch_rows(batch) if rows is None
+                                        else rows)
 
 
 def clip_and_step(optimizer, clip_value):
@@ -238,6 +346,8 @@ def fit_surrogate_posterior(
     prefetch: int = 2,
     profile_dir: Optional[str] = None,
     remat_sampling: Optional[bool] = None,
+    mesh=None,
+    param_sharding: str = "auto",
 ) -> FitResult:
     """Run minibatch ADVI. The displayed per-batch loss is -ELBO / rows,
     the ELBO estimated by ``sample_size`` x ``sample_batches`` samples;
@@ -282,7 +392,15 @@ def fit_surrogate_posterior(
     the samples without keeping their graph and draw them again in the
     backward from the same generator state (``vi/remat.py``); None turns it
     on unless the surrogate's sampler is 'fused', whose replay backward
-    keeps no residuals already (rematerialising it re-runs the kernel)."""
+    keeps no residuals already (rematerialising it re-runs the kernel).
+
+    ``mesh``: a ``parallel.Mesh`` of the ranks that run this fit together
+    (see the module docstring; a mesh whose axes all have size 1 changes
+    nothing); the energy must return the global energy on every rank.
+    ``param_sharding``: 'auto' (split the feature dim over an fp axis),
+    'fp' or 'replicated'. With more than one rank the scan path runs
+    uncaptured: the collectives stage through the host and cannot sit in
+    a CUDA graph (``extras['captured']``, ``extras['capture_reason']``)."""
     say = print if verbose else (lambda *a, **k: None)
     if elbo_estimator not in ("standard", "stl"):
         raise ValueError(f"unknown elbo_estimator {elbo_estimator!r}")
@@ -294,7 +412,14 @@ def fit_surrogate_posterior(
 
     if epoch_chunk is not None and epoch_chunk < 1:
         raise ValueError(f"epoch_chunk must be >= 1, got {epoch_chunk}")
-    scan_ds = _scan.scan_source(batched_data_factory, epoch_scan)
+    if param_sharding not in ("auto", "fp", "replicated"):
+        raise ValueError(f"unknown param_sharding {param_sharding!r}: "
+                         "'auto', 'fp' or 'replicated'")
+    if mesh is not None and mesh.trivial:
+        mesh = None
+    plan = (None if mesh is None
+            else _MeshPlan(mesh, surrogate, param_sharding))
+    scan_ds = _scan.scan_source(batched_data_factory, epoch_scan, mesh)
     explicit_chunk = epoch_chunk is not None and epoch_chunk > 1
     if explicit_chunk and scan_ds is None:
         raise ValueError(
@@ -323,8 +448,17 @@ def fit_surrogate_posterior(
         say(f"Resumed surrogate params from {path}")
     params = {n: {k: torch.as_tensor(t).detach()
                   .to(device=device, dtype=dtype).clone()
-                  .requires_grad_(True) for k, t in sub.items()}
+                  for k, t in sub.items()}
               for n, sub in params.items()}
+    full_like = params
+    if plan is not None:
+        # every rank from rank 0's values, then this rank's slices
+        params = plan.local_params(_like(params, [
+            mesh.broadcast_(t) for t in _leaves(params)]))
+        if resume_opt is not None:
+            resume_opt = plan.local_opt(resume_opt, full_like)
+    for t in _leaves(params):
+        t.requires_grad_(True)
     leaves = _leaves(params)
     generator = torch.Generator(device=device).manual_seed(int(seed))
 
@@ -361,9 +495,12 @@ def fit_surrogate_posterior(
                 "optimizer state)", RuntimeWarning)
             resume_meta = None
     # the scan path on the card runs the step in a CUDA graph, which needs
-    # Adam's capturable mode
-    _settle_optimizer(optimizer, scan_ds is not None
-                      and device.type == "cuda")
+    # Adam's capturable mode; the eager scan keeps the mode, so that the
+    # two agree bit for bit (several ranks' collectives stage through the
+    # host, so a meshed scan runs eagerly)
+    card_scan = scan_ds is not None and device.type == "cuda"
+    _settle_optimizer(optimizer, card_scan)
+    capture = card_scan and _scan._CAPTURE and mesh is None
     opt_tensors = _adam_tensors(optimizer)
 
     def draw(p, j=0):
@@ -383,12 +520,21 @@ def fit_surrogate_posterior(
     def _loss(batch):
         return elbo_loss(surrogate, energy_fn, params, batch, generator,
                          sample_size, prior_weight, sample_batches,
-                         antithetic, draw=draw if remat is None else remat)
+                         antithetic, draw=draw if remat is None else remat,
+                         rows=None if plan is None else plan.rows(batch))
+
+    buckets = [] if plan is None else plan.buckets(params)
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
         loss = _loss(batch)
-        loss.backward()
+        if plan is None:
+            loss.backward()
+        else:
+            # every rank holds the global loss: each backpropagates its
+            # share, and the copies' gradients are summed
+            (loss / mesh.size).backward()
+            _coll.reduce_gradients(buckets)
         clip_and_step(optimizer, clip_value)
         return loss.detach()
 
@@ -398,6 +544,8 @@ def fit_surrogate_posterior(
               else None)
 
     def to_device(b):
+        if plan is not None:
+            b = plan.batch(b)
         with torch.cuda.stream(stream):      # None: no stream to set
             return _device_batch(b, dtype, device)
 
@@ -436,6 +584,12 @@ def fit_surrogate_posterior(
                if np.float32(learning_rate) != np.float32(lr) else ""))
     ckpt_path = None
     run_id = str(uuid.uuid4())
+    if mesh is not None and checkpoint_dir is not None:
+        # every rank agrees on the run directory and file names (rank 0's
+        # files are the checkpoint)
+        code = torch.tensor(list(run_id.encode("ascii")), dtype=torch.int64,
+                            device=device)
+        run_id = bytes(mesh.broadcast_(code).tolist()).decode("ascii")
     if checkpoint_dir is not None:
         ckpt_path = os.path.join(checkpoint_dir, run_id)
         os.makedirs(ckpt_path, exist_ok=True)
@@ -459,15 +613,21 @@ def fit_surrogate_posterior(
         t_write = time.perf_counter()
         tag = epoch + epoch_offset
         path = os.path.join(ckpt_path, f"{run_id}-{tag}.npz")
+        tree = best_params if plan is None else plan.full_params(best_params)
         if checkpoint_full_state:
             c_loss, c_stall, c_lr = control
-            save_fit_state(path, best_params,
-                           adam_state_to_numpy(optimizer, params,
-                                               state=best_adam, lr=opt_lr),
-                           meta={"lr": _f32(c_lr), "best_loss": float(c_loss),
-                                 "stall": int(c_stall), "epoch": tag})
-        else:
-            save_pytree(path, best_params)
+            opt = adam_state_to_numpy(optimizer, params, state=best_adam,
+                                      lr=opt_lr)
+            if plan is not None:
+                # gathered before the rank-0 gate: every rank joins
+                opt = plan.full_opt(opt, best_params)
+            if writes_files(mesh):
+                save_fit_state(path, tree, opt,
+                               meta={"lr": _f32(c_lr),
+                                     "best_loss": float(c_loss),
+                                     "stall": int(c_stall), "epoch": tag})
+        elif writes_files(mesh):
+            save_pytree(path, tree)
         checkpoint_seconds.append(time.perf_counter() - t_write)
         say(f"Saved a checkpoint: {path}")
 
@@ -531,7 +691,7 @@ def fit_surrogate_posterior(
     if scan_ds is not None:
         scan = _scan.EpochScan(
             scan_ds, step, lambda: state, generator, dtype, device,
-            capture=device.type == "cuda" and _scan._CAPTURE, remat=remat)
+            capture=capture, remat=remat, mesh=mesh)
     chunk_size = epoch_chunk if explicit_chunk else 0
     chunk_used = 0
     decide = None          # the chunk path's EpochDecisions
@@ -661,8 +821,15 @@ def fit_surrogate_posterior(
             scan.close()
             optimizer.zero_grad(set_to_none=True)
 
+    extras = {}
+    if scan is not None:
+        extras["captured"] = scan.capture
+        if mesh is not None:
+            extras["capture_reason"] = (
+                f"{mesh.size} ranks: the collectives stage through the host "
+                "and cannot sit in a CUDA graph")
     return FitResult(
-        params=best_params,
+        params=best_params if plan is None else plan.full_params(best_params),
         losses=losses,
         learning_rate=lr,
         opt_state=optimizer.state_dict(),
@@ -675,5 +842,5 @@ def fit_surrogate_posterior(
                 # each checkpoint write: the copy to the host and the npz
                 "checkpoint_seconds": checkpoint_seconds,
                 # the returned params are the best before the interrupt
-                "interrupted": interrupted},
+                "interrupted": interrupted, **extras},
     )

@@ -155,10 +155,18 @@ class SurrogatePosterior:
     fused_normals = False
 
     def __init__(self, surrogates: Dict[str, TransformedSurrogate],
-                 gamma_sampler: str = "exact", broadcast_names=()):
+                 gamma_sampler: str = "exact", broadcast_names=(),
+                 mesh=None, feature_axes=None, feature_axis="fp"):
         if gamma_sampler not in ("exact", "fast", "fused"):
             raise ValueError(f"unknown gamma_sampler {gamma_sampler!r}")
         self.gamma_sampler = gamma_sampler
+        #: the rank mesh and each variable's feature axis (the axis of
+        #: ``surrogates[name].shape`` that carries D; None: replicated):
+        #: with parameters that hold this rank's fp slice, see
+        #: ``sample_and_log_prob``
+        self.mesh = mesh
+        self.feature_axes = dict(feature_axes or {})
+        self.feature_axis = feature_axis
         self.broadcast_names = frozenset(broadcast_names)
         self.surrogates = dict(surrogates)
         self._normal_names = [n for n, s in self.surrogates.items()
@@ -333,6 +341,129 @@ class SurrogatePosterior:
                 and all(isinstance(self.surrogates[n].bijector, tfb.Softplus)
                         for n in names))
 
+    # ------------------------------------------------------------ meshes
+    def _fp_size(self):
+        if self.mesh is None or self.feature_axis not in self.mesh.axis_names:
+            return 1
+        return int(self.mesh.shape[self.feature_axis])
+
+    def _split_axis(self, name):
+        """The axis of ``name`` that fp splits, or None."""
+        nsh = self._fp_size()
+        ax = self.feature_axes.get(name)
+        if nsh <= 1 or ax is None:
+            return None
+        dim = self.surrogates[name].shape[ax]
+        return ax if dim > 1 and dim % nsh == 0 else None
+
+    def _is_slice(self, name, t):
+        ax = self._split_axis(name)
+        return ax is not None and t.shape[ax] != self.surrogates[name].shape[ax]
+
+    def _holds_slices(self, params):
+        """Whether ``params`` holds this rank's fp slices (rather than the
+        full variables)."""
+        if self._fp_size() <= 1:
+            return False
+        return any(self._is_slice(n, t) for n in self.surrogates
+                   if n in params for t in params[n].values())
+
+    def _gathered(self, names, params):
+        """``params`` of ``names`` with every fp slice gathered to the full
+        variable: one flat buffer and one differentiable gather over the fp
+        line (its backward keeps this rank's block of the summed
+        cotangent)."""
+        split = [(n, k) for n in names for k, t in params[n].items()
+                 if self._is_slice(n, t)]
+        out = {n: dict(params[n]) for n in names}
+        if not split:
+            return out
+        mesh, fp = self.mesh, self._fp_size()
+        moved = [params[n][k].movedim(self._split_axis(n), 0)
+                 for n, k in split]
+        flat = torch.cat([m.reshape(-1) for m in moved])
+        full = mesh.gather(flat, 0, (self.feature_axis,), grad=True)
+        full = full.reshape(fp, -1)
+        off = 0
+        for (n, k), m in zip(split, moved):
+            blk = full[:, off:off + m.numel()].reshape((fp,) + m.shape)
+            off += m.numel()
+            out[n][k] = blk.reshape((fp * m.shape[0],) + m.shape[1:]) \
+                .movedim(0, self._split_axis(n))
+        return out
+
+    def _local_values(self, values):
+        """This rank's columns of the fp-split variables among ``values``
+        (with any leading sample axes)."""
+        out = dict(values)
+        for n, v in values.items():
+            ax = self._split_axis(n)
+            if ax is None:
+                continue
+            shape = self.surrogates[n].shape
+            dim = ax - len(shape)
+            if v.shape[dim] == shape[ax]:      # not a slice yet
+                c0, c1 = self.mesh.feature_slice(shape[ax])
+                out[n] = v.narrow(dim, c0, c1 - c0)
+        return out
+
+    def _fused_igs_sharded_ok(self, names, sample_shape):
+        """The fused IG sampler on an fp mesh: the fused rules hold and
+        every fp-carrying variable's feature dim splits evenly (replicated
+        variables take the plain kernel, the same on every rank)."""
+        if self._fp_size() <= 1 or not self._fused_igs_ok(names,
+                                                          sample_shape):
+            return False
+        for n in names:
+            ax = self.feature_axes.get(n)
+            if ax is None:
+                continue
+            dim = self.surrogates[n].shape[ax]
+            if dim > 1 and dim % self._fp_size():
+                return False
+        return True
+
+    def _sample_igs_fused_sharded(self, names, params, generator,
+                                  sample_shape, antithetic=False):
+        """The fused IG block on an fp mesh (spmf_tpu's
+        ``_sample_igs_fused_sharded``): replicated variables through one
+        plain K3 call, the same seed on every rank; the fp-split variables
+        through one K3 call on this rank's slices with seed ``base +
+        fp_index`` (the base drawn from the generator, the sum kept on the
+        device), and their log q partials summed over the fp line."""
+        sharded = [n for n in names if self._split_axis(n) is not None]
+        repl = [n for n in names if n not in sharded]
+        values, logq = {}, 0.0
+        if repl:
+            values, logq = self._sample_igs_fused(repl, params, generator,
+                                                  sample_shape, antithetic)
+        if not sharded:
+            return values, logq
+        local = self._local_values({n: params[n]["raw_concentration"]
+                                    for n in sharded})
+        local_b = self._local_values({n: params[n]["raw_scale"]
+                                      for n in sharded})
+        a_flat = torch.cat([_softplus.forward(local[n]).reshape(-1)
+                            for n in sharded])
+        b_flat = torch.cat([_softplus.forward(local_b[n]).reshape(-1)
+                            for n in sharded])
+        S = sample_shape[0] if sample_shape else 1
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             dtype=torch.int32, device=self.device) \
+            + self.mesh.fp_index
+        y, lq = self._ig_kernel(a_flat, b_flat, seed, S,
+                                antithetic=antithetic)
+        off = 0
+        for n in sharded:
+            shape = tuple(local[n].shape)
+            sz = local[n].numel()
+            block = y[:, off:off + sz]
+            off += sz
+            values[n] = (block.reshape(sample_shape + shape) if sample_shape
+                         else block[0].reshape(shape))
+        lq = self.mesh.all_sum(lq, (self.feature_axis,))
+        return values, logq + (lq if sample_shape else lq[0])
+
     def _ig_kernel(self, a_flat, b_flat, seed, S, antithetic=False):
         from spmf_tpu_torch.ops.fused_ig import fused_ig_sample_logq
 
@@ -361,6 +492,11 @@ class SurrogatePosterior:
                     logq_params=None, antithetic=False, draws=None):
         from spmf_tpu_torch.ops.gamma import sample_gamma
 
+        if (logq_params is None and draws is None
+                and self._holds_slices(params)
+                and self._fused_igs_sharded_ok(names, sample_shape)):
+            return self._sample_igs_fused_sharded(
+                names, params, generator, sample_shape, antithetic=antithetic)
         if (logq_params is None and draws is None
                 and self._fused_igs_ok(names, sample_shape)):
             return self._sample_igs_fused(names, params, generator,
@@ -411,6 +547,15 @@ class SurrogatePosterior:
         (the STL estimator passes the parameters detached); it forces the
         plain samplers, whose densities stay in pre-bijector space.
 
+        On a mesh with an fp axis, ``params`` may hold this rank's slice of
+        the fp-split variables (``parallel.shard_params_feature_dim``): the
+        values of those variables are then this rank's columns and log q is
+        the whole sum, on every rank. Every block but the fused IG one is
+        drawn at full width from the gathered parameters, exactly as one
+        process draws it (all ranks consume the generator in lockstep); the
+        fused IG block runs K3 on the local slices
+        (``_sample_igs_fused_sharded``).
+
         ``draws`` (tests): a dict replacing the generator's draws —
         ``normal_eps`` (sample_shape + (total normal,)), ``ig_eps`` /
         ``ig_u`` (sample_shape + (total IG,), and (8,) + that) for the
@@ -433,6 +578,7 @@ class SurrogatePosterior:
                 return draws[prefix + "ig_eps"], draws[prefix + "ig_u"]
             return None
 
+        local = self._holds_slices(params)
         values, logq = {}, 0.0
         for names, fn, shape, anti, inject in (
                 (normals, self._sample_normals, sample_shape, antithetic,
@@ -442,11 +588,25 @@ class SurrogatePosterior:
                 (igs, self._sample_igs, sample_shape, antithetic,
                  ig_draws("")),
                 (bc_igs, self._sample_igs, (), False, ig_draws("bc_"))):
-            if names:
+            if not names:
+                continue
+            if not local:
                 v, lp = fn(names, params, generator, shape, logq_params,
                            anti, inject)
-                values.update(v)
-                logq = logq + lp
+            elif (fn == self._sample_igs and logq_params is None
+                  and inject is None
+                  and self._fused_igs_sharded_ok(names, shape)):
+                v, lp = fn(names, params, generator, shape, None, anti)
+            else:
+                # drawn at full width exactly as one process draws, from
+                # the gathered parameters; the fp-split values keep this
+                # rank's columns
+                v, lp = fn(names, self._gathered(names, params), generator,
+                           shape, None if logq_params is None else
+                           self._gathered(names, logq_params), anti, inject)
+                v = self._local_values(v)
+            values.update(v)
+            logq = logq + lp
         logq = torch.as_tensor(logq, dtype=self.dtype, device=self.device)
         return values, torch.broadcast_to(logq, sample_shape)
 

@@ -10,6 +10,11 @@ streaming moments, so WAIC at production scale (D=20k, 100 samples) never
 holds more than one (chunk, B) block of per-row log-likelihoods; the row
 kernel behind the model's ``_row_log_likelihood`` never materialises
 (S, B, D) either.
+
+On a rank mesh each rank scores its rows of every batch (the model's
+per-row sums run over its columns and are summed over the fp line), keeps
+their per-row terms, and the terms of all rows are gathered over the row
+ranks once, at the end: every rank returns the same result.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from spmf_tpu_torch.parallel.mesh import shard_batch
 from spmf_tpu_torch.vi.minibatch import _device_batch
 
 __all__ = ["waic", "streaming_waic_terms"]
@@ -68,11 +74,16 @@ def waic(
     sample_chunk: int = 8,
     dtype=torch.float32,
     device=None,
+    mesh=None,
 ) -> dict:
     """Stream ``num_samples`` posterior draws per batch in chunks of
     ``sample_chunk`` plus one remainder chunk, all from one
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the surrogate's
-    by default). Returns {'waic', 'se', 'lppd', 'pwaic', 'n_rows'}."""
+    by default). Returns {'waic', 'se', 'lppd', 'pwaic', 'n_rows'}.
+    ``mesh``: score each batch's part on this rank (see the module
+    docstring)."""
+    if mesh is not None and mesh.trivial:
+        mesh = None
     sample_chunk = min(sample_chunk, num_samples)
     n_chunks = num_samples // sample_chunk
     residual = num_samples - n_chunks * sample_chunk
@@ -82,6 +93,8 @@ def waic(
 
     lppd_all, pwaic_all = [], []
     for batch in batched_data_factory():
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         batch = _device_batch(batch, dtype, device)
 
         def chunks():
@@ -95,6 +108,10 @@ def waic(
 
     lppd_i = np.concatenate(lppd_all)
     pwaic_i = np.concatenate(pwaic_all)
+    if mesh is not None and mesh.row_axes:
+        both = torch.as_tensor(np.stack([lppd_i, pwaic_i], 1), device=device)
+        both = mesh.gather(both, 0, mesh.row_axes).cpu().numpy()
+        lppd_i, pwaic_i = both[:, 0], both[:, 1]
     waic_i = -2.0 * (lppd_i - pwaic_i)
     n = waic_i.shape[0]
     return {

@@ -63,7 +63,7 @@ def test_exports():
 
     assert spmf_tpu_torch.PoissonAutoencoder is models.PoissonAutoencoder
     assert spmf_tpu_torch.DenseHorseshoe is nn.DenseHorseshoe
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="spmf_tpu_torch.parallel.Mesh"):
         _port_model(mesh=object())
 
 

@@ -194,11 +194,29 @@ def test_factorize_scrnaseq_sparse_flag(tmp_path):
 
 
 def test_refusals_name_the_flag(tmp_path, monkeypatch):
-    """--data-parallel refuses by name; with no card, the default
+    """--data-parallel in one CPU process trains on a trivial dp mesh and
+    writes tests/test_cli.py's artifacts; with no card, the default
     --device cuda raises and names --device cpu, in every entry point."""
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        factorize_scrnaseq_counts.main(["--datapath", str(tmp_path),
-                                        "--data-parallel"])
+    rng = np.random.default_rng(3)
+    X = rng.poisson(0.8, size=(32, 12)).astype(np.int64)
+    X[:, 0] += 1
+    np.save(tmp_path / "dp_counts.npy", X)
+    np.save(tmp_path / "dp_genenames.npy",
+            np.array([f"G{i}" for i in range(12)]))
+    model = factorize_scrnaseq_counts.main([
+        "--datapath", str(tmp_path), "--dataset", "dp", "-d", "2", "-b",
+        "16", "-e", "2", "--no-figures", "--data-parallel", "--device",
+        "cpu"])
+    assert model.mesh is not None and model.mesh.trivial
+    for artifact, shape in (
+            ("dp_U_2.npy", (12, 2)), ("dp_V_2.npy", (2, 12)),
+            ("dp_W_2.npy", (1, 12)), ("dp_Z_2.npy", (32, 2)),
+            ("dp_cellscore_2.npy", (32, 2)),
+            ("dp_genescore_2.npy", (2, 12)),
+            ("dp_interceptscore_2.npy", (1, 12))):
+        arr = np.load(tmp_path / artifact)
+        assert arr.shape == shape and np.isfinite(arr).all(), artifact
+    assert np.isfinite(np.load(tmp_path / "dp_losses_2.npy")).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     csv_file = tmp_path / "c.csv"
     _write_csv(csv_file)

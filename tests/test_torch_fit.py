@@ -120,16 +120,26 @@ def test_engine_control_flow_matches_jax(name, capsys):
 
 
 def test_unported_fit_options_raise(tmp_path):
-    """The option still to port (param_sharding, multi-device) raises by
-    name; remat_sampling, elbo_estimator='stl', profile_dir, prefetch and
-    epoch_chunk=4 run."""
+    """Every engine option runs: param_sharding='replicated' on a trivial
+    mesh (tests/test_sharding.py:158 in one process; an unknown mode
+    raises), remat_sampling, elbo_estimator='stl', profile_dir, prefetch
+    and epoch_chunk=4."""
+    from spmf_tpu_torch.parallel import make_mesh
+
     X = counts(32, 6)
     host = ArrayDataset({"counts": X}).batch(16)
     m = PoissonFactorization(latent_dim=2, feature_dim=6, dtype="float64",
                              device="cpu", data=host)
-    with pytest.raises(NotImplementedError, match="param_sharding"):
+    meshed = PoissonFactorization(latent_dim=2, feature_dim=6,
+                                  dtype="float64", device="cpu", data=host,
+                                  mesh=make_mesh((1, 1), ("dp", "fp")))
+    losses = meshed.fit(num_steps=2, sample_size=2, verbose=False,
+                        rel_tol=None, param_sharding="replicated")
+    assert np.isfinite(losses).all()
+    assert tuple(meshed.surrogate_params["u"]["loc"].shape) == (6, 2)
+    with pytest.raises(ValueError, match="param_sharding"):
         m.fit(num_steps=1, sample_size=2, verbose=False,
-              param_sharding="replicated")
+              param_sharding="columns")
     for kw in (dict(remat_sampling=True), dict(elbo_estimator="stl")):
         assert np.isfinite(m.fit(num_steps=1, sample_size=2, verbose=False,
                                  **kw)).all()

@@ -89,14 +89,15 @@ def test_defaults_and_unported_options():
     nonplus = PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
                                    horshoe_plus=False)
     assert list(nonplus.surrogate_params) == ["v", "w", "s", "u"]
-    # aux_broadcast and the exact sampler are ported; a mesh still refuses
+    # aux_broadcast and the exact sampler are ported; a mesh must be a
+    # spmf_tpu_torch.parallel.Mesh
     bc = PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
                               aux_broadcast=True, gamma_sampler="exact")
     assert bc._surrogate.gamma_sampler == "exact"
     assert bc._surrogate.broadcast_names == {
         "u_eta", "u_tau", "s_eta", "s_tau", "u_eta_a", "u_tau_a", "s_eta_a",
         "s_tau_a"}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="spmf_tpu_torch.parallel.Mesh"):
         PoissonFactorization(latent_dim=2, feature_dim=5, device="cpu",
                              mesh=object())
     # COO batches are ported: on the CPU they take the COO energy

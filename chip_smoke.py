@@ -159,6 +159,20 @@ Phases, each printing lines; any failure raises and exits non-zero:
              collectives on CUDA tensors. Each arm: ms/step, peak GB and
              kernel launches per rank, the gradient all-reduce's ms and
              bytes a step; two ranks on one card are no scaling numbers
+  EX         the six example modules (spmf_tpu_torch.examples) on the card,
+             each over a host ArrayDataset through the general loop (the
+             corpus through the CLIs' captured scan): the random-noise,
+             linear and nonlinear examples at their full published size
+             (N=50,000, D=30, the JAX scripts' steps and tolerances), each
+             converged average-batch loss held to spmf_tpu's record
+             (noise <= 40.60, linear <= 47.12 x 1.01, nonlinear <= 49.04 x
+             1.01), the noise encoding's max |A| < 0.1, the linear
+             example's signal / noise column mass > 10, every WAIC finite;
+             simulation_figure (10,000 rows, 20 epochs), rnaseq_walkthrough
+             (30 epochs) and corpus_walkthrough (20 epochs) reduced, each
+             writing its artifacts with finite, falling losses. One line
+             an example: loss, epochs, wall s, ms/step, launches, peak GB
+             (above what was allocated when the example began)
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -218,6 +232,17 @@ OPT_ROWS, OPT_BATCH = 16384, 4096
 #: phase CLI's synthetic 10x matrix (3% nonzero: 720 genes a cell), its
 #: top genes kept and the fits' batch
 CLI_CELLS, CLI_GENES, CLI_TOP, CLI_BATCH = 8192, 24000, 20000, 4096
+#: phase EX: the converged average-batch loss each convergence example must
+#: reach, from spmf_tpu's records in examples/artifacts/README.md (one-sided:
+#: the two packages' draws differ; noise: tests/test_parity.py's bound)
+EX_LOSS_LIMITS = {"factorizing_random_noise": 40.60,
+                  "factorize_linear_structure": 47.12 * 1.01,
+                  "factorize_nonlinear_structure": 49.04 * 1.01}
+#: ... and the reduced sizes of the other three (the JAX defaults: 50,000
+#: rows and 100 epochs; 100 epochs; 80 epochs)
+EX_REDUCED = {"simulation_figure": ["--rows", "10000", "--steps", "20"],
+              "rnaseq_walkthrough": ["--steps", "30"],
+              "corpus_walkthrough": ["--steps", "20"]}
 
 
 _START = time.perf_counter()
@@ -2703,6 +2728,82 @@ def cli_phase(dev, smi, zero_launches, read_launches):
             for k in next(iter(launches.values()))}
 
 
+def examples_phase(dev, smi, zero_launches, read_launches):
+    """Phase EX: the six example modules (``python -m
+    spmf_tpu_torch.examples.<name>``, here their ``main``) on the card. The
+    three convergence examples run at their full published size and are
+    held to spmf_tpu's records (EX_LOSS_LIMITS; noise max |A| < 0.1, the
+    linear example's signal / noise column mass > 10, every WAIC finite);
+    the other three run at EX_REDUCED's sizes and must write their
+    artifacts with finite losses that fall. Prints one line an example:
+    converged loss and epochs, wall seconds, ms/step, kernel launches, peak
+    GB. Returns the launches of the six runs, summed."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    launches = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_EX_")
+    try:
+        for name in ("factorizing_random_noise", "factorize_linear_structure",
+                     "factorize_nonlinear_structure", "simulation_figure",
+                     "rnaseq_walkthrough", "corpus_walkthrough"):
+            module = importlib.import_module(f"spmf_tpu_torch.examples.{name}")
+            outdir = os.path.join(root, name)
+            argv = ["--outdir", outdir] + EX_REDUCED.get(name, [])
+            zero_launches()
+            out = module.main(argv)
+            got = launches[name] = read_launches()
+            check(out["device"].startswith("cuda"),
+                  f"EX {name} ran on {out['device']}")
+            # the figures need matplotlib, which this machine may lack
+            files = [p for p in out["artifacts"] if p is not None]
+            check(files and all(os.path.getsize(p) > 0 for p in files),
+                  f"EX {name}: artifacts {out['artifacts']}")
+            for fit in out["fits"]:
+                ls = np.asarray(fit["losses"], dtype=np.float64)
+                check(np.isfinite(ls).all() and len(ls) > 2
+                      and ls[2:].min() < ls[1],
+                      f"EX {name}: losses not finite and falling {ls}")
+            fit = out["fits"][-1]
+            loss = fit["losses"][-1]
+            limit = EX_LOSS_LIMITS.get(name)
+            extra = ""
+            if limit is not None:
+                check(loss <= limit,
+                      f"EX {name}: converged loss {loss} above {limit}")
+                check(np.isfinite(out["waic"]), f"EX {name}: waic "
+                                                f"{out['waic']}")
+                # the dense float32 path: K1 and K3 each step, K4 in waic
+                check(got["stats"] >= fit["steps"] and got["fwd"] > 0
+                      and got["bwd"] > 0 and got["row_ll"] > 0,
+                      f"EX {name}: launches {got}")
+                extra = f" (limit {limit:.4f}); waic {out['waic']:.1f}"
+            if name == "factorizing_random_noise":
+                check(out["max_abs_encoding"] < 0.1,
+                      f"EX noise: max |A| {out['max_abs_encoding']}")
+                extra += f", max |A| {out['max_abs_encoding']:.4f}"
+            if name == "factorize_linear_structure":
+                ratio = out["signal_mass"] / out["noise_mass"]
+                check(ratio > 10, f"EX linear: signal / noise mass {ratio}")
+                extra += (f", signal / noise column mass "
+                          f"{out['signal_mass']:.4f} / "
+                          f"{out['noise_mass']:.4f} = {ratio:.1f}x")
+            steps = sum(f["steps"] for f in out["fits"])
+            secs = sum(f["fit_seconds"] for f in out["fits"])
+            say("EX", f"{name} {' '.join(EX_REDUCED.get(name, []))}: "
+                      f"converged loss {loss:.4f} after {fit['epochs']} "
+                      f"epochs, best {min(fit['losses'][1:]):.4f}{extra}; "
+                      f"{out['wall_seconds']:.1f} s wall, {steps} steps at "
+                      f"{1e3 * secs / max(steps, 1):.2f} ms/step; launches "
+                      f"{got}; peak {out['peak_gb']:.3f} GB above the "
+                      f"run's start ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("EX", f"phase EX took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(p[k] for p in launches.values())
+            for k in next(iter(launches.values()))}
+
+
 def main():
     import torch
 
@@ -3662,6 +3763,10 @@ def main():
     # ---- M: multi-rank training, two gloo ranks on this card
     path_launches["M mesh"] = mesh_phase(dev, smi, zero_launches,
                                          read_launches)
+
+    # ---- EX: the examples through the port
+    path_launches["EX examples"] = examples_phase(dev, smi, zero_launches,
+                                                  read_launches)
 
     # ---- 9: times (medians of 10 after warmup)
     B = 4096

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["canonical_dtype", "canonical_device", "default_device"]
+__all__ = ["canonical_dtype", "canonical_device", "default_device",
+           "default_dtype"]
 
 
 def default_device() -> torch.device:
@@ -29,11 +30,17 @@ def canonical_device(device=None) -> torch.device:
     return default_device()
 
 
+def default_dtype() -> torch.dtype:
+    """float32, the dtype the card's kernels take (spmf_tpu gives float64
+    under JAX's x64 switch; the port takes a dtype per call instead)."""
+    return torch.float32
+
+
 def canonical_dtype(dtype=None) -> torch.dtype:
     """Map a user dtype (torch dtype, numpy dtype, or a string such as
     'float64', 'tf.float32', 'double') to a torch floating dtype."""
     if dtype is None:
-        return torch.float32
+        return default_dtype()
     if isinstance(dtype, torch.dtype):
         return dtype
     if isinstance(dtype, str):

@@ -32,11 +32,12 @@ import torch
 
 from spmf_tpu_torch.bijectors import softplus as _softplus
 from spmf_tpu_torch.ops import _build
-from spmf_tpu_torch.ops.gamma import _LATTICE_GENS, _wh_value, lattice_shift
+from spmf_tpu_torch.ops.gamma import (_LATTICE_GENS, _wh_value, lattice_shift,
+                                     wilson_hilferty_gamma)
 
-__all__ = ["LAUNCHES", "fused_ig_sample_logq", "ig_twin_fwd", "ig_twin_bwd",
-           "kernel_info", "lattice_shift", "philox4x32", "uniform_from_bits",
-           "uniforms"]
+__all__ = ["LAUNCHES", "fused_ig_sample_logq", "ig_sample_logq_reference",
+           "ig_twin_fwd", "ig_twin_bwd", "kernel_info", "lattice_shift",
+           "philox4x32", "uniform_from_bits", "uniforms"]
 
 BOOST = 8
 _SQRT2 = 1.4142135623730951
@@ -354,3 +355,17 @@ def fused_ig_sample_logq(a_flat, b_flat, seed, S, antithetic=False):
     only, anything else raises); CPU tensors through the twin."""
     return _FusedIG.apply(a_flat.contiguous(), b_flat.contiguous(),
                           seed.reshape(1), S, antithetic)
+
+
+def ig_sample_logq_reference(a_flat, b_flat, generator, S, antithetic=False):
+    """The plain path of ``fused_ig_sample_logq`` on a flat block (spmf_tpu's
+    ``ig_sample_logq_reference``): the 'fast' Wilson–Hilferty draws of
+    ``SurrogatePosterior._sample_igs`` from ``generator`` in place of the
+    kernel's Philox stream, for statistical tests. Returns y (S, total) and
+    logq (S,)."""
+    g = wilson_hilferty_gamma(generator, a_flat.expand((S,) + a_flat.shape),
+                              antithetic=antithetic)
+    x = b_flat / g
+    lq = (a_flat * torch.log(b_flat) - torch.lgamma(a_flat)
+          - (a_flat + 1.0) * torch.log(x) - b_flat / x + _softplus(-x))
+    return _softplus(x), torch.sum(lq, dim=-1)

@@ -283,11 +283,14 @@ def _is_coo(batch):
                                         or "coo_rowl" in batch)
 
 
-def shard_batch(batch: dict, mesh: Mesh) -> dict:
+def shard_batch(batch: dict, mesh: Mesh, axis: str = "dp") -> dict:
     """This rank's part of a dict batch: its rows of every array (over the
     mesh's row axes) and, with an fp axis, its columns of each 2-D array
     whose width fp divides. A sparse (COO) batch is returned whole: the
-    COO energies split its triplets over the mesh themselves."""
+    COO energies split its triplets over the mesh themselves. ``axis``:
+    the row axis of spmf_tpu's signature; the port's is 'dp'."""
+    if axis != "dp":
+        raise ValueError(f"the port's row axis is 'dp', got {axis!r}")
     if mesh is None or mesh.trivial or _is_coo(batch):
         return batch
     out = {}

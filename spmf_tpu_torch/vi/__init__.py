@@ -4,6 +4,7 @@ from .surrogates import (
     TrainableInverseGamma,
     TrainableNormal,
     TransformedSurrogate,
+    build_surrogate_posterior,
     build_trainable_InverseGamma_dist,
     build_trainable_normal_dist,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "TransformedSurrogate",
     "build_trainable_normal_dist",
     "build_trainable_InverseGamma_dist",
+    "build_surrogate_posterior",
     "fit_surrogate_posterior",
     "FitResult",
     "waic",

@@ -4,6 +4,7 @@ from spmf_tpu_torch.vi.surrogates import (  # noqa: F401
     TrainableInverseGamma,
     TrainableNormal,
     TransformedSurrogate,
+    build_surrogate_posterior,
     build_trainable_InverseGamma_dist,
     build_trainable_normal_dist,
 )
@@ -11,6 +12,7 @@ from spmf_tpu_torch.vi.surrogates import (  # noqa: F401
 __all__ = [
     "build_trainable_normal_dist",
     "build_trainable_InverseGamma_dist",
+    "build_surrogate_posterior",
     "TrainableNormal",
     "TrainableInverseGamma",
     "TransformedSurrogate",

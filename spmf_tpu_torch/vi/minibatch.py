@@ -431,8 +431,8 @@ def fit_surrogate_posterior(
     if dataset_size is not None and batch_size is not None:
         prior_weight = float(batch_size) / float(dataset_size)
 
-    if device is None:
-        device = _leaves(params)[0].device
+    device = (_leaves(params)[0].device if device is None
+              else torch.device(device))
     epoch_offset = 0
     resume_opt = None     # optax's flat Adam leaves of a full checkpoint
     resume_meta = None    # its control state

@@ -57,6 +57,16 @@ class _Trainable:
         return torch.as_tensor(np.array(a), dtype=self.dtype,
                                device=self.device)
 
+    def sample_and_log_prob(self, params, generator, sample_shape=()):
+        """A reparameterized draw of ``dist(params)`` from ``generator``
+        and its log-density summed over the event dims."""
+        d = self.dist(params)
+        x = d.sample(generator, sample_shape)
+        return x, _sum_event(d.log_prob(x), self.event_ndims)
+
+    def log_prob(self, params, x):
+        return _sum_event(self.dist(params).log_prob(x), self.event_ndims)
+
 
 class TrainableNormal(_Trainable):
     """Mean-field Normal with trainable loc and softplus-parameterized
@@ -75,9 +85,11 @@ class TrainableNormal(_Trainable):
         return {"loc": self._tensor(self._loc0),
                 "raw_scale": self._tensor(self._raw_scale0)}
 
-    def log_prob(self, params, x):
-        d = tfd.Normal(params["loc"], _softplus.forward(params["raw_scale"]))
-        return _sum_event(d.log_prob(x), self.event_ndims)
+    def dist(self, params):
+        return tfd.Normal(params["loc"], _softplus.forward(params["raw_scale"]))
+
+    def mean(self, params):
+        return params["loc"]
 
 
 class TrainableInverseGamma(_Trainable):
@@ -98,10 +110,24 @@ class TrainableInverseGamma(_Trainable):
         return {"raw_concentration": self._tensor(self._raw_conc0),
                 "raw_scale": self._tensor(self._raw_scale0)}
 
-    def log_prob(self, params, x):
-        d = tfd.InverseGamma(_softplus.forward(params["raw_concentration"]),
-                             _softplus.forward(params["raw_scale"]))
-        return _sum_event(d.log_prob(x), self.event_ndims)
+    def dist(self, params):
+        return tfd.InverseGamma(
+            _softplus.forward(params["raw_concentration"]),
+            _softplus.forward(params["raw_scale"]))
+
+    def sample_and_log_prob(self, params, generator, sample_shape=()):
+        """x = scale / G, G from the exact Gamma sampler (``ops.gamma``),
+        so the draw is reparameterized in the concentration as well as in
+        the scale, as JAX's ``random.gamma`` is."""
+        from spmf_tpu_torch.ops.gamma import exact_gamma
+
+        d = self.dist(params)
+        shape = tuple(sample_shape) + tuple(d.batch_shape)
+        x = d.scale / exact_gamma(generator, d.concentration.expand(shape))
+        return x, _sum_event(d.log_prob(x), self.event_ndims)
+
+    def mean(self, params):
+        return self.dist(params).mean()
 
 
 class TransformedSurrogate:
@@ -123,6 +149,14 @@ class TransformedSurrogate:
     def init(self):
         return self.base.init()
 
+    def sample_and_log_prob(self, params, generator, sample_shape=()):
+        """y = b(x) for a base draw x, and log q(y) = log q_base(x) -
+        fldj(x)."""
+        x, lp = self.base.sample_and_log_prob(params, generator, sample_shape)
+        fldj = _sum_event(self.bijector.forward_log_det_jacobian(x),
+                          self.base.event_ndims)
+        return self.bijector.forward(x), lp - fldj
+
     def log_prob(self, params, y):
         """log q(y) = log q_base(b^-1(y)) - fldj(b^-1(y))."""
         x = self.bijector.inverse(y)
@@ -130,13 +164,28 @@ class TransformedSurrogate:
                           self.base.event_ndims)
         return self.base.log_prob(params, x) - fldj
 
+    def mean(self, params, generator=None, num_samples=250):
+        """The posterior mean of the constrained variable, estimated from
+        ``num_samples`` draws (a bijected Normal has no closed-form mean);
+        with no ``generator``, one seeded with 42 on the parameters'
+        device."""
+        if generator is None:
+            device = next(iter(params.values())).device
+            generator = torch.Generator(device=device).manual_seed(42)
+        y, _ = self.sample_and_log_prob(params, generator, (num_samples,))
+        return torch.mean(y, dim=0)
+
 
 class SurrogatePosterior:
     """Named mean-field surrogate: a dict of independent
-    TransformedSurrogates over Normal or InverseGamma bases.
+    TransformedSurrogates.
 
     Base samples are drawn with ONE flattened draw for all Normal
-    surrogates and ONE IG-block draw for all InverseGamma surrogates.
+    surrogates and ONE IG-block draw for all InverseGamma surrogates. A
+    variable with any other base (one with the ``shape``, ``event_ndims``,
+    ``dtype``, ``device``, ``init``, ``sample_and_log_prob`` and
+    ``log_prob`` of the two classes) is drawn after those blocks through
+    its own ``sample_and_log_prob``, as spmf_tpu draws it.
     ``gamma_sampler``: 'exact' (rejection sampling with implicit
     reparameterisation gradients), 'fast' (boosted Wilson–Hilferty from
     generator draws; both in spmf_tpu_torch.ops.gamma) or 'fused' (the
@@ -173,10 +222,9 @@ class SurrogatePosterior:
                               if isinstance(s.base, TrainableNormal)]
         self._ig_names = [n for n, s in self.surrogates.items()
                           if isinstance(s.base, TrainableInverseGamma)]
-        other = set(self.surrogates) - set(self._normal_names) \
-            - set(self._ig_names)
-        if other:
-            raise TypeError(f"unsupported surrogate bases for {sorted(other)}")
+        self._other_names = [n for n in self.surrogates
+                             if n not in self._normal_names
+                             and n not in self._ig_names]
         self._sizes = {n: int(np.prod(s.shape))
                        for n, s in self.surrogates.items()}
         dtypes = {s.base.dtype for s in self.surrogates.values()}
@@ -606,6 +654,15 @@ class SurrogatePosterior:
                            self._gathered(names, logq_params), anti, inject)
                 v = self._local_values(v)
             values.update(v)
+            logq = logq + lp
+        for n in self._other_names:
+            s = self.surrogates[n]
+            values[n], lp = s.sample_and_log_prob(params[n], generator,
+                                                  sample_shape)
+            if logq_params is not None:
+                # the other bases' density in constrained space (spmf_tpu's
+                # fallback for them)
+                lp = s.log_prob(logq_params[n], values[n])
             logq = logq + lp
         logq = torch.as_tensor(logq, dtype=self.dtype, device=self.device)
         return values, torch.broadcast_to(logq, sample_shape)

@@ -4,6 +4,8 @@ gradient on JAX's draws, ``encode`` with its latent-width search, the
 cases of tests/test_models.py and tests/test_antithetic.py, npz files in
 both directions, ``load_model`` without ``data=``, and the scan path
 against the general loop), in float64 on the CPU."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import glob
 import os
 from unittest import mock

@@ -8,6 +8,8 @@ both directions with their parameters bit for bit; the calibrated
 expectations are Monte Carlo means drawn by each package's own generator,
 so ``encoding_matrix`` is compared at the same u and s (1e-6). The native
 parsers equal spmf_tpu's on the same files bit for bit."""
+import _torch_threads  # first: one torch thread
+
 import csv
 import importlib.util
 import os
@@ -235,7 +237,8 @@ def test_cli_modules_run_with_python_m(capsys):
     point as a module; every entry point's --help lists --device."""
     out = subprocess.run(
         [sys.executable, "-m", "spmf_tpu_torch.cli.factorize_csv", "--help"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=_torch_threads.ENV)
     assert out.returncode == 0, out.stderr
     assert "--device" in out.stdout
     for mod in (factorize_csv, preprocess_scrnaseq_counts,

@@ -1,5 +1,7 @@
 """Bijectors and distributions of the port against spmf_tpu (float64,
 1e-12: the same closed forms evaluated by two libraries)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ against its single-epoch path and spmf_tpu's chunk path, on the CPU, where
 the same decisions run eagerly. Float64 unless stated, at the sizes of
 tests/test_torch_epoch_scan.py; each test names the case of
 tests/test_engine.py it repeats."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import glob
 import os
 

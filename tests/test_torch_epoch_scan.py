@@ -7,6 +7,8 @@ engagement, convergence to the general loop's optimum, determinism,
 eligibility, epoch_chunk, the sparse layouts and their overflow audit), the
 scan's control flow against spmf_tpu's scan on a scripted energy, and a
 checkpoint / resume through the scan with Adam's state restored in place."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import glob
 import os
 

@@ -30,6 +30,8 @@ of D = 20,000 drifts 1.6e-4 low (such an accumulator on the card read
 2.1e-4 at D = 19,997); the kernel's fresh partial per 32 columns reads
 1.5e-6.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ parameter trees convert leaf for leaf, the energy parts agree at 1e-9 in
 float64 on the same numpy-made samples, the twin-fused energy agrees with the
 plain one in values and gradients, and the families' own rules hold (prior
 weight, surrogate inits, COO dispatch, encode, column types)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 from unittest import mock
 
 import jax

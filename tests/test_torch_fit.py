@@ -1,6 +1,8 @@
 """The port's fit engine: a short CPU fit through PoissonFactorization.fit,
 the engine's control flow against spmf_tpu's on a scripted energy, and the
 noise-config parity run of tests/test_parity.py through the port."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 
 import jax.numpy as jnp

@@ -1,6 +1,8 @@
 """The fused IG sampler's twin: its tile math against spmf_tpu's, its output
 against ig_sample_logq_reference on the same draws, its Philox stream, and
 the RNG-replay backward of the autograd.Function (CPU, float64)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

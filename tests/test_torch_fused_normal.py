@@ -7,6 +7,8 @@ The JAX kernel itself has no CPU lowering (it seeds the TPU's hardware
 generator), so it is held through its tile math, as tests/test_fused_ig.py
 holds it.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 from unittest import mock
 
 import jax

@@ -1,6 +1,8 @@
 """The fused Poisson likelihood's twin (the CPU side of kernel K1/K2)
 against spmf_tpu: the plain reference in float64 and the Pallas kernel run
 interpreted in float32."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

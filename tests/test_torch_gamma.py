@@ -1,6 +1,8 @@
 """The boosted Wilson–Hilferty sampler and its hand VJP against
 spmf_tpu.ops.gamma, with the same base draws fed to both (float64, 1e-12:
 the same elementary formulas in two libraries)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

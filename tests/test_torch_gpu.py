@@ -14,6 +14,8 @@ its log q sums 1e-6). K4's NaN rows (negative rates) match position for
 position. The new likelihoods of K1/K2 and K4 are held to the Poisson
 tolerances.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch
@@ -899,3 +901,24 @@ def test_stl_fit_on_the_card_skips_the_samplers(cuda):
                    elbo_estimator="stl")
     assert np.isfinite(losses).all()
     assert tig.LAUNCHES["bwd"] == 0 and tfp.LAUNCHES["stats"] > 0
+
+
+def test_debug_nans_on_the_card(cuda):
+    """``debug_nans`` traps a NaN made by an op on the card, forward and
+    in a backward run on autograd's device thread, and a finite fit step
+    through the kernels runs inside it."""
+    from spmf_tpu_torch.utils import debug_nans
+
+    with debug_nans():
+        with pytest.raises(FloatingPointError, match="log"):
+            torch.log(torch.tensor([-1.0], device=cuda))
+        x = torch.tensor([0.0, 1.0], device=cuda, requires_grad=True)
+        y = (torch.sqrt(x) * 0.0).sum()
+        with pytest.raises(FloatingPointError):
+            y.backward()
+        args = _stats_inputs(2, 64, 8, 100, cuda)
+        theta = args[0].requires_grad_()
+        out = tfp.fused_poisson_loglik(theta, *args[1:])
+        out.sum().backward()
+        assert torch.isfinite(theta.grad).all()
+    torch.log(torch.tensor([-1.0], device=cuda))

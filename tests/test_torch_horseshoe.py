@@ -5,6 +5,8 @@ port against spmf_tpu's: ``exp1`` / ``log_exp1`` values and gradients
 tests/test_distributions.py, the ``Exp`` and ``Chain`` cases of
 tests/test_bijectors.py, and the ``horshoe_plus=False`` factorization
 energy and its gradient in three families."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 from unittest import mock
 
 import jax

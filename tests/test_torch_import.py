@@ -1,5 +1,7 @@
 """The port imports no JAX, its kernels build only when launched, and its
 entry points run on the card unless the caller asks for the CPU."""
+import _torch_threads  # first: one torch thread
+
 import os
 import subprocess
 import sys
@@ -29,6 +31,13 @@ def test_import_leaves_jax_out_and_builds_nothing():
         "import spmf_tpu_torch.cli.factorize_csv\n"
         "import spmf_tpu_torch.cli.preprocess_scrnaseq_counts\n"
         "import spmf_tpu_torch.cli.factorize_scrnaseq_counts\n"
+        "import spmf_tpu_torch.ops, spmf_tpu_torch.utils.debug\n"
+        "import spmf_tpu_torch.examples.factorizing_random_noise\n"
+        "import spmf_tpu_torch.examples.factorize_linear_structure\n"
+        "import spmf_tpu_torch.examples.factorize_nonlinear_structure\n"
+        "import spmf_tpu_torch.examples.simulation_figure\n"
+        "import spmf_tpu_torch.examples.rnaseq_walkthrough\n"
+        "import spmf_tpu_torch.examples.corpus_walkthrough\n"
         "from spmf_tpu_torch.data import native\n"
         "from spmf_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -39,7 +48,8 @@ def test_import_leaves_jax_out_and_builds_nothing():
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=_torch_threads.ENV)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 

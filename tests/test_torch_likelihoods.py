@@ -9,6 +9,8 @@ another order; another lgamma), counts exact, gradients rtol 5e-4 and atol
 1e-7 (the JAX tests' own bounds for the fused energy's gradients); the row
 sums 3e-5, the JAX tests' own bound for that kernel.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

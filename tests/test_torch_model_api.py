@@ -3,6 +3,8 @@
 ``unormalized_log_prob_list``, the bound surrogate view, and
 ``build_surrogate_posterior`` with the joint prior's ``sample`` and the
 surrogates' ``log_prob``."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import functools
 
 import jax

@@ -11,12 +11,13 @@ A JAX fit draws from threefry keys, so its traces are not the port's; the
 port's sharded energies and gradients are held to the JAX package's on the
 same draws in tests/test_torch_parallel.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import glob
 import os
 
 import numpy as np
 import pytest
-import torch
 
 import _torch_multiprocess_worker as W
 from test_torch_parallel import WORLD, join_world, start_world
@@ -27,13 +28,10 @@ def run(tmp_path_factory):
     """(the four ranks' results, the single-process port's, the outdir)."""
     outdir = tmp_path_factory.mktemp("torch_multiprocess")
     procs = start_world(outdir, "multiprocess")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
     try:
         single = {case: getattr(W, "case_" + case)(None, str(outdir))
                   for case in W.SUITES["multiprocess"]}
     finally:
-        torch.set_num_threads(threads)
         ranks = join_world(procs, outdir)
     return ranks, single, outdir
 

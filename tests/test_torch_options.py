@@ -8,6 +8,8 @@ gradient 1e-3 relative of ``jax.lax.random_gamma_grad`` at the same
 (a, x) (torch's series against JAX's; ROADMAP's deliberate differences);
 rematerialised fits equal the plain ones bit for bit (to 1e-12 with two
 sample batches, whose gradients add in another order)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

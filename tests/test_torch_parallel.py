@@ -18,6 +18,8 @@ Each case's results are held to
 Every rank's results are also checked against rank 0's: all ranks hold the
 same global values.
 """
+import _torch_threads  # first: one torch thread
+
 import os
 import pickle
 import subprocess
@@ -44,7 +46,7 @@ def start_world(outdir, suite):
     from spmf_tpu_torch.parallel import free_port
 
     port = str(free_port())
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = dict(_torch_threads.ENV)
     env.pop("WORKER_CASES", None)
     return [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "_torch_multiprocess_worker.py"),
@@ -240,14 +242,11 @@ def run(tmp_path_factory):
     models = _jax_models()
     _write_draws(outdir, models)
     procs = start_world(outdir, "parallel")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)       # the world's four ranks share the host
     try:
         single = {case: getattr(W, "case_" + case)(None, str(outdir))
                   for case in W.SUITES["parallel"]}
         refs = _jax_refs(models)
     finally:
-        torch.set_num_threads(threads)
         ranks = join_world(procs, outdir)
     return ranks, single, refs
 

@@ -2,6 +2,8 @@
 ``load_model`` / ``load_params`` / ``reconstitute`` in the JAX package's npz
 format, with the parameters in JAX leaf order (``flatten_jax_order``), for
 the Poisson, Bernoulli, Gaussian and Mixed families (float64, CPU)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import functools
 import json
 

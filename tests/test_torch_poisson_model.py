@@ -3,6 +3,8 @@ parameters and samples: the energy part by part (float64 plain path,
 1e-9; float32 fused twin vs the interpreted Pallas kernel, 1e-5) and the
 model parts (1e-12). Samples are random positive values of each
 variable's shape (the samplers have their own tests)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,8 @@
 the device ahead in a worker thread, ``data/prefetch.py``, the port of
 tests/test_data.py:328) and ``profile_dir`` (a torch.profiler trace of the
 epochs), on the CPU."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import glob
 import os
 import threading

@@ -2,6 +2,8 @@
 tests/test_engine.py's checkpoint and resume tests on the same conjugate
 problem, the KeyboardInterrupt return, and full-state files that carry an
 Adam state between the port and optax in both directions (float64, CPU)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import glob
 import os
 import re

@@ -2,6 +2,8 @@
 kernel (K5) against spmf_tpu: its Pallas kernels run interpreted in float32
 and its plain formulas in float64. Shapes are ragged (neither B nor D a
 tile multiple)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ for element), the sparse encoder, the flat, blocked and dense-scatter COO
 energies (float64, 1e-10; the log link's float32 rate total through the K5
 twin against the interpreted Pallas kernel, 1e-5), and one ELBO step on a
 blocked batch (1e-9)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

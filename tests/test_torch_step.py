@@ -3,6 +3,8 @@ gradient, elementwise clip, Adam — in both packages from the same
 parameters and the same base draws (JAX's, reproduced from its key and
 injected into the port). The JAX side is bench.build_step with
 optax.chain(optax.clip(5.0), optax.adam(lr))."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ draws of the WH sampler (eps 1e-12, u exact), the fused IG twin's stratified
 stream through the JAX tile math (1e-10), the surrogate fed the JAX
 surrogate's stratified draws (1e-10), and the properties of
 tests/test_antithetic.py repeated on the port (float64 unless stated)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import functools
 
 import jax

@@ -3,6 +3,8 @@ per-row log-likelihood of each branch (dense, densified COO, COO row
 scorer; float64 1e-10, and the row-kernel twin against the interpreted
 Pallas kernel in float32, 3e-5), and ``waic`` end to end with a stub
 surrogate that hands both packages the same draws (1e-10)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

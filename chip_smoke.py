@@ -5,7 +5,8 @@
 
 Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
-  2 build    nvcc builds csrc/*.cu for sm_90a, one process per source, at once
+  2 build    nvcc builds csrc/*.cu (five libraries) for sm_90a, one process
+             per source, at once
              (two threads meanwhile set up the small float64 CPU models of
              the plain path); a register spill in any library's build log
              fails the run
@@ -173,6 +174,22 @@ Phases, each printing lines; any failure raises and exits non-zero:
              writing its artifacts with finite, falling losses. One line
              an example: loss, epochs, wall s, ms/step, launches, peak GB
              (above what was allocated when the example began)
+  W wide     the latent dimensions past the whole-K tiles (K1/K2 past padded
+             K=124, K4 past 152, K5 past 64: the K-chunked kernels). (a) K1,
+             K2 and K4 (both links) and K5 against their float64 twins at
+             S=2, B=1000, D=19,997 for K = 65, 125, 128, 153, 256 and 1024
+             (v scaled by min(1, sqrt(8 / K))), at the K=32 tolerances.
+             (b) at S=8, B=4096, D=20000, K=128 (the wide K4 also at K=256):
+             kernel and twin times, registers, shared memory, blocks an SM,
+             the bound. (c) at K=128 end to end: the dense captured-scan
+             fit (16,384 rows resident, B=4096, 3 epochs; ms/step, busy
+             share, peak GB, launches) and a clip='static' epoch; one dense
+             step through K1 and one COO step through K5 against the float64
+             plain path on the same draws; the 0.1% flat COO set one epoch
+             through K5; log_likelihood of the 4096 held-out rows through
+             K4, their per-row log-likelihood at 100 samples against the
+             float64 plain path (1e-5), and log_likelihood at K=256 through
+             the wide K4
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -224,6 +241,10 @@ PEAK_FMA_PER_S = 128 * SM_CLOCKS_PER_S
 PEAK_MUFU_PER_S = 16 * SM_CLOCKS_PER_S
 PEAK_IMUL_PER_S = 64 * SM_CLOCKS_PER_S
 IG_MODES = (False, True, "stratified")
+#: the kernels with a K-chunked variant past their whole-K tiles (csrc/
+#: fused_poisson_wide.cu, and K5's expsum_wide_kernel): their launches count
+#: as "<kernel>_wide"
+WIDE_KERNELS = ("stats", "static", "row_ll", "expsum")
 #: phase G's and phase O's small scan: rows, columns, batch (3 full batches
 #: and a remainder)
 SMALL_SCAN = (350, 300, 100)
@@ -305,10 +326,11 @@ def bound(n_bytes, n_ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def bounds(B, total, n_total):
-    """Per-kernel bounds at the timed shapes (S=8, D=20000, K=32; B rows for
-    the Poisson kernels, ``total`` elements for the IG sampler, ``n_total``
-    for the Normal sampler). Bytes: each
+def bounds(B, total, n_total, k=K, s=S, d=D):
+    """Per-kernel bounds at the timed shapes (S=8, D=20000 and K=32 unless
+    ``s``, ``d`` and ``k`` say otherwise; B rows for the Poisson kernels,
+    ``total`` elements for the IG sampler, ``n_total`` for the Normal
+    sampler). Bytes: each
     input read once, each output written once, float32. Operations: the
     K-deep products, 2 per multiply-add (decode, dv and dtheta for K1/K2/K5;
     the decode for K4), plus one per transcendental or division of a cell
@@ -318,15 +340,15 @@ def bounds(B, total, n_total):
     the least any implementation must do); for
     K3 and K6 the least work per pipe (``ig_bound``, independent mode, and
     ``normal_bound``). K5: ``expsum_bound``'s tensor route."""
-    cells = S * B * D
-    theta, v, vec = S * B * K, S * K * D, S * D
-    stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * D + D)
-    lgamma_ops = 4 * B * D
-    out = {"stats": bound(stats_bytes, cells * (6 * K + 2) + lgamma_ops),
-           "static": bound(stats_bytes, cells * (6 * K + 2) + lgamma_ops),
-           "row_ll": bound(4 * (theta + v + vec + B * D + D + S * B),
-                           cells * (2 * K + 2) + lgamma_ops),
-           "expsum": expsum_bound(B)["tf32x3"][:2],
+    cells = s * B * d
+    theta, v, vec = s * B * k, s * k * d, s * d
+    stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * d + d)
+    lgamma_ops = 4 * B * d
+    out = {"stats": bound(stats_bytes, cells * (6 * k + 2) + lgamma_ops),
+           "static": bound(stats_bytes, cells * (6 * k + 2) + lgamma_ops),
+           "row_ll": bound(4 * (theta + v + vec + B * d + d + s * B),
+                           cells * (2 * k + 2) + lgamma_ops),
+           "expsum": expsum_bound(B, k, s, d)["tf32x3"][:2],
            "fwd": ig_bound("fwd", total, S, False)[:2],
            "bwd": ig_bound("bwd", total, S, False)[:2],
            "nfwd": normal_bound("fwd", n_total, S)[:2],
@@ -334,8 +356,9 @@ def bounds(B, total, n_total):
     return out
 
 
-def expsum_bound(B):
-    """K5's least time at S=8, D=20000, K=32 and B rows by route: (ms,
+def expsum_bound(B, k=K, s=S, d=D):
+    """K5's least time at B rows (S=8, D=20000, K=32 unless ``s``, ``d``
+    and ``k`` say otherwise) by route: (ms,
     'bytes' | 'operations', what bounds it). 'tf32x3': its products (6 S B
     D K flops: decode, dtheta, dv) as three TF32 passes on the tensor cores
     at 494.7 TFLOP/s, the float32 accuracy its kernel buys with the split,
@@ -344,9 +367,9 @@ def expsum_bound(B):
     TFLOP/s with an operation per exp (how ``bound`` counted K5 before it
     moved to the tensor cores). Bytes: theta, v and eta read, dtheta, dv
     and S sums written."""
-    cells = S * B * D
-    flops = 6 * K * cells
-    n_bytes = 4 * (2 * S * B * K + 2 * S * K * D + D + S)
+    cells = s * B * d
+    flops = 6 * k * cells
+    n_bytes = 4 * (2 * s * B * k + 2 * s * k * d + d + s)
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
     pipe, t_o = max((("tensor cores, 3 TF32 passes",
                       3 * flops / PEAK_TF32_OPS_PER_S * 1e3),
@@ -441,15 +464,17 @@ def normal_bound(kind, total, n_samples, samples_per_call=4):
 B_RAGGED, K_RAGGED = 1000, 20
 
 
-def stats_inputs(B, dev, seed=0, rescue=False, k=K):
+def stats_inputs(B, dev, seed=0, rescue=False, k=K, s=S, d=D, v_scale=1.0):
+    """theta (s, B, k) in [0, 0.5), v (s, k, d) in [0, 0.05 v_scale), phi,
+    Poisson(1) counts x (B, d) and eta (1, d)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    theta = torch.rand(S, B, k, generator=g, device=dev) * 0.5
-    v = torch.rand(S, k, D, generator=g, device=dev) * 0.05
-    phi = torch.rand(S, 1, D, generator=g, device=dev) * 0.5 + 0.05
-    x = torch.poisson(torch.ones(B, D, device=dev), generator=g)
-    eta = torch.rand(1, D, generator=g, device=dev) * 1.5 + 0.5
+    theta = torch.rand(s, B, k, generator=g, device=dev) * 0.5
+    v = torch.rand(s, k, d, generator=g, device=dev) * (0.05 * v_scale)
+    phi = torch.rand(s, 1, d, generator=g, device=dev) * 0.5 + 0.05
+    x = torch.poisson(torch.ones(B, d, device=dev), generator=g)
+    eta = torch.rand(1, d, generator=g, device=dev) * 1.5 + 0.5
     if rescue:
         phi[:, :, ::37] = -5.0   # negative rates: NaN cells the clip replaces
     return theta, v, phi, x, eta
@@ -2804,6 +2829,353 @@ def examples_phase(dev, smi, zero_launches, read_launches):
             for k in next(iter(launches.values()))}
 
 
+#: phase W: (a)'s latent dimensions, past one whole-K tile or another (K5's
+#: instances end at 64, K1/K2's tiles at 124, K4's at 152), at a ragged
+#: shape (B no multiple of the row tile, D odd); (b) and (c)'s width
+W_LATENT = (65, 125, 128, 153, 256, 1024)
+W_S, W_B, W_D = 2, 1000, 19997
+W_K = 128
+
+
+def w_scale(k):
+    """v's scale at latent dimension k in phase W: theta . v keeps the
+    spread it has at K = 8."""
+    return min(1.0, (8.0 / k) ** 0.5)
+
+
+def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
+    """Phase W: the latent dimensions past the whole-K tiles. (a) K1, K2
+    (both links), K4 (both links) and K5 against their float64 twins at
+    S=2, B=1000, D=19,997 for each K of W_LATENT, at the K=32 tolerances.
+    (b) at the full width S=8, B=4096, D=20000 and K=128: each kernel's time
+    (CUDA events), its twin's, its registers, shared memory, blocks an SM
+    and bound; the wide K4 at K=256. (c) end to end at K=128: the dense
+    captured-scan fit (16,384 rows resident, B=4096, 3 epochs, in two turns,
+    the second profiled), a clip='static' epoch, one step's loss and
+    gradients through K1 against the float64 plain path on the same draws;
+    the 0.1% flat COO set ``coo`` (data, column norms) one epoch through K5,
+    and one small COO step against the float64 plain path; log_likelihood
+    of the 4096 held-out rows ``held`` (100 samples) through K4, and their
+    per-row log-likelihood at 100 samples against the float64 plain path
+    (1e-5 relative); log_likelihood at K=256 through the wide K4. Returns
+    the main path's launches, the wide kernels' largest absolute errors,
+    their (ms, twin ms) and bounds."""
+    import torch
+
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.data import ArrayDataset, DeviceArrayDataset
+    from spmf_tpu_torch.ops import fused_poisson as tfp
+    from spmf_tpu_torch.vi.minibatch import _device_batch
+
+    t_phase = time.perf_counter()
+    errs = {}
+
+    def kernel_key(kind, name, k, s=W_S, b=W_B, d=W_D):
+        wide = tfp.launch_geometry(kind, s, b, k, d).chunks > 1
+        return name + ("_wide" if wide else "")
+
+    def note(key, err):
+        if key.endswith("_wide"):
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    # (a) every kernel against its float64 twin past the whole-K tiles
+    for k_w in W_LATENT:
+        args = stats_inputs(W_B, dev, seed=k_w, k=k_w, s=W_S, d=W_D,
+                            v_scale=w_scale(k_w))
+        args64 = [a.double() for a in args]
+        worst = {"sums": 0.0, "grads": 0.0, "gmin": 0.0, "rows": 0.0}
+        for log_w in (False, True):
+            for static in (False, True):
+                out_k = tfp._kernel_stats(*args, log_w, static)
+                out_t = tfp.stats_twin(*args64, log_transform=log_w,
+                                       static=static)
+                torch.cuda.synchronize()
+                e_sum = rel_elem(out_k[0], out_t[0])
+                e_grad = max(rel_max(k, t)
+                             for k, t in zip(out_k[3:], out_t[3:]))
+                e_min = rel_elem(out_k[2], out_t[2]) if not static else 0.0
+                what = (f"W K={k_w} {'K2' if static else 'K1'} "
+                        f"log_transform={log_w}")
+                check(e_sum < 1e-5, f"{what}: sums rel err {e_sum}")
+                check(e_grad < 1e-4, f"{what}: grads rel err {e_grad}")
+                check(e_min < 1e-6, f"{what}: gmin rel err {e_min}")
+                check(torch.equal(out_k[1].cpu(), out_t[1].cpu()),
+                      f"{what}: counts {out_k[1].tolist()} vs "
+                      f"{out_t[1].tolist()}")
+                note(kernel_key("stats", "static" if static else "stats",
+                                k_w), abs_max(zip(out_k[3:], out_t[3:])))
+                worst = {"sums": max(worst["sums"], e_sum),
+                         "grads": max(worst["grads"], e_grad),
+                         "gmin": max(worst["gmin"], e_min),
+                         "rows": worst["rows"]}
+            out_k = tfp._kernel_row_ll(*args, log_w)
+            out_t = tfp.row_loglik_twin(*args64, log_transform=log_w)
+            torch.cuda.synchronize()
+            e_row = rel_elem(out_k, out_t)
+            check(e_row < 1e-5, f"W K={k_w} K4 log_transform={log_w}: row "
+                                f"sums rel err {e_row}")
+            note(kernel_key("row_ll", "row_ll", k_w),
+                 abs_max([(out_k, out_t)]))
+            worst["rows"] = max(worst["rows"], e_row)
+        th, vv, ee = args[0], args[1], args[4]
+        out_k = tfp._kernel_expsum(th, vv, ee)
+        out_t = tfp.expsum_twin(th.double(), vv.double(), ee.double())
+        torch.cuda.synchronize()
+        e_r = rel_elem(out_k[0], out_t[0])
+        e_g = max(rel_max(k, t) for k, t in zip(out_k[1:], out_t[1:]))
+        check(e_r < 1e-5 and e_g < 1e-4,
+              f"W K={k_w} K5: R rel err {e_r}, grads rel err {e_g}")
+        note(kernel_key("expsum", "expsum", k_w), abs_max(zip(out_k, out_t)))
+        chunks = {kind: tfp.launch_geometry(kind, W_S, W_B, k_w, W_D).chunks
+                  for kind in ("stats", "row_ll", "expsum")}
+        say("W", f"(a) K={k_w} (chunks: K1/K2 {chunks['stats']}, K4 "
+                 f"{chunks['row_ll']}, K5 {chunks['expsum']}), S={W_S} "
+                 f"B={W_B} D={W_D}, both links: K1/K2 sums rel "
+                 f"{worst['sums']:.2e}, gmin rel {worst['gmin']:.2e}, "
+                 f"grads rel-of-max {worst['grads']:.2e}, counts exact; K4 "
+                 f"rows rel {worst['rows']:.2e}; K5 R rel {e_r:.2e}, grads "
+                 f"rel-of-max {e_g:.2e}")
+    del args, args64, out_k, out_t
+
+    # (b) the full width at K=128 (and the wide K4 at K=256)
+    kt = {}
+    bd = {}
+    for k_b, kinds in ((W_K, ("stats", "static", "row_ll", "expsum")),
+                       (256, ("row_ll",))):
+        args = stats_inputs(4096, dev, seed=6, k=k_b, v_scale=w_scale(k_b))
+        th, vv, ee = args[0], args[1], args[4]
+        calls = {
+            "stats": (lambda: tfp._kernel_stats(*args, False, False),
+                      lambda: tfp.stats_twin(*args)),
+            "static": (lambda: tfp._kernel_stats(*args, False, True),
+                       lambda: tfp.stats_twin(*args, static=True)),
+            "row_ll": (lambda: tfp._kernel_row_ll(*args, True),
+                       lambda: tfp.row_loglik_twin(*args, True)),
+            "expsum": (lambda: tfp._kernel_expsum(th, vv, ee),
+                       lambda: tfp.expsum_twin(th, vv, ee))}
+        bk = bounds(4096, IG_TOTAL, N_TOTAL, k=k_b)
+        for name in kinds:
+            kind = "stats" if name == "static" else name
+            key = kernel_key(kind, name, k_b, S, 4096, D)
+            k_ms = cuda_ms(calls[name][0])
+            t_ms = cuda_ms(calls[name][1], iters=3, warmup=1)
+            geom = tfp.launch_geometry(kind, S, 4096, k_b, D)
+            info = tfp.kernel_info(kind, k_b)
+            ms_b, by = bk[name]
+            if key.endswith("_wide"):
+                kt[key], bd[key] = (k_ms, t_ms), (ms_b, by)
+            say("W", f"(b) {key} K={k_b}: kernel {k_ms:.3f} ms, twin "
+                     f"{t_ms:.3f} ms, bound {ms_b:.3f} ms ({by}; "
+                     f"{ms_b / k_ms:.1%} of it); {info['registers']} "
+                     f"registers a thread, {info['smem_bytes']} + "
+                     f"{info['static_smem_bytes']} bytes of shared memory a "
+                     f"block, {info['blocks_per_sm']} blocks an SM "
+                     f"(occupancy API), {geom.chunks} chunk(s) of "
+                     f"{geom.k_chunk} (float32, B=4096, S={S}, D={D}; "
+                     f"{smi})")
+        del args, th, vv, ee, calls
+
+    # (c) the slice end to end at K=128
+    launches = Counter()
+    g = torch.Generator(device=dev).manual_seed(51)
+    n_w, b_w = OPT_ROWS, OPT_BATCH
+    xw = torch.poisson(torch.ones(n_w, D, device=dev), generator=g)
+    ds = DeviceArrayDataset({"counts": xw,
+                             "indices": torch.arange(n_w, device=dev)},
+                            batch_size=b_w, device=dev)
+    m = PoissonFactorization(latent_dim=W_K, feature_dim=D, dtype="float32",
+                             device=dev, data=ds)
+    init = clone_params(m.surrogate_params)
+    steps = n_w // b_w
+    turns = []
+    for profiled in (False, True):
+        zero_launches()
+        turns.append(run_fit(m, init, ds, num_steps=3, profiled=profiled))
+        launches.update(read_launches())
+    got = dict(launches)
+    check(all(np.isfinite(t[0]).all() and t[4] for t in turns)
+          and got["stats_wide"] >= 2 * 3 * steps and got["stats"] == 0
+          and got["fwd"] >= 2 * 3 * steps and got["bwd"] >= 2 * 3 * steps,
+          f"W dense K={W_K}: losses {turns[0][0]}, scan "
+          f"{[t[4] for t in turns]}, launches {got}")
+    report_arm("W", smi, f"(c) dense K={W_K} D={D} B={b_w} captured scan, "
+                         f"{n_w} rows resident (second turn profiled: "
+                         f"{turns[1][1]:.2f} ms/step)", b_w, turns[0][1],
+               turns[0][2], turns[1][3], 2 * steps)
+    say("W", f"  losses {[round(x, 4) for x in turns[0][0]]}; launches "
+             f"{got}")
+    m_static = PoissonFactorization(latent_dim=W_K, feature_dim=D,
+                                    dtype="float32", device=dev, data=ds,
+                                    likelihood_clip="static")
+    zero_launches()
+    res = run_fit(m_static, init, ds, num_steps=1)
+    got = read_launches()
+    launches.update(got)
+    check(np.isfinite(res[0]).all() and got["static_wide"] >= steps
+          and got["static"] == 0,
+          f"W static K={W_K}: losses {res[0]}, launches {got}")
+    say("W", f"(c) clip='static' K={W_K}: one epoch, losses "
+             f"{[round(x, 4) for x in res[0]]}, launches {got}")
+    del m, m_static, ds, xw, init, turns, res
+
+    # one step at K=128 through K1 (float32, card) against the plain
+    # float64 path on the card on the same draws; phase 6's small-step
+    # tolerances (loss 1e-4, gradients 1e-3 of the largest entry)
+    n_s, d_s = 256, 3000
+    xs = np.random.default_rng(52).poisson(1.0, (n_s, d_s)).astype(
+        np.float32)
+
+    def small(dtype, **kw):
+        return PoissonFactorization(
+            latent_dim=W_K, feature_dim=d_s, gamma_sampler="fast",
+            u_tau_scale=1.0 / np.sqrt(n_s * d_s), dtype=dtype, device=dev,
+            **kw)
+
+    pair = {"kernel": small("float32", fused_likelihood=True,
+                            data=ArrayDataset({"counts": xs}).batch(n_s)),
+            "plain": small("float64", fused_likelihood=False,
+                           data=ArrayDataset({"counts": xs}).batch(n_s))}
+    p0 = perturbed_init(pair["plain"], 53)
+    draws = numpy_draws(pair["plain"], 53)
+    res = {}
+    for tag, mm in pair.items():
+        before = tfp.LAUNCHES["stats_wide"]
+        res[tag] = step_grads(mm, p0, {"counts": torch.as_tensor(
+            xs, device=dev).to(mm.dtype)}, draws)
+        check(tfp.LAUNCHES["stats_wide"] == before + (tag == "kernel"),
+              f"W small dense step {tag}: wide K1 launches")
+    e_loss = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    e_grad = rel_max(res["kernel"][1], res["plain"][1])
+    check(e_loss < 1e-4 and e_grad < 1e-3,
+          f"W small dense step: loss rel err {e_loss}, grads {e_grad}")
+    say("W", f"(c) one dense step K={W_K} (B={n_s}, D={d_s}) through the "
+             f"wide K1 vs the float64 plain path on the same draws: loss "
+             f"{res['kernel'][0]:.6f} vs {res['plain'][0]:.6f} (rel "
+             f"{e_loss:.2e}), grads rel-of-max {e_grad:.2e}")
+    del pair, res
+
+    # the 0.1% flat COO set one epoch at K=128 through K5 (the scan)
+    flat_c, norms_c = coo
+
+    def coo_model(data, dtype="float32", n_rows=N_SPARSE, d=D, **kw):
+        return PoissonFactorization(
+            latent_dim=W_K, feature_dim=d, log_transform=True,
+            u_tau_scale=1.0 / np.sqrt(n_rows * d), dtype=dtype, device=dev,
+            data=data, **kw)
+
+    m_c = coo_model(flat_c, column_norms=norms_c)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = m_c.fit(num_steps=1, learning_rate=0.01, sample_size=S,
+                   verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    got = read_launches()
+    launches.update(got)
+    n_steps = N_SPARSE // B_SPARSE
+    check(np.isfinite(loss).all() and got["expsum_wide"] >= n_steps
+          and got["expsum"] == 0 and m_c.last_fit.extras["epoch_scan"]
+          and m_c.fusion_inactive_reason.startswith(
+              "sparse COO gather energy"),
+          f"W COO K={W_K}: losses {loss}, launches {got}, dispatch "
+          f"{m_c.fusion_inactive_reason!r}")
+    say("W", f"(c) 0.1% flat COO K={W_K}: one epoch of {n_steps} steps on "
+             f"the scan in {fit_s:.1f} s (capture included), losses "
+             f"{[round(x, 4) for x in loss]}; launches {got}")
+    # ... and one COO step at a small size through K5 against the float64
+    # plain path on the card on the same draws
+    sp_w, _ = sparse_counts(512, 3000, DENSITY_COO, 54, dev)
+    sp_w.batch(256, drop_remainder=True)
+    pair = {tag: coo_model(sp_w.to_device(dtype=dtype, device=dev), dtype,
+                           512, 3000, gamma_sampler="fast",
+                           fused_likelihood=True,
+                           sparse_dense_scatter=False)
+            for tag, dtype in (("kernel", "float32"), ("plain", "float64"))}
+    p0 = perturbed_init(pair["plain"], 55)
+    draws = numpy_draws(pair["plain"], 55)
+    res = {}
+    for tag, mm in pair.items():
+        before = tfp.LAUNCHES["expsum_wide"]
+        res[tag] = step_grads(mm, p0, next(iter(mm.data())), draws)
+        check(tfp.LAUNCHES["expsum_wide"] == before + (tag == "kernel")
+              and mm.fusion_inactive_reason.startswith("sparse COO gather"),
+              f"W small COO step {tag}: dispatch "
+              f"{mm.fusion_inactive_reason!r}, K5 launches")
+    e_loss = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    e_grad = rel_max(res["kernel"][1], res["plain"][1])
+    check(e_loss < 1e-4 and e_grad < 1e-3,
+          f"W small COO step: loss rel err {e_loss}, grads {e_grad}")
+    say("W", f"(c) one COO step K={W_K} (B=256, D=3000, 0.1%) through the "
+             f"wide K5 vs the float64 plain path on the same draws: loss "
+             f"{res['kernel'][0]:.6f} vs {res['plain'][0]:.6f} (rel "
+             f"{e_loss:.2e}), grads rel-of-max {e_grad:.2e}")
+    del pair, res, sp_w
+
+    # log_likelihood of the held-out rows at K=128 through K4, and their
+    # per-row log-likelihood at 100 samples against the float64 plain path
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = m_c.log_likelihood(held, num_samples=100, sample_chunk=8)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
+    got = read_launches()
+    launches.update(got)
+    check(got["row_ll"] >= 13 and ll["n_rows"] == B_SPARSE
+          and np.isfinite(ll["total"]),
+          f"W log_likelihood K={W_K}: {ll}, launches {got}")
+    # the samples as phase 8's small check takes them (lognormal, valid for
+    # any scorer; the posterior after one epoch has rates near 0, where the
+    # log link's exp(.) - 1 cancels in float32 in any implementation), made
+    # on the card in float64; the plain model takes m_c's row and column
+    # scales (computed from its data at construction)
+    plain = coo_model(None, "float64", column_norms=norms_c,
+                      fused_likelihood=False)
+    plain.xi_u_global = m_c.xi_u_global.double()
+    plain.eta_i = m_c.eta_i.double()
+    batch = next(iter(held))
+    gen = torch.Generator(device=dev).manual_seed(56)
+    e_row = 0.0
+    for _ in range(25):          # 100 samples, 4 at a time
+        smp = {k: torch.exp(torch.randn(
+            (4,) + tuple(v.shape), generator=gen, device=dev,
+            dtype=torch.float64) * 0.5 - 1.0)
+            for k, v in m_c._surrogate.surrogates.items()}
+        with torch.no_grad():
+            out_k = m_c._row_log_likelihood(
+                _device_batch(batch, m_c.dtype, dev),
+                {k: t.float() for k, t in smp.items()})
+            out_p = plain._row_log_likelihood(
+                _device_batch(batch, plain.dtype, dev), smp)
+        e_c = rel_elem(out_k, out_p)
+        check(bool(torch.isfinite(out_p).all()) and e_c < 1e-5,
+              f"W held-out rows K={W_K}: rel err {e_c}, "
+              f"{int((~torch.isfinite(out_p)).sum())} rows not finite")
+        e_row = max(e_row, e_c)
+    say("W", f"(c) log_likelihood K={W_K} ({B_SPARSE} held-out rows, 100 "
+             f"samples): per_row {ll['per_row']:.4f} in {ll_s:.2f} s, "
+             f"launches {got}; per-row log-likelihood at 100 samples "
+             f"through K4 vs the float64 plain path: rel {e_row:.2e}")
+    del plain, batch, smp, out_k, out_p, gen
+    # ... and at K=256 through the wide K4
+    m_256 = PoissonFactorization(
+        latent_dim=256, feature_dim=D, log_transform=True,
+        column_norms=norms_c, u_tau_scale=1.0 / np.sqrt(N_SPARSE * D),
+        dtype="float32", device=dev, data=flat_c)
+    zero_launches()
+    ll = m_256.log_likelihood(held, num_samples=100, sample_chunk=8)
+    got = read_launches()
+    launches.update(got)
+    check(got["row_ll_wide"] >= 13 and np.isfinite(ll["total"]),
+          f"W log_likelihood K=256: {ll}, launches {got}")
+    say("W", f"(c) log_likelihood K=256 through the wide K4: per_row "
+             f"{ll['per_row']:.4f}, launches {got}")
+    del m_c, m_256
+    say("W", f"phase W took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches), errs, kt, bd
+
+
 def main():
     import torch
 
@@ -2885,13 +3257,15 @@ def main():
     plain_pool.shutdown(wait=False)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        for f in [pool.submit(tfp._lib), pool.submit(tfp._expsum_lib),
-                  pool.submit(tig._lib), pool.submit(tfn._lib)]:
+    with ThreadPoolExecutor(5) as pool:
+        for f in [pool.submit(tfp._lib), pool.submit(tfp._wide_lib),
+                  pool.submit(tfp._expsum_lib), pool.submit(tig._lib),
+                  pool.submit(tfn._lib)]:
             f.result()
     say(2, f"built {sorted(_build.BUILD_SECONDS)} in "
            f"{time.perf_counter() - t0:.1f} s (nvcc {_build.NVCC_FLAGS})")
-    for lib in ("fused_poisson", "fused_expsum", "fused_ig", "fused_normal"):
+    for lib in ("fused_poisson", "fused_poisson_wide", "fused_expsum",
+                "fused_ig", "fused_normal"):
         # ptxas -v: one (name, spill, registers) triple of lines per kernel
         with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
             lines = [ln.strip() for ln in f]
@@ -2903,13 +3277,14 @@ def main():
                f"spilling kernels: {spills or 'none'}")
         check(not spills, f"{lib} spills registers: {spills}")
     for kind in ("stats", "row_ll", "expsum"):
-        geom = tfp.launch_geometry(kind, S, 4096, K, D)
-        lib_smem = (tfp._expsum_lib().expsum_smem_bytes(K) if kind == "expsum"
-                    else tfp._lib().poisson_smem_bytes(int(kind == "row_ll"),
-                                                       K))
-        check(geom.smem_bytes == lib_smem,
-              f"{kind}: launch_geometry and the library disagree on shared "
-              f"memory ({geom}, library {lib_smem})")
+        for k_2 in (K,) + W_LATENT:
+            geom = tfp.launch_geometry(kind, S, 4096, k_2, D)
+            lib_smem = (tfp._expsum_lib().expsum_smem_bytes(k_2)
+                        if kind == "expsum" else tfp._lib().poisson_smem_bytes(
+                            int(kind == "row_ll"), k_2))
+            check(geom.smem_bytes == lib_smem,
+                  f"{kind} K={k_2}: launch_geometry and the library disagree "
+                  f"on shared memory ({geom}, library {lib_smem})")
 
     #: launch counters by kernel, as the JSON line names them
     counters = {"stats": (tfp.LAUNCHES, "stats"),
@@ -2918,6 +3293,8 @@ def main():
                 "expsum": (tfp.LAUNCHES, "expsum"),
                 "fwd": (tig.LAUNCHES, "fwd"), "bwd": (tig.LAUNCHES, "bwd"),
                 "nfwd": (tfn.LAUNCHES, "fwd"), "nbwd": (tfn.LAUNCHES, "bwd")}
+    counters.update({f"{k}_wide": (tfp.LAUNCHES, f"{k}_wide")
+                     for k in WIDE_KERNELS})
     kernels = tuple(counters)
 
     def zero_launches():
@@ -3768,6 +4145,11 @@ def main():
     path_launches["EX examples"] = examples_phase(dev, smi, zero_launches,
                                                   read_launches)
 
+    # ---- W: the latent dimensions past the whole-K tiles, and the slice at
+    # K=128 end to end
+    path_launches["W wide"], errs_w, kt_w, bd_w = wide_phase(
+        dev, smi, zero_launches, read_launches, (flat_c, norms_c), held)
+
     # ---- 9: times (medians of 10 after warmup)
     B = 4096
     for Bt in (B, 32768):
@@ -3889,8 +4271,13 @@ def main():
                f"block, {info['blocks_per_sm']} blocks an SM (occupancy "
                f"API) (float32, total={N_TOTAL}, S={S}; {smi})")
     bd = bounds(B, IG_TOTAL, N_TOTAL)
+    errs.update(errs_w)
+    bd.update(bd_w)
     sizes = {"fwd": f"total={IG_TOTAL}", "bwd": f"total={IG_TOTAL}",
              "nfwd": f"total={N_TOTAL}", "nbwd": f"total={N_TOTAL}"}
+    kt.update(kt_w)
+    sizes.update({k: f"B={B}, K={W_K if k != 'row_ll_wide' else 256}"
+                  for k in kt_w})
     for key, (k_ms, t_ms) in kt.items():
         say(9, f"{key}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, bound "
                f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
@@ -3976,8 +4363,23 @@ def main():
         "nbwd": ("fused_normal_bwd (K6b)",
                  "spmf_tpu_torch/csrc/fused_normal.cu",
                  "spmf_tpu/ops/fused_normal.py:99"),
+        "stats_wide": ("fused_poisson_stats_wide (K1 past K=124, "
+                       "clip='reference')",
+                       "spmf_tpu_torch/csrc/fused_poisson_wide.cu",
+                       "spmf_tpu/ops/fused_poisson.py:323"),
+        "static_wide": ("fused_poisson_stats_wide (K2 past K=124, "
+                        "clip='static')",
+                        "spmf_tpu_torch/csrc/fused_poisson_wide.cu",
+                        "spmf_tpu/ops/fused_poisson.py:387"),
+        "row_ll_wide": ("fused_poisson_row_ll_wide (K4 past K=152)",
+                        "spmf_tpu_torch/csrc/fused_poisson_wide.cu",
+                        "spmf_tpu/ops/fused_poisson.py:768"),
+        "expsum_wide": ("fused_exp_rate_sum_wide (K5 past K=64)",
+                        "spmf_tpu_torch/csrc/fused_expsum.cu",
+                        "spmf_tpu/ops/fused_poisson.py:872"),
     }
-    total = {k: sum(p[k] for p in path_launches.values()) for k in kernels}
+    total = {k: sum(p.get(k, 0) for p in path_launches.values())
+             for k in kernels}
     say(9, f"launches per path {path_launches}")
     check(all(total[k] > 0 for k in kernels), f"kernel never launched {total}")
     # no single PyTorch call computes any of these functions: library null

@@ -64,13 +64,16 @@ def column_mass(A):
 
 
 def launches():
-    """The kernel wrappers' launch counters, by kernel."""
+    """The kernel wrappers' launch counters, by kernel (the whole-K and the
+    K-chunked kernels of K1/K2, K4 and K5 together)."""
     from spmf_tpu_torch.ops import fused_ig, fused_normal, fused_poisson
 
-    return {"K1": fused_poisson.LAUNCHES["stats"],
-            "K2": fused_poisson.LAUNCHES["static"],
-            "K4": fused_poisson.LAUNCHES["row_ll"],
-            "K5": fused_poisson.LAUNCHES["expsum"],
+    def both(key):
+        return (fused_poisson.LAUNCHES[key]
+                + fused_poisson.LAUNCHES[key + "_wide"])
+
+    return {"K1": both("stats"), "K2": both("static"), "K4": both("row_ll"),
+            "K5": both("expsum"),
             "K3f": fused_ig.LAUNCHES["fwd"], "K3b": fused_ig.LAUNCHES["bwd"],
             "K6f": fused_normal.LAUNCHES["fwd"],
             "K6b": fused_normal.LAUNCHES["bwd"]}

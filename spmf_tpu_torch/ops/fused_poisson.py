@@ -32,7 +32,9 @@ eta), is ``fused_exp_rate_sum``; like K1 its kernel emits the gradients at
 unit cotangent from the same tiles, so the backward is a rescale.
 
 Each wrapper launches its kernel (K1/K2 and K4 in ``csrc/fused_poisson.cu``,
-K5 in ``csrc/fused_expsum.cu``) for CUDA tensors and runs its twin
+or past the latent dimensions whose tiles fit a block in
+``csrc/fused_poisson_wide.cu``; K5 in ``csrc/fused_expsum.cu``) for CUDA
+tensors, at every latent dimension K >= 1, and runs its twin
 (``stats_twin``, ``row_loglik_twin``, ``expsum_twin``) for CPU tensors. The
 twins are the explicit formulas over the whole (B, D) slab of each sample,
 for any dtype and device.
@@ -99,8 +101,15 @@ def _split_likelihood(likelihood):
 
 #: kernel launches, counted by the wrappers where they launch: "stats" for
 #: clip='reference' (K1), "static" for clip='static' (K2), "row_ll" (K4) and
-#: "expsum" (K5)
-LAUNCHES = {"stats": 0, "static": 0, "row_ll": 0, "expsum": 0}
+#: "expsum" (K5); with "_wide" where the K-chunked kernel ran (past the
+#: latent dimensions whose whole-K tiles fit a block)
+LAUNCHES = {"stats": 0, "static": 0, "row_ll": 0, "expsum": 0,
+            "stats_wide": 0, "static_wide": 0, "row_ll_wide": 0,
+            "expsum_wide": 0}
+
+
+def _count(key, geom):
+    LAUNCHES[key + ("_wide" if geom.chunks > 1 else "")] += 1
 
 
 def _safe_log(rate):
@@ -283,17 +292,25 @@ _SIGNATURES = {"poisson_stats": [_P] * 13 + [_I] * 7 + [_F] * 2 + [_P],
                "poisson_row_ll": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
                "poisson_smem_bytes": [_I, _I],
                "poisson_kernel_info": [_I, _I, _P]}
+_WIDE_SIGNATURES = {"poisson_stats_wide": _SIGNATURES["poisson_stats"],
+                    "poisson_row_ll_wide": _SIGNATURES["poisson_row_ll"],
+                    "poisson_wide_kernel_info": [_I, _P]}
 _EXPSUM_SIGNATURES = {"poisson_expsum": [_P] * 6 + [_I] * 4 + [_P],
                       "expsum_smem_bytes": [_I],
                       "expsum_kernel_info": [_I, _P]}
-# The tilings of csrc/fused_poisson.cu and csrc/fused_expsum.cu (their
+# The tilings of csrc/fused_poisson.cuh and csrc/fused_expsum.cu (their
 # constants of the same names; the GPU tests hold launch_geometry to the
 # libraries' poisson_smem_bytes and expsum_smem_bytes).
 _THREADS, _TB, _TD, _K_STEP = 256, 128, 64, 4
 _TBP, _TP, _NLANE, _TABLE_N = _TB + 4, _TD + 4, 3, 64
-# K5: k-steps of 8 (mma.m16n8k8), K <= 64 (its dtheta sums live in
-# registers), v and G tiles at pitch 72, two blocks an SM to K = 32
-_EXPSUM_K_STEP, _EXPSUM_K_MAX, _VP = 8, 64, _TD + 8
+# the wide K1/K2 and K4: chunks of KC latent dimensions, two stages of
+# theta's rows [TB][KC] and v's rows [KC][TP]
+_KC = 28
+_STAGE = _TB * _KC + _KC * _TP
+# K5: k-steps of 8 (mma.m16n8k8), an instance per k-step to K = 64 (its
+# dtheta sums live in registers), past that chunks of 32; v and G tiles at
+# pitch 72, two blocks an SM to K = 32 and in the wide kernel
+_EXPSUM_K_STEP, _EXPSUM_K_MAX, _EXPSUM_KC, _VP = 8, 64, 32, _TD + 8
 _STATIC_SMEM = {"stats": 128, "expsum": 8 * 8, "row_ll": 8 * _TB}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 _SMEM_PER_SM = 233472       # ... and an SM holds, each block reserving 1 KB
@@ -309,7 +326,10 @@ class LaunchGeometry(typing.NamedTuple):
     col_tile: int        # columns per step of a block's loop
     k_step: int
     k_padded: int        # K padded with zeros to a multiple of k_step
-    stages: int          # tile buffers of x and of v in shared memory
+    k_chunk: int         # latent dimensions a block holds at once: k_padded,
+                         # or past the whole-K tiles the wide kernel's chunk
+    chunks: int          # k-chunks a column tile walks (1: the whole-K kernel)
+    stages: int          # buffers of the v tile (or chunk) in shared memory
     smem_bytes: int      # dynamic shared memory per block
     static_smem_bytes: int
     blocks_per_sm: int   # resident blocks an SM's shared memory allows (K5:
@@ -327,46 +347,55 @@ class LaunchGeometry(typing.NamedTuple):
 
 def launch_geometry(kind, S, B, K, D):
     """The launch geometry of K1/K2 (``'stats'``), K4 (``'row_ll'``) or K5
-    (``'expsum'``) at theta (S, B, K) and D features; raises ``ValueError``
-    for a latent dimension whose tiles do not fit a block's shared memory,
-    or past K5's instances (K > 64). Plain arithmetic on the tiling
+    (``'expsum'``) at theta (S, B, K) and D features: the whole-K kernel
+    while its tiles fit a block's shared memory (K1/K2 to padded K = 124, K4
+    to 152, K5 to K = 64), the K-chunked wide kernel past that; raises
+    ``ValueError`` only for K < 1. Plain arithmetic on the tiling
     constants: no card needed."""
     if kind not in _STATIC_SMEM:
         raise ValueError(f"unknown kernel kind {kind!r}")
+    if K < 1:
+        raise ValueError(f"latent dim K={K}: the kernels take K >= 1")
     k_step = _EXPSUM_K_STEP if kind == "expsum" else _K_STEP
     kp = -(-K // k_step) * k_step
+    static = _STATIC_SMEM[kind]
     v_tile = (kp + _NLANE) * _TP          # v rows, then eta, phi, codes
     if kind == "row_ll":                  # theta^T, 2 x (v, x), the table
-        stages = 2
         floats = kp * _TBP + 2 * v_tile + 2 * _TB * _TD + _TABLE_N
+        # wide: the chunk ring, 2 x (x, lanes), the table
+        wide = 2 * _STAGE + 2 * (_TB * _TD + _NLANE * _TD) + _TABLE_N
+        stages, wide_chunk = 2, _KC
     elif kind == "stats":  # theta^T, dtheta, v, x, dtv, dphi, the table
-        stages = 1
         floats = (kp * _TBP + _TB * kp + v_tile + _TB * _TD + _TB * _TP
                   + _TD + _TABLE_N)
+        # wide: the chunk ring, x, dtv, the lanes, dphi, the table
+        wide = (2 * _STAGE + _TB * _TD + _TB * _TP + _NLANE * _TD + _TD
+                + _TABLE_N)
+        stages, wide_chunk = 1, _KC
     else:   # the raw v tile with eta, v hi/lo, eta, theta^T hi/lo, G
-        if kp > _EXPSUM_K_MAX:
-            raise ValueError(
-                f"latent dim K={K} is too wide for the expsum kernel "
-                f"(K <= {_EXPSUM_K_MAX}: its dtheta sums live in "
-                "registers)")
-        stages = 2
         kp16 = -(-kp // 16) * 16
         floats = ((kp + 1) * _TD + 2 * kp * _VP + _TD + 2 * kp16 * _TBP
                   + _TB * _VP)
-    smem, static = 4 * floats, _STATIC_SMEM[kind]
-    if smem + static > _SMEM_LIMIT:
-        raise ValueError(
-            f"latent dim K={K} is too wide for the {kind} kernel's "
-            f"shared-memory tiles ({smem + static} bytes of {_SMEM_LIMIT})")
+        # wide: raw theta and v chunks, their hi/lo, eta, G
+        c = _EXPSUM_KC
+        wide = (_TB * c + (c + 1) * _TD + 2 * c * _VP + _TD
+                + 2 * c * _TBP + _TB * _VP)
+        stages, wide_chunk = 2, c
+    fits = (kp <= _EXPSUM_K_MAX if kind == "expsum"
+            else 4 * floats + static <= _SMEM_LIMIT)
+    chunk = kp if fits else wide_chunk
+    if not fits:                          # the wide kernels: two stages
+        floats, stages = wide, 2
+    smem = 4 * floats
     blocks = _SMEM_PER_SM // (smem + static + 1024)
-    if kind == "expsum":    # __launch_bounds__(256, 2) to K = 32, else 1
+    if kind == "expsum" and fits:  # __launch_bounds__(256, 2) to K = 32
         blocks = min(blocks, 2 if kp <= 32 else 1)
     row_tiles = -(-B // _TB)
     return LaunchGeometry(
         kind=kind, samples=S, rows=B, threads=_THREADS, row_tile=_TB,
-        col_tile=_TD, k_step=k_step, k_padded=kp, stages=stages,
-        smem_bytes=smem, static_smem_bytes=static,
-        blocks_per_sm=blocks,
+        col_tile=_TD, k_step=k_step, k_padded=kp, k_chunk=chunk,
+        chunks=-(-kp // chunk), stages=stages, smem_bytes=smem,
+        static_smem_bytes=static, blocks_per_sm=blocks,
         row_tiles=row_tiles, col_tiles=-(-D // _TD), grid=S * row_tiles)
 
 
@@ -391,6 +420,10 @@ def _lib():
     return _build.load_library("fused_poisson", _SIGNATURES)
 
 
+def _wide_lib():
+    return _build.load_library("fused_poisson_wide", _WIDE_SIGNATURES)
+
+
 def _expsum_lib():
     return _build.load_library("fused_expsum", _EXPSUM_SIGNATURES)
 
@@ -398,12 +431,16 @@ def _expsum_lib():
 def kernel_info(kind, K):
     """What the built library reports for the Poisson identity-link instance
     of K1 (``'stats'``) or K4 (``'row_ll'``), or for K5 (``'expsum'``), at
-    latent dimension K: registers per thread, static and dynamic shared
-    memory per block, and resident blocks per SM (the occupancy API's).
-    Needs the card."""
+    latent dimension K (the whole-K or the wide kernel, as
+    ``launch_geometry`` says): registers per thread, static and dynamic
+    shared memory per block, and resident blocks per SM (the occupancy
+    API's). Needs the card."""
     info = (ctypes.c_int * 4)()
     if kind == "expsum":
         err = _expsum_lib().expsum_kernel_info(K, info)
+    elif launch_geometry(kind, 1, 1, K, 1).chunks > 1:
+        err = _wide_lib().poisson_wide_kernel_info(int(kind == "row_ll"),
+                                                   info)
     else:
         err = _lib().poisson_kernel_info(int(kind == "row_ll"), K, info)
     _build.check(err, f"{kind} kernel_info")
@@ -413,8 +450,8 @@ def kernel_info(kind, K):
 
 def _check_cuda(kind, theta, tensors, D):
     """Raise unless every (name, tensor, shape) is a contiguous float32 CUDA
-    tensor of that shape on theta's device and the block's shared-memory
-    tiles fit; the launch geometry otherwise."""
+    tensor of that shape on theta's device; the launch geometry
+    otherwise."""
     for name, t, shape in tensors:
         if (not t.is_cuda or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != shape
@@ -454,15 +491,18 @@ def _kernel_stats(theta, v, phi, x, eta, log_transform, static,
     dtheta = torch.empty((S, B, K), dtype=torch.float32, device=dev)
     dv = torch.zeros((S, K, D), dtype=torch.float32, device=dev)
     dphi = torch.zeros((S, 1, D), dtype=torch.float32, device=dev)
-    err = _lib().poisson_stats(
+    launch = (_wide_lib().poisson_stats_wide if geom.chunks > 1
+              else _lib().poisson_stats)
+    err = launch(
         theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
         eta.data_ptr(), codes.data_ptr(), _device_table(dev).data_ptr(),
         psum.data_ptr(), pcnt.data_ptr(), pmin.data_ptr(), dtheta.data_ptr(),
         dv.data_ptr(), dphi.data_ptr(), S, B, K, D, int(bool(log_transform)),
         int(bool(static)), lik, inv_scale, norm_const,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "poisson_stats")
-    LAUNCHES["static" if static else "stats"] += 1
+    _build.check(err, "poisson_stats_wide" if geom.chunks > 1
+                 else "poisson_stats")
+    _count("static" if static else "stats", geom)
     return (psum.sum(1).to(torch.float32), pcnt.sum(1, dtype=torch.int32),
             pmin.min().reshape(1), dtheta, dv, dphi)
 
@@ -473,19 +513,22 @@ def _kernel_row_ll(theta, v, phi, x, eta, log_transform,
     D = x.shape[-1]
     lik, inv_scale, norm_const, codes = _kernel_selector(
         likelihood, codes, D, theta.device)
-    _check_cuda("row_ll", theta,
-                (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
-                 ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
-                 ("eta", eta, (1, D)), ("codes", codes, (1, D))), D)
+    geom = _check_cuda("row_ll", theta,
+                       (("theta", theta, (S, B, K)), ("v", v, (S, K, D)),
+                        ("phi", phi, (S, 1, D)), ("x", x, (B, D)),
+                        ("eta", eta, (1, D)), ("codes", codes, (1, D))), D)
     dev = theta.device
     out = torch.empty((S, B), dtype=torch.float32, device=dev)
-    err = _lib().poisson_row_ll(
+    launch = (_wide_lib().poisson_row_ll_wide if geom.chunks > 1
+              else _lib().poisson_row_ll)
+    err = launch(
         theta.data_ptr(), v.data_ptr(), phi.data_ptr(), x.data_ptr(),
         eta.data_ptr(), codes.data_ptr(), _device_table(dev).data_ptr(),
         out.data_ptr(), S, B, K, D, int(bool(log_transform)), lik,
         inv_scale, norm_const, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "poisson_row_ll")
-    LAUNCHES["row_ll"] += 1
+    _build.check(err, "poisson_row_ll_wide" if geom.chunks > 1
+                 else "poisson_row_ll")
+    _count("row_ll", geom)
     return out
 
 
@@ -504,7 +547,7 @@ def _kernel_expsum(theta, v, eta):
         dtheta.data_ptr(), dv.data_ptr(), S, B, K, D,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "poisson_expsum")
-    LAUNCHES["expsum"] += 1
+    _count("expsum", geom)
     return psum.sum(1).to(torch.float32), dtheta, dv
 
 

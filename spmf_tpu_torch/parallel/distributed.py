@@ -37,7 +37,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     starts nothing and gets False. ``backend``: 'nccl' or 'gloo'; by
     default NCCL for ranks on cards and gloo for ranks on the CPU, as
     ``device`` says (None: the card where one is present). Under NCCL
-    each rank takes the card ``LOCAL_RANK`` names. ``timeout``: seconds a
+    each rank takes the card ``LOCAL_RANK`` names, or, started with
+    ``coordinator_address`` and no ``LOCAL_RANK``, card ``process_id``
+    modulo the host's card count. ``timeout``: seconds a
     collective waits for the other ranks before it raises (torch's
     default when None)."""
     if dist.is_initialized():
@@ -56,8 +58,14 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         kwargs = dict(init_method="env://")
     else:
         return False
-    if backend == "nccl" and "LOCAL_RANK" in os.environ:
-        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    if backend == "nccl":
+        if "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        elif coordinator_address and torch.cuda.device_count():
+            # no launcher named a card: rank r of a tcp:// world takes its
+            # host's card r mod count, as jax.distributed hands each process
+            # its local devices (NCCL refuses two ranks on one card)
+            torch.cuda.set_device(int(process_id) % torch.cuda.device_count())
     if timeout is not None:
         kwargs["timeout"] = datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend=backend, **kwargs)

@@ -16,10 +16,12 @@ from spmf_tpu_torch.ops import fused_poisson as tfp
 S, B, K, D = 3, 40, 4, 300   # ragged: neither B nor D a tile multiple
 
 
-def _inputs(seed=0, rescue=False):
+def _inputs(seed=0, rescue=False, latent=K):
+    """``latent`` past K: v scaled by sqrt(K / latent), so that theta . v
+    keeps the spread it has at K."""
     rng = np.random.default_rng(seed)
-    theta = rng.uniform(0.0, 0.5, (S, B, K))
-    v = rng.uniform(0.0, 0.5, (S, K, D))
+    theta = rng.uniform(0.0, 0.5, (S, B, latent))
+    v = rng.uniform(0.0, 0.5, (S, latent, D)) * min(1.0, (K / latent) ** 0.5)
     phi = rng.uniform(0.05, 0.5, (S, 1, D))
     x = rng.poisson(1.0, (B, D)).astype(float)
     eta = rng.uniform(0.5, 2.0, (1, D))
@@ -70,7 +72,20 @@ def test_matches_interpreted_pallas_kernel_f32(log_transform, clip):
     another lgamma) and the unit-cotangent gradients through the
     autograd.Function (1e-4 of the largest entry) vs jax.grad of the
     interpreted kernel."""
-    args = _inputs(seed=1)
+    _check_against_interpreted_kernel(_inputs(seed=1), log_transform, clip)
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("clip", ["reference", "static"])
+def test_matches_interpreted_pallas_kernel_f32_at_k128(log_transform, clip):
+    """The same at K = 128, a latent dimension past the whole-K tiles of
+    the port's K1/K2 (its K-chunked kernel on the card); the TPU kernel
+    takes the whole of K in one block."""
+    _check_against_interpreted_kernel(_inputs(seed=4, latent=128),
+                                      log_transform, clip)
+
+
+def _check_against_interpreted_kernel(args, log_transform, clip):
     f, jargs, codes = _jax_kernel(args, log_transform, clip)
     g = np.array([0.7, -1.3, 2.0], np.float32)
     val_j, vjp = jax.vjp(f, *jargs[:3])
@@ -169,18 +184,49 @@ def test_launch_geometry_covers_the_batch(shape, kind):
 @pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
 def test_launch_geometry_at_the_model_widths(kind):
     """K = 16 and K = 32 leave room for two blocks on an SM (233,472 bytes,
-    1 KB reserved per block); a latent dimension whose tiles cannot fit one
-    block raises instead of launching."""
+    1 KB reserved per block); a latent dimension whose whole-K tiles cannot
+    fit one block gets the K-chunked geometry; only K < 1 raises."""
     for K in (16, 32):
         g = tfp.launch_geometry(kind, 8, 4096, K, 20000)
-        assert g.blocks_per_sm == 2
+        assert g.blocks_per_sm == 2 and g.chunks == 1
         assert 2 * (g.smem_bytes + g.static_smem_bytes + 1024) <= 233472
     wide = tfp.launch_geometry(kind, 8, 4096, 64, 20000)
-    assert wide.blocks_per_sm == 1
-    with pytest.raises(ValueError, match="too wide"):
-        tfp.launch_geometry(kind, 8, 4096, 512, 20000)
+    assert wide.blocks_per_sm == 1 and wide.chunks == 1
+    chunked = tfp.launch_geometry(kind, 8, 4096, 512, 20000)
+    assert chunked.chunks > 1 and chunked.k_padded == 512
+    with pytest.raises(ValueError, match="K >= 1"):
+        tfp.launch_geometry(kind, 8, 4096, 0, 20000)
     with pytest.raises(ValueError, match="unknown kernel kind"):
         tfp.launch_geometry("k7", 8, 4096, 32, 20000)
+
+
+#: the latent dimensions past one kernel's whole-K tiles or another (K5's
+#: instances end at 64, K1/K2's tiles at padded K = 124, K4's at 152)
+WIDE_K = (65, 125, 128, 153, 256, 512, 1024)
+WHOLE_K_LIMIT = {"stats": 124, "row_ll": 152, "expsum": 64}
+
+
+@pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
+@pytest.mark.parametrize("K", WIDE_K)
+def test_launch_geometry_past_the_whole_k_tiles(K, kind):
+    """Every K gets a geometry that fits a Hopper block's shared memory
+    (two blocks an SM past the whole-K tiles), whose chunks cover the padded
+    latent dimension, and whose blocks own every (sample, row) once."""
+    S, B, D = 2, 1000, 19997
+    g = tfp.launch_geometry(kind, S, B, K, D)
+    assert g.k_padded % g.k_step == 0 and K <= g.k_padded < K + g.k_step
+    assert g.chunks * g.k_chunk >= g.k_padded > (g.chunks - 1) * g.k_chunk
+    assert g.smem_bytes + g.static_smem_bytes <= 232448
+    assert (g.chunks > 1) == (g.k_padded > WHOLE_K_LIMIT[kind])
+    if g.chunks > 1:
+        assert g.blocks_per_sm == 2 and g.k_chunk % g.k_step == 0
+        assert 2 * (g.smem_bytes + g.static_smem_bytes + 1024) <= 233472
+    assert g.grid == S * g.row_tiles
+    owned = np.zeros((S, B), np.int64)
+    for i in range(g.grid):
+        s, r0, r1 = g.block(i)
+        owned[s, r0:r1] += 1
+    assert (owned == 1).all()
 
 
 def test_lgamma_table_is_the_rounded_float64_value():

@@ -154,12 +154,17 @@ def test_row_ll_kernel_is_deterministic(cuda):
         assert torch.equal(first, second)
 
 
+#: latent dimensions past the whole-K tiles of one kernel or another: K5's
+#: instances end at 64, K1/K2's tiles at 124, K4's at 152
+WIDE_K = (65, 128, 256)
+
+
 @pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
 def test_launch_geometry_matches_the_library(cuda, kind):
     """The wrapper's shared-memory arithmetic is the built library's, and
     the occupancy API grants the two blocks an SM the tiling was chosen
-    for, at the registers the build log reports."""
-    for latent in (1, 5, 16, 20, 32, 33, 64):
+    for, at the registers the build log reports; the wide kernels too."""
+    for latent in (1, 5, 16, 20, 32, 33, 64) + WIDE_K:
         geom = tfp.launch_geometry(kind, 8, 4096, latent, 20000)
         if kind == "expsum":
             lib = tfp._expsum_lib().expsum_smem_bytes(latent)
@@ -176,18 +181,52 @@ def test_launch_geometry_matches_the_library(cuda, kind):
         info = tfp.kernel_info(kind, 64)
         assert info["blocks_per_sm"] == tfp.launch_geometry(
             kind, 8, 4096, 64, 20000).blocks_per_sm == 1
+    wide = 256 if kind == "row_ll" else 128
+    info = tfp.kernel_info(kind, wide)
+    geom = tfp.launch_geometry(kind, 8, 4096, wide, 20000)
+    assert geom.chunks > 1 and info["smem_bytes"] == geom.smem_bytes
+    assert info["blocks_per_sm"] == geom.blocks_per_sm == 2
+    assert info["registers"] <= 128
 
 
-def test_kernels_refuse_a_latent_dim_too_wide(cuda):
-    """A K whose tiles do not fit a block's shared memory raises in the
-    wrapper; nothing falls back to the twin."""
-    args = _stats_inputs(1, 8, 512, 16, cuda)
-    with pytest.raises(ValueError, match="too wide"):
-        tfp._kernel_stats(*args, False, False)
-    with pytest.raises(ValueError, match="too wide"):
-        tfp._kernel_row_ll(*args, False)
-    with pytest.raises(ValueError, match="too wide"):
-        tfp._kernel_expsum(args[0], args[1], args[4])
+def _wide_inputs(K, dev, seed):
+    """_stats_inputs at S=2, B=300, D=997 (no tile multiples, D odd), v
+    scaled by sqrt(8 / K) so that theta . v keeps its spread at K = 8."""
+    args = _stats_inputs(2, 300, K, 997, dev, seed=seed)
+    args[1] *= min(1.0, (8.0 / K) ** 0.5)
+    return args
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("K", WIDE_K)
+def test_kernels_match_twin_at_wide_latent_dims(cuda, K, log_transform):
+    """K1, K2 and K4 past their whole-K tiles (the K-chunked kernels of
+    csrc/fused_poisson_wide.cu where launch_geometry says so) against the
+    float64 twin at the tolerances above; the wrapper launches, nothing
+    falls back."""
+    args = _wide_inputs(K, cuda, seed=K)
+    args64 = [a.double() for a in args]
+    wide = tfp.launch_geometry("stats", 2, 300, K, 997).chunks > 1
+    for static in (False, True):
+        key = ("static" if static else "stats") + ("_wide" if wide else "")
+        before = tfp.LAUNCHES[key]
+        out_k = tfp._kernel_stats(*args, log_transform, static)
+        out_t = tfp.stats_twin(*args64, log_transform=log_transform,
+                               static=static)
+        torch.cuda.synchronize()
+        assert tfp.LAUNCHES[key] == before + 1
+        np.testing.assert_allclose(out_k[0].cpu().numpy(),
+                                   out_t[0].cpu().numpy(), rtol=1e-5)
+        assert torch.equal(out_k[1].cpu(), out_t[1].cpu())
+        np.testing.assert_allclose(out_k[2].cpu().numpy(),
+                                   out_t[2].cpu().numpy(), rtol=1e-6)
+        for k, t in zip(out_k[3:], out_t[3:]):
+            assert _rel_max(k, t) < 1e-4
+    out_k = tfp._kernel_row_ll(*args, log_transform)
+    out_t = tfp.row_loglik_twin(*args64, log_transform=log_transform)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_t.cpu().numpy(),
+                               rtol=1e-5)
 
 
 def test_row_ll_kernel_rescue_rows_are_nan(cuda):
@@ -247,15 +286,22 @@ def test_expsum_rate_total_is_deterministic(cuda):
     assert torch.equal(first[1], second[1])
 
 
-def test_expsum_kernel_refuses_k_past_its_instances(cuda):
-    theta, v, _, _, eta = _stats_inputs(1, 8, 65, 16, cuda)
-    with pytest.raises(ValueError, match="too wide"):
-        tfp._kernel_expsum(theta, v, eta)
-    theta, v, _, _, eta = _stats_inputs(1, 8, 64, 16, cuda)
+@pytest.mark.parametrize("K", (64,) + WIDE_K)
+def test_expsum_kernel_matches_twin_past_its_instances(cuda, K):
+    """K5 at its last instance (K = 64) and past it (the K-chunked wide
+    kernel), ragged, against the float64 twin: R 1e-5 relative, gradients
+    1e-4 of their largest entry; dtheta has one owner per element, so two
+    launches give the same bits."""
+    theta, v, _, _, eta = _wide_inputs(K, cuda, seed=K + 1)
     out_k = tfp._kernel_expsum(theta, v, eta)
+    again = tfp._kernel_expsum(theta, v, eta)
     out_t = tfp.expsum_twin(theta.double(), v.double(), eta.double())
+    torch.cuda.synchronize()
     np.testing.assert_allclose(out_k[0].cpu().numpy(), out_t[0].cpu().numpy(),
                                rtol=1e-5)
+    for k, t in zip(out_k[1:], out_t[1:]):
+        assert _rel_max(k, t) < 1e-4
+    assert torch.equal(out_k[0], again[0]) and torch.equal(out_k[1], again[1])
 
 
 def test_exp_rate_sum_backward_runs_the_kernel(cuda):

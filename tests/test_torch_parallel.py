@@ -647,6 +647,30 @@ def test_initialize_distributed_backend_follows_device(monkeypatch, device,
     assert seen["backend"] == want
 
 
+@pytest.mark.parametrize("local_rank,want", [(None, 1), ("0", 0)])
+def test_initialize_distributed_picks_a_card_under_tcp(monkeypatch,
+                                                        local_rank, want):
+    """A tcp:// world under NCCL with no LOCAL_RANK: rank 3 of a host with
+    two cards takes card 3 mod 2 = 1 (every rank on card 0 is what NCCL
+    refuses); under torchrun LOCAL_RANK still names the card."""
+    from spmf_tpu_torch.parallel import initialize_distributed
+
+    cards = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: None)
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    assert initialize_distributed("127.0.0.1:1", 4, 3, backend="nccl")
+    assert cards == [want]
+
+
 def test_dryrun_entry_point_runs_on_the_card_by_default(monkeypatch):
     """``python -m spmf_tpu_torch.parallel.dryrun N`` runs on the card
     unless ``--device cpu`` is given: a host without a card raises and

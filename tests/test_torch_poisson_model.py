@@ -40,6 +40,26 @@ def test_energy_parts_match_jax_f64(log_transform):
                                rtol=1e-9)
 
 
+@pytest.mark.parametrize("log_transform", [False, True])
+def test_energy_parts_match_jax_f64_at_k128(log_transform):
+    """PoissonFactorization(latent_dim=128), a latent dimension past the
+    whole-K tiles of the port's K1/K2 on the card, against the JAX model:
+    every part of the energy at 1e-9 in float64 on the same samples,
+    converted to the port with utils/convert.py (D = 64)."""
+    jm, tm, X = model_pair("float64", k=128, log_transform=log_transform)
+    assert jm.latent_dim == tm.latent_dim == 128
+    samples = random_samples(jm)
+    batch = X[:B].astype(np.float64)
+    jparts = _jax_parts(jm, batch, samples)
+    tparts = tm.unormalized_log_prob_parts(
+        {"counts": batch}, **torch_params(samples, torch.float64))
+    assert set(tparts) == set(jparts)
+    for k in jparts:
+        assert np.isfinite(np.asarray(jparts[k])).all(), k
+        np.testing.assert_allclose(tparts[k].numpy(), np.asarray(jparts[k]),
+                                   rtol=1e-9, err_msg=k)
+
+
 @pytest.mark.parametrize("clip", ["reference", "static"])
 def test_fused_x_part_matches_interpreted_kernel_f32(clip):
     jm, tm, X = model_pair("float32", fused_likelihood=True,

@@ -18,18 +18,23 @@ from spmf_tpu_torch.ops import fused_poisson as tfp
 S, B, K, D = 3, 37, 4, 150
 
 
-def _expsum_inputs(seed=5):
+def _wide(latent):
+    """v's scale past K: theta . v keeps the spread it has at K."""
+    return min(1.0, (K / latent) ** 0.5)
+
+
+def _expsum_inputs(seed=5, latent=K):
     rng = np.random.default_rng(seed)
-    theta = rng.normal(0.1, 0.2, (S, B, K))
-    v = np.abs(rng.normal(0.1, 0.1, (S, K, D)))
+    theta = rng.normal(0.1, 0.2, (S, B, latent))
+    v = np.abs(rng.normal(0.1, 0.1, (S, latent, D))) * _wide(latent)
     eta = np.abs(rng.normal(1.0, 0.1, (1, D)))
     return theta, v, eta
 
 
-def _row_inputs(seed=0, rescue=False):
+def _row_inputs(seed=0, rescue=False, latent=K):
     rng = np.random.default_rng(seed)
-    theta = rng.uniform(0.0, 0.5, (S, B, K))
-    v = rng.uniform(0.0, 0.5, (S, K, D))
+    theta = rng.uniform(0.0, 0.5, (S, B, latent))
+    v = rng.uniform(0.0, 0.5, (S, latent, D)) * _wide(latent)
     phi = rng.uniform(0.05, 0.5, (S, 1, D))
     x = rng.poisson(1.0, (B, D)).astype(float)
     eta = rng.uniform(0.5, 2.0, (1, D))
@@ -46,7 +51,19 @@ def test_expsum_twin_matches_interpreted_kernel_f32():
     """Value within 1e-5 relative (f32 exps summed in another order), the
     gradients at a non-unit cotangent within 1e-4 of the largest entry
     (the JAX test's tolerances)."""
-    theta, v, eta = (np.asarray(a, np.float32) for a in _expsum_inputs())
+    _check_expsum_against_interpreted_kernel(_expsum_inputs())
+
+
+@pytest.mark.parametrize("latent", [80, 128])
+def test_expsum_twin_matches_interpreted_kernel_f32_wide(latent):
+    """The same past K = 64, where the port's K5 takes its K-chunked
+    kernel on the card (the TPU kernel holds the whole of K)."""
+    _check_expsum_against_interpreted_kernel(
+        _expsum_inputs(seed=latent, latent=latent))
+
+
+def _check_expsum_against_interpreted_kernel(inputs):
+    theta, v, eta = (np.asarray(a, np.float32) for a in inputs)
     g = np.array([0.7, -1.3, 2.0], np.float32)
     val_j, vjp = jax.vjp(lambda t, vv: jfp.fused_exp_rate_sum(t, vv, eta, True),
                          jnp.asarray(theta), jnp.asarray(v))
@@ -82,7 +99,20 @@ def test_expsum_twin_matches_direct_sum_f64():
 def test_row_ll_twin_matches_interpreted_kernel_f32(log_transform):
     """Row sums within 3e-5 relative (the JAX test's tolerance: f32 cells,
     another lgamma); NaN rows of a rescue batch at the same positions."""
-    args = [np.asarray(a, np.float32) for a in _row_inputs(rescue=True)]
+    _check_row_ll_against_interpreted_kernel(_row_inputs(rescue=True),
+                                             log_transform)
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+def test_row_ll_twin_matches_interpreted_kernel_f32_at_k128(log_transform):
+    """The same at K = 128 (the port's K4 takes its whole-K kernel there
+    to padded K = 152, the K-chunked one past it)."""
+    _check_row_ll_against_interpreted_kernel(
+        _row_inputs(seed=2, rescue=True, latent=128), log_transform)
+
+
+def _check_row_ll_against_interpreted_kernel(inputs, log_transform):
+    args = [np.asarray(a, np.float32) for a in inputs]
     out_j = np.asarray(jfp.fused_poisson_row_loglik(
         *map(jnp.asarray, args), log_transform, True))
     out_t = tfp.fused_poisson_row_loglik(

@@ -156,10 +156,21 @@ Phases, each printing lines; any failure raises and exits non-zero:
              flat set, one epoch at dp=2 through the COO energy and K5,
              within 1e-6. (d) log_likelihood of 4096 held-out rows and waic
              at dp=2 through the sharded K4, within 1e-6. (e) NCCL at world
-             size 1: the
-             collectives on CUDA tensors. Each arm: ms/step, peak GB and
-             kernel launches per rank, the gradient all-reduce's ms and
-             bytes a step; two ranks on one card are no scaling numbers
+             size 1: the collectives on CUDA tensors. (f)-(i), each within
+             1e-6 of one process (losses, and the first step's loss and
+             gradients where taken): (f) the PoissonAutoencoder at its
+             bench width (D=2000, B=1024, latent 32, 3 steps) on fp=2 with
+             fused_normals, every w_l split, the forward column-parallel,
+             K6 on each rank; (g) PoissonFactorization at D=19,999 on fp=2,
+             3 steps: nothing split, K3 whole, no K1 (the fusion check's
+             reason names ('fp',)); (h) the dense scan at dp=2 over 16,384
+             + 1,025 rows at B=4096, the remainder whole on both ranks, K1
+             on the full batches alone; (i) data_parallel_mesh(1) in the
+             world of two: rank 0 trains as one process, rank 1's fit
+             raises. Each arm: ms/step, peak GB and kernel launches per
+             rank, the gradient all-reduce's ms and bytes a step, every
+             collective's bytes a step; two ranks on one card are no
+             scaling numbers
   EX         the six example modules (spmf_tpu_torch.examples) on the card,
              each over a host ArrayDataset through the general loop (the
              corpus through the CLIs' captured scan): the random-noise,
@@ -2048,6 +2059,8 @@ def options_phase(dev, smi, zero_launches, read_launches):
 
 #: phase M's two gloo ranks on card 0, and its time limit for them
 MESH_RANKS, MESH_TIMEOUT = 2, 900
+#: phase M (h): the scan's remainder past OPT_ROWS, which dp=2 does not divide
+MESH_REM = 1025
 #: the kernels phase M counts, as the JSON line names them
 MESH_KERNELS = ("stats", "static", "fwd", "bwd", "row_ll", "expsum",
                 "nfwd", "nbwd")
@@ -2202,17 +2215,21 @@ def first_step_grads(model, mesh, batch):
     return float(loss.detach()), grads
 
 
-def mesh_arms(mesh_dp, mesh_fp, dev, zero_launches, read_launches, outdir):
-    """Phase M (b)-(d) on one rank (both meshes) or in one process (no
-    mesh): the fits at full width, the 0.1% COO epoch, the scoring. Each
-    arm: its losses, ms/step, peak GB, kernel launches, the gradient
-    reduction's calls, bytes and seconds. The arms held to one process
-    also take their first step's loss and gradients at the initial
-    parameters: one process writes them to ``outdir``, each rank compares
-    its own (each leaf's largest difference over its largest entry)."""
+def mesh_arms(mesh_dp, mesh_fp, mesh_sub, dev, zero_launches, read_launches,
+              outdir):
+    """Phase M (b)-(d) and (f)-(i) on one rank (the meshes) or in one
+    process (no mesh): the fits at full width, the 0.1% COO epoch, the
+    scoring, the autoencoder on fp=2, a feature dim fp=2 does not divide,
+    a scan remainder dp=2 does not divide, and a mesh over one of the two
+    ranks (``mesh_sub``). Each arm: its losses, ms/step, peak GB, kernel
+    launches, the gradient reduction's calls, bytes and seconds, and every
+    collective's calls and bytes. The arms held to one process also take
+    their first step's loss and gradients at the initial parameters: one
+    process writes them to ``outdir``, each rank compares its own (each
+    leaf's largest difference over its largest entry)."""
     import torch
 
-    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch import PoissonAutoencoder, PoissonFactorization
     from spmf_tpu_torch.data import DeviceArrayDataset
     from spmf_tpu_torch.parallel import collectives
 
@@ -2225,18 +2242,26 @@ def mesh_arms(mesh_dp, mesh_fp, dev, zero_launches, read_launches, outdir):
                             batch_size=b_m, device=dev)
     arms = {}
 
-    def arm(tag, mesh, source, steps, **kw):
+    def arm(tag, mesh, source, steps, first=None, make=None, **kw):
+        """``make(mesh, **kw)``: the model (default: the dense
+        factorization); ``first``: the batch of the first-step check
+        (default: the first rows of the dense set)."""
         fit_kw = kw.pop("fit", {})
         grads_as = kw.pop("grads_as", None)
         normals = kw.pop("fused_normals", False)
-        m = PoissonFactorization(latent_dim=K, feature_dim=D,
-                                 dtype="float32", device=dev, mesh=mesh, **kw)
+        if make is None:
+            m = PoissonFactorization(latent_dim=K, feature_dim=D,
+                                     dtype="float32", device=dev, mesh=mesh,
+                                     **kw)
+        else:
+            m = make(mesh, **kw)
         m._surrogate.fused_normals = normals
         step_grads = None
         if grads_as is not None:
             path = os.path.join(outdir, f"grads_{grads_as}.pt")
-            first = {"counts": xm[:b_m],
-                     "indices": torch.arange(b_m, device=dev)}
+            if first is None:
+                first = {"counts": xm[:b_m],
+                         "indices": torch.arange(b_m, device=dev)}
             loss1, g1 = first_step_grads(m, mesh, first)
             if mesh is None:
                 torch.save({"loss": loss1, "grads": g1}, path)
@@ -2266,6 +2291,7 @@ def mesh_arms(mesh_dp, mesh_fp, dev, zero_launches, read_launches, outdir):
             "launches": read_launches(),
             "grad": dict(collectives.STATS),
             "steps": steps * len(ex["epoch_seconds"]),
+            "dispatch": getattr(m, "fusion_inactive_reason", None),
             "scan": ex["epoch_scan"], "captured": ex.get("captured"),
             "first_step": step_grads}
         return m
@@ -2291,7 +2317,88 @@ def mesh_arms(mesh_dp, mesh_fp, dev, zero_launches, read_launches, outdir):
             grads_as="fast")
         arm("fp=2, non-plus, fused_normals, param_sharding='fp'", mesh_fp,
             ds, steps, fit=dict(param_sharding="fp"), **k6)
+    # (i) data_parallel_mesh(1) in the world of two: rank 0 trains on its
+    # one-rank mesh as one process does ('fast': no atomic sums in the
+    # draw; a world of two keeps the general loop, as spmf_tpu keeps it
+    # for several processes); rank 1 is outside it, and fit raises there
+    tag = "(i) data_parallel_mesh(1) of two, fast"
+    if mesh_dp is None:
+        arm("(i) one process, fast, general loop", None, ds, steps,
+            gamma_sampler="fast", fit=dict(epoch_scan=False))
+    elif mesh_sub.member:
+        arm(tag, mesh_sub, ds, steps, gamma_sampler="fast")
+    else:
+        m_i = PoissonFactorization(latent_dim=K, feature_dim=D,
+                                   dtype="float32", device=dev, mesh=mesh_sub)
+        try:
+            m_i.fit(batched_data_factory=ds, num_steps=1, verbose=False)
+            refused = "no error"
+        except ValueError as exc:
+            refused = str(exc)
+        arms[tag] = {"refused": refused, "launches": read_launches()}
+        del m_i
     del ds, xm
+
+    # (f) the autoencoder at its bench width on fp=2: every w_l split over
+    # its output axis (2000 and 32 divide), the forward column-parallel,
+    # K6 drawing the Normal block whole on each rank, then sliced
+    n_a = 3 * AE_B
+    xa = torch.poisson(torch.ones(n_a, AE_D, device=dev), generator=g)
+    dsa = DeviceArrayDataset({"counts": xa,
+                              "indices": torch.arange(n_a, device=dev)},
+                             batch_size=AE_B, device=dev)
+
+    def autoencoder(mesh):
+        m = PoissonAutoencoder(dsa, latent_dim=AE_K, dtype="float32",
+                               device=dev, mesh=mesh)
+        m._surrogate.gamma_sampler = "fused"
+        return m
+
+    arm("(f) autoencoder, " + ("one process" if mesh_fp is None
+                               else "fp=2"), mesh_fp, dsa, n_a // AE_B,
+        first={"counts": xa[:AE_B],
+               "indices": torch.arange(AE_B, device=dev)},
+        make=autoencoder, fused_normals=True, grads_as="ae",
+        fit=dict(num_steps=1))
+    del dsa, xa
+
+    # (g) D=19,999, which fp=2 does not divide: every variable and column
+    # whole on both ranks, K3 whole with one seed, and the fusion check
+    # sends the batches to the plain path (one process takes it too)
+    d_g = D - 1
+    xg = torch.poisson(torch.ones(3 * b_m, d_g, device=dev), generator=g)
+    dsg = DeviceArrayDataset({"counts": xg,
+                              "indices": torch.arange(3 * b_m, device=dev)},
+                             batch_size=b_m, device=dev)
+
+    def odd_width(mesh, **kw):
+        return PoissonFactorization(latent_dim=K, feature_dim=d_g,
+                                    dtype="float32", device=dev, mesh=mesh,
+                                    **kw)
+
+    first_g = {"counts": xg[:b_m], "indices": torch.arange(b_m, device=dev)}
+    if mesh_fp is None:
+        arm(f"(g) D={d_g}, one process, plain", None, dsg, 3, first=first_g,
+            make=odd_width, fused_likelihood=False, grads_as="odd_width",
+            fit=dict(num_steps=1))
+    else:
+        arm(f"(g) D={d_g}, fp=2", mesh_fp, dsg, 3, first=first_g,
+            make=odd_width, grads_as="odd_width", fit=dict(num_steps=1))
+    del dsg, xg, first_g
+    torch.cuda.empty_cache()
+
+    # (h) the dense scan over 16,384 + 1,025 rows at B=4096: dp=2 does not
+    # divide the remainder, which every rank trains on whole (fusion off
+    # for it alone); the full batches keep K1 on their tiles
+    n_h = OPT_ROWS + MESH_REM
+    xh = torch.poisson(torch.ones(n_h, D, device=dev), generator=g)
+    dsh = DeviceArrayDataset({"counts": xh,
+                              "indices": torch.arange(n_h, device=dev)},
+                             batch_size=b_m, device=dev)
+    arm(f"(h) remainder {MESH_REM}, " + ("one process" if mesh_dp is None
+                                  else "dp=2"), mesh_dp, dsh,
+        n_h // b_m + 1)
+    del dsh, xh
 
     # (c) the 0.1% flat set, one epoch through the COO energy and K5 (the
     # general loop: a sparse source keeps it on a mesh)
@@ -2319,6 +2426,7 @@ def mesh_arms(mesh_dp, mesh_fp, dev, zero_launches, read_launches, outdir):
     tag = "scoring, " + ("one process" if mesh_dp is None else "dp=2")
     arms[tag] = {"log_likelihood": ll, "waic": w, "seconds": ll_s,
                  "launches": read_launches()}
+    torch.cuda.empty_cache()
     return arms
 
 
@@ -2330,7 +2438,8 @@ def mesh_rank_main(rank, port, outdir):
     from spmf_tpu_torch.ops import fused_ig as tig
     from spmf_tpu_torch.ops import fused_normal as tfn
     from spmf_tpu_torch.ops import fused_poisson as tfp
-    from spmf_tpu_torch.parallel import initialize_distributed, make_mesh
+    from spmf_tpu_torch.parallel import (data_parallel_mesh,
+                                         initialize_distributed, make_mesh)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2352,13 +2461,15 @@ def mesh_rank_main(rank, port, outdir):
 
     mesh_dp = make_mesh((MESH_RANKS,), ("dp",))
     mesh_fp = make_mesh((1, MESH_RANKS), ("dp", "fp"))
+    mesh_sub = data_parallel_mesh(1)
     out = {"rank": rank, "checks": {}}
     t0 = time.perf_counter()
     for layout, mesh in (("dp=2", mesh_dp), ("fp=2", mesh_fp)):
         out["checks"][layout] = mesh_kernel_checks(mesh, dev, layout)
     out["checks_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["arms"] = mesh_arms(mesh_dp, mesh_fp, dev, zero, read, outdir)
+    out["arms"] = mesh_arms(mesh_dp, mesh_fp, mesh_sub, dev, zero, read,
+                            outdir)
     out["arms_s"] = time.perf_counter() - t0
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -2414,11 +2525,15 @@ def mesh_phase(dev, smi, zero_launches, read_launches):
     launches: this process's arms and both ranks'."""
     from spmf_tpu_torch.parallel import free_port
 
+    import torch
+
     t_phase = time.perf_counter()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
-        single = mesh_arms(None, None, dev, zero_launches, read_launches,
-                           outdir)
+        single = mesh_arms(None, None, None, dev, zero_launches,
+                           read_launches, outdir)
+        # the ranks' arms need the card's memory this process cached
+        torch.cuda.empty_cache()
         port = str(free_port())
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--mesh-rank",
@@ -2527,6 +2642,70 @@ def mesh_phase(dev, smi, zero_launches, read_launches):
     check(all(nccl_res[k] for k in ("sum", "sum_grad", "min", "broadcast",
                                     "buckets", "gather", "mesh")),
           f"M NCCL checks {nccl_res}")
+
+    # (f)-(i): the meshes spmf_tpu trains on that the port refused before
+    # PR 18, each within 1e-6 of one process
+    def held(tag, one):
+        traces = same(tag)
+        e = rel(traces, single[one]["losses"])
+        fs = first_step(tag) if r0["arms"][tag]["first_step"] else (0, 0)
+        check(e < 1e-6 and fs[0] < 1e-6 and fs[1] < 1e-4,
+              f"M {tag} against one process: losses {e} ({traces} vs "
+              f"{single[one]['losses']}), first step loss and gradients "
+              f"{fs}")
+        return e, fs
+
+    gap = {}
+    tag_f = "(f) autoencoder, fp=2"
+    gap["f"] = held(tag_f, "(f) autoencoder, one process")
+    tag_g = f"(g) D={D - 1}, fp=2"
+    gap["g"] = held(tag_g, f"(g) D={D - 1}, one process, plain")
+    tag_h = f"(h) remainder {MESH_REM}, dp=2"
+    gap["h"] = held(tag_h, f"(h) remainder {MESH_REM}, one process")
+    n_full = 3 * (OPT_ROWS // OPT_BATCH)
+    for who, arms in [("one process", single)] + [
+            (f"rank {r['rank']}", r["arms"]) for r in ranks]:
+        meshed = who != "one process"
+        a_f = arms["(f) autoencoder, " + ("fp=2" if meshed
+                                          else "one process")]["launches"]
+        check(a_f["nfwd"] > 0 and a_f["nbwd"] > 0 and a_f["stats"] == 0,
+              f"M (f) {who}: K6 did not launch, or K1 did: {a_f}")
+        if meshed:
+            a_g = arms[tag_g]
+            check(a_g["launches"]["stats"] == 0
+                  and a_g["launches"]["fwd"] > 0
+                  and a_g["launches"]["bwd"] > 0
+                  and "mesh axes ('fp',)" in str(a_g["dispatch"]),
+                  f"M (g) {who}: launches {a_g['launches']}, dispatch "
+                  f"{a_g['dispatch']}")
+        a_h = arms[f"(h) remainder {MESH_REM}, " + ("dp=2" if meshed
+                                             else "one process")]
+        # a rank: the initial loss and the full batches alone; one process
+        # also the remainders (and the captured scan's warm-up steps)
+        n_h = a_h["launches"]["stats"]
+        check((n_h == 1 + n_full and f"batch dim {MESH_REM} does not "
+               "divide mesh axes ('dp',)" in str(a_h["dispatch"])) if meshed
+              else n_h >= 1 + n_full + 3,
+              f"M (h) {who}: K1 launches {n_h} ({1 + n_full} full-batch "
+              f"steps and the initial loss), dispatch {a_h['dispatch']}")
+    tag_i = "(i) data_parallel_mesh(1) of two, fast"
+    e_i = rel(r0["arms"][tag_i]["losses"],
+              single["(i) one process, fast, general loop"]["losses"])
+    refused = ranks[1]["arms"][tag_i]["refused"]
+    check(e_i < 1e-6 and refused.startswith(
+        "fit: rank 1 is not in this mesh (ranks [0])"),
+        f"M (i): rank 0 against one process {e_i}; rank 1: {refused}")
+    say("M", f"(f) autoencoder (D={AE_D}, B={AE_B}, latent {AE_K}) on "
+             f"fp=2, every w_l split, K6 whole then sliced: losses "
+             f"{gap['f'][0]:.2e} from one process, first step "
+             f"{gap['f'][1][0]:.2e} / {gap['f'][1][1]:.2e}; (g) D={D - 1} "
+             f"on fp=2, nothing split, the plain path "
+             f"({r0['arms'][tag_g]['dispatch']}): {gap['g'][0]:.2e}, first "
+             f"step {gap['g'][1][0]:.2e} / {gap['g'][1][1]:.2e}; (h) the "
+             f"scan's remainder of {MESH_REM} whole on both dp ranks: "
+             f"{gap['h'][0]:.2e}, first step {gap['h'][1][0]:.2e} / "
+             f"{gap['h'][1][1]:.2e}; (i) data_parallel_mesh(1): rank 0 "
+             f"{e_i:.2e} from one process, rank 1 refused: {refused}")
     say("M", f"(b) dp=2 against one process: losses {e_dp:.2e} relative "
              f"(K1's atomic sums; two one-process runs {e_again:.2e}), first "
              f"step loss {g_dp[0]:.2e}, gradients {g_dp[1]:.2e}; fp=2 "
@@ -2550,6 +2729,8 @@ def mesh_phase(dev, smi, zero_launches, read_launches):
         for tag, a in arms.items():
             launches.update(a["launches"])
             lc = {k: a["launches"][k] for k in MESH_KERNELS}
+            if "refused" in a:
+                continue
             if tag.startswith("scoring"):
                 say("M", f"{who}, {tag}: log_likelihood of {B_SPARSE} "
                          f"held-out rows (100 samples) in {a['seconds']:.3f} "
@@ -2562,6 +2743,8 @@ def mesh_phase(dev, smi, zero_launches, read_launches):
                     f"ms and {gr['grad_bytes'] / n / 1e6:.2f} MB a step "
                     f"({gr['grad_calls'] / n:.0f} call)"
                     if gr["grad_calls"] else "no gradient all-reduce")
+            grad += (f", every collective {gr['bytes'] / n / 1e6:.2f} MB "
+                     f"a step ({gr['calls'] / n:.1f} calls)")
             say("M", f"{who}, {tag}: {a['ms']:.2f} ms/step, peak "
                      f"{a['peak_gb']:.2f} GB, {grad}; scan {a['scan']} "
                      f"captured {a['captured']}; launches {lc}; losses "

@@ -87,7 +87,7 @@ def main(argv=None):
         initialize_distributed(backend=args.backend, device=device)
         mesh = data_parallel_mesh()
         print(f"data-parallel mesh: {mesh.size} ranks")
-    writes = mesh is None or mesh.rank == 0
+    writes = mesh is None or mesh.writes
 
     from spmf_tpu_torch import PoissonMatrixFactorization
     from spmf_tpu_torch.data import ArrayDataset, SparseCounts

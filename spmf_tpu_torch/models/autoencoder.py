@@ -3,12 +3,21 @@ spmf_tpu/models/autoencoder.py): a DenseHorseshoe MLP
 [D]*encoder_layers + [K] + [D]*decoder_layers + [D] with rates
 ``exp(net(x / colnorm)) * colnorm`` and a Poisson likelihood, trained by the
 same ADVI engine over a mean-field Normal surrogate of every weight and
-bias. On a row-parallel mesh (dp, dcn) the weights are replicated, each
-rank's batch holds its rows, and the likelihood is summed over the row
-ranks. There is no kernel of its own: the network is ``torch.matmul``, the
-weight prior the exact-E1 Horseshoe, and with ``surrogate.fused_normals``
-(and ``gamma_sampler='fused'``) the Normal block is drawn by the fused
-Normal sampler."""
+bias. On a rank mesh each rank's batch holds its rows (dp, dcn) and, where
+fp divides the feature dim, its count columns. Each weight ``w_l`` holds
+its fp slice of its output axis where fp divides that width (axis 1, as
+``shard_params_feature_dim`` lays it out in both packages), and stays
+whole otherwise; the biases stay whole. The forward runs column-parallel
+(``DenseHorseshoe.assemble_networks(mesh=)``): a split layer computes its
+local output columns and gathers them to full width before the next layer,
+and the last layer's local columns give the rates of the rank's count
+columns. The likelihood is summed over the row ranks and, where the
+columns split, over fp; each split weight's horseshoe log-prob is summed
+over fp. There is no kernel of its own: the network is ``torch.matmul``,
+the weight prior the exact-E1 Horseshoe, and with
+``surrogate.fused_normals`` (and ``gamma_sampler='fused'``) the Normal
+block is drawn by the fused Normal sampler, whole on every rank of an fp
+mesh and then sliced."""
 from __future__ import annotations
 
 import math
@@ -20,6 +29,7 @@ from spmf_tpu_torch import bijectors as tfb
 from spmf_tpu_torch import distributions as tfd
 from spmf_tpu_torch.models.base import BayesianModel
 from spmf_tpu_torch.nn.dense import DenseHorseshoe
+from spmf_tpu_torch.parallel.mesh import _feature_axis_for
 from spmf_tpu_torch.utils.checkpoint import to_numpy
 from spmf_tpu_torch.vi.surrogates import build_surrogate_posterior
 
@@ -53,11 +63,6 @@ class PoissonAutoencoder(BayesianModel):
         super().__init__(data=data, data_transform_fn=data_transform_fn,
                          strategy=strategy, mesh=mesh, dtype=dtype,
                          device=device)
-        if self.mesh is not None and self.mesh.fp_axis is not None:
-            raise ValueError(
-                "PoissonAutoencoder trains on row-parallel meshes (dp, dcn); "
-                "its weights have no feature split, so an fp axis is not "
-                "taken")
         record = next(iter(self.data()))
         if count_key is None:
             count_key = "data" if "data" in record else "counts"
@@ -101,6 +106,11 @@ class PoissonAutoencoder(BayesianModel):
         self._surrogate = build_surrogate_posterior(
             self.joint_prior, nn.bijectors, dtype=self.dtype,
             init_scale=init_scale)
+        # the weights' output axes split over fp where it divides them
+        self._surrogate.mesh = self.mesh
+        self._surrogate.feature_axes = {
+            n: _feature_axis_for(n) for n in self._surrogate.names}
+        self._mesh_prior = None
         self.surrogate_params = self._surrogate.init()
         self.var_list = list(self._surrogate.names)
         self.set_calibration_expectations()
@@ -112,18 +122,84 @@ class PoissonAutoencoder(BayesianModel):
                                        device=self.device)
         raise KeyError(f"No count key in batch: {list(data)}")
 
-    def _rates(self, data, params):
-        net = self.neural_network_model.assemble_networks(params)
-        rates = torch.exp(net(self._counts(data) / self.column_norm_factor))
-        return rates * self.column_norm_factor
+    # ----------------------------------------------------------- the mesh
+    def _fp_mesh(self):
+        return (self.mesh is not None and not self.mesh.trivial
+                and self.mesh.fp_axis is not None)
+
+    def _fp_cols(self):
+        """Whether the mesh splits the count columns (fp divides D)."""
+        return self._fp_mesh() and self.mesh.splits(self.feature_dim)
+
+    def _local_samples(self, params):
+        """The samples with every fp-split weight at this rank's
+        columns."""
+        if not self._fp_mesh():
+            return params
+        return self._surrogate._local_values(params)
+
+    def _local_prior(self):
+        """The joint prior at this rank's slices of the split weights:
+        built once per mesh."""
+        if self._mesh_prior is None:
+            nn = self.neural_network_model
+            widths = []
+            for d in nn.layer_sizes:
+                c0, c1 = self.mesh.feature_slice(d)
+                widths.append(c1 - c0)
+            self._mesh_prior = nn.prior_at(widths)
+        return self._mesh_prior
+
+    def _prior_parts(self, params):
+        """The prior parts of the whole variables on every rank: on an fp
+        mesh the split weights' parts from this rank's slices, summed over
+        the fp line."""
+        if not self._fp_mesh():
+            return self.joint_prior.log_prob_parts(params)
+        return self._fp_summed(self._local_prior().log_prob_parts(params))
+
+    # ---------------------------------------------------------- the model
+    def _tile_counts(self, data):
+        """The batch's counts at this rank's columns where fp splits them
+        (a batch given whole is cut to them)."""
+        x = self._counts(data)
+        if self._fp_cols() and x.shape[-1] == self.feature_dim:
+            c0, c1 = self.mesh.feature_slice(self.feature_dim)
+            x = x[..., c0:c1]
+        return x
+
+    def _rates(self, x, params):
+        """The rates of the count columns ``x`` holds (this rank's, where
+        fp splits them) from samples whose split weights hold this rank's
+        columns. The network's input is the whole row: a rank's columns
+        are gathered over fp first."""
+        norms = self.column_norm_factor
+        if x.shape[-1] != self.feature_dim:
+            c0, c1 = self.mesh.feature_slice(self.feature_dim)
+            norms = norms[..., c0:c1]
+            h = self.mesh.gather(x / norms, x.dim() - 1,
+                                 (self.mesh.fp_axis,))
+        else:
+            h = x / norms
+        net = self.neural_network_model.assemble_networks(params,
+                                                          mesh=self.mesh)
+        return torch.exp(net(h)) * norms
+
+    def _tile_axes(self):
+        """The mesh axes whose ranks hold distinct tiles of the batch: the
+        row axes, and fp where it splits the count columns."""
+        if self.mesh is None or self.mesh.trivial:
+            return ()
+        fp = (self.mesh.fp_axis,) if self._fp_cols() else ()
+        return tuple(self.mesh.row_axes) + fp
 
     def log_likelihood_components(self, data, **params):
-        rates = self._rates(data, params)
-        return {
-            "log_likelihood": tfd.Poisson(rate=rates).log_prob(
-                self._counts(data)),
-            "rates": rates,
-        }
+        """The pointwise log-likelihood and the rates of the batch's
+        columns (this rank's tile on a mesh)."""
+        x = self._tile_counts(data)
+        rates = self._rates(x, self._local_samples(params))
+        return {"log_likelihood": tfd.Poisson(rate=rates).log_prob(x),
+                "rates": rates}
 
     def predictive_distribution(self, data, **params):
         """The rates and the log-likelihood summed over rows and
@@ -134,14 +210,17 @@ class PoissonAutoencoder(BayesianModel):
 
     def unormalized_log_prob_parts(self, data=None, prior_weight=1.0,
                                    **params):
-        prior_parts = self.joint_prior.log_prob_parts(params)
+        """The weighted prior parts and the likelihood 'x', each the whole
+        batch's on every rank of a mesh (its tile's sum completed over the
+        ranks of distinct tiles)."""
+        params = self._local_samples(params)
+        prior_parts = self._prior_parts(params)
         prior_parts = {k: v * prior_weight for k, v in prior_parts.items()}
         ll = self.log_likelihood_components(data, **params)["log_likelihood"]
         prior_parts["x"] = torch.sum(ll, dim=(-1, -2))
-        if self.mesh is not None and self.mesh.row_axes:
-            # this rank's rows: the sum over the row ranks
-            prior_parts["x"] = self.mesh.all_sum(prior_parts["x"],
-                                                 self.mesh.row_axes)
+        axes = self._tile_axes()
+        if axes:
+            prior_parts["x"] = self.mesh.all_sum(prior_parts["x"], axes)
         return prior_parts
 
     def unormalized_log_prob(self, data=None, prior_weight=1.0, **params):
@@ -153,8 +232,13 @@ class PoissonAutoencoder(BayesianModel):
         return out
 
     def _row_log_likelihood(self, batch, samples):
+        """Per-row log-likelihood of this rank's rows, summed over every
+        column (over the fp line where it splits them)."""
         ll = self.log_likelihood_components(batch, **samples)["log_likelihood"]
-        return torch.sum(ll, dim=-1)
+        out = torch.sum(ll, dim=-1)
+        if self._fp_cols():
+            out = self.mesh.all_sum(out, (self.mesh.fp_axis,))
+        return out
 
     def encode(self, x, params=None):
         """Deterministic encoder pass of the calibrated network (or

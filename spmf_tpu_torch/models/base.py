@@ -145,6 +145,19 @@ class BayesianModel:
     def surrogate_vars(self):
         return self.surrogate_params
 
+    def _fp_summed(self, parts):
+        """Prior parts computed on this rank's slices of the fp-split
+        variables, those completed over the fp line in one collective (the
+        priors are elementwise along the split axis, so a slice's
+        log-density is its part of the whole)."""
+        split = [k for k in parts
+                 if self._surrogate._split_axis(k) is not None]
+        if split:
+            summed = self.mesh.all_sum(torch.stack(torch.broadcast_tensors(
+                *[parts[k] for k in split])), (self.mesh.fp_axis,))
+            parts.update(zip(split, summed.unbind(0)))
+        return parts
+
     def _energy(self, batch, samples, prior_weight):
         return self.unormalized_log_prob(data=batch,
                                          prior_weight=prior_weight, **samples)
@@ -168,7 +181,8 @@ class BayesianModel:
         verbose: bool = True,
         **kwargs,
     ):
-        """Minibatch ADVI fit; returns the loss trace."""
+        """Minibatch ADVI fit; returns the loss trace. On a rank outside the
+        model's mesh it raises ``ValueError``."""
         factory = as_data_factory(batched_data_factory) or self.data
         if factory is None:
             raise ValueError(
@@ -243,7 +257,8 @@ class BayesianModel:
 
         ``subsample=None`` scans the whole bound (or given) dataset;
         ``subsample='batch'`` evaluates its FIRST batch only, the unit the
-        reference engine's recorded WAIC outputs used."""
+        reference engine's recorded WAIC outputs used. On a rank outside the
+        model's mesh it raises ``ValueError``."""
         factory = as_data_factory(data) or self.data
         if factory is None:
             raise ValueError("No data bound for waic()")
@@ -272,6 +287,8 @@ class BayesianModel:
         (sum_i log mean_s exp(ll_is)). Pass held-out data to score
         generalization; with ``data=None`` it scores the bound data and
         ``total`` equals ``waic()['lppd']`` for the same draws."""
+        if self.mesh is not None:
+            self.mesh.check_member("log_likelihood")
         out = self.waic(data=data, num_samples=num_samples, seed=seed,
                         sample_chunk=sample_chunk)
         return {
@@ -297,9 +314,10 @@ class BayesianModel:
         """Write ``__meta__`` (class, config, the params' treedef string),
         the parameters as ``param_{i}`` in JAX leaf order and the
         normalization constants as ``extra_*``: the file spmf_tpu's
-        ``save`` writes. On a mesh rank 0 alone writes (the parameters are
-        whole on every rank after ``fit``)."""
-        if self.mesh is not None and self.mesh.rank != 0:
+        ``save`` writes. On a mesh its first rank alone writes (rank 0 on a
+        mesh over the world; the parameters are whole on every rank after
+        ``fit``)."""
+        if self.mesh is not None and not self.mesh.writes:
             return
         arrays = {f"param_{i}": to_numpy(x) for i, x in
                   enumerate(flatten_jax_order(self.surrogate_params))}

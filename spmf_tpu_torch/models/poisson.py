@@ -20,12 +20,18 @@ and through the exp-rate kernel (K5) for the log link. WAIC and held-out
 scoring stream per-row log-likelihoods through the row kernel (K4).
 
 On a rank mesh (``mesh=``, ``parallel.Mesh``) each rank evaluates the
-energy of its tile: its rows of a dense batch and, with an fp axis, its
-columns and its slices of the fp-split variables. Every sum that crosses
-ranks is one collective (the encode's contraction and row sums over fp,
-the theta prior over the row ranks, the likelihood over all ranks, the
-priors of the fp-split variables over fp), so each part the energy
-returns is the whole batch's, on every rank. A sparse (COO) batch is the
+energy of its tile: its rows of a dense batch and, with an fp axis that
+divides the feature dim, its columns and its slices of the fp-split
+variables. Every sum that crosses ranks is one collective (the encode's
+contraction and row sums over fp, the theta prior over the row ranks, the
+likelihood over the ranks of distinct tiles, the priors of the fp-split
+variables over fp), so each part the energy returns is the whole batch's,
+on every rank. Where fp does not divide the feature dim, every variable
+and column stays whole and the fp ranks of a line compute the same tile,
+which their sums leave out of fp and so count once (as spmf_tpu replicates
+what does not divide); likewise a batch whose rows stay whole on every row
+rank (``Mesh.whole_rows``, the scan's remainder) is summed over no row
+rank. A sparse (COO) batch is the
 whole batch on every rank: the COO energies take this rank's share of the
 triplets and sum the partial segment sums over the mesh, and the dense
 scatter builds this rank's tile.
@@ -108,8 +114,17 @@ class PoissonFactorization(BayesianModel):
         return self.mesh is not None and not self.mesh.trivial
 
     def _fp_split(self):
-        """Whether the mesh splits the feature dim."""
-        return self._meshed() and self.mesh.fp_axis is not None
+        """Whether the mesh splits the feature dim: an fp axis that divides
+        it (one that does not leaves every variable and column whole)."""
+        return self._meshed() and self.mesh.splits(self.feature_dim)
+
+    def _tile_axes(self):
+        """The mesh axes whose ranks hold distinct tiles of a dense batch:
+        the row axes of the batch, and fp where it splits the feature dim.
+        A sum over the tile completes over these, so a tile that ranks
+        share is counted once."""
+        fp = (self.mesh.fp_axis,) if self._fp_split() else ()
+        return tuple(self.mesh.row_axes) + fp
 
     def _lane(self, lane, width):
         """A (1, D) per-column lane (eta_i, the mixed codes, a mask) at the
@@ -171,14 +186,8 @@ class PoissonFactorization(BayesianModel):
         if not self._fp_split():
             parts = self.prior_distribution.log_prob_parts(params)
         else:
-            parts = self._local_prior().log_prob_parts(params)
-            split = [k for k in parts
-                     if self._surrogate._split_axis(k) is not None]
-            if split:
-                summed = self.mesh.all_sum(torch.stack(
-                    torch.broadcast_tensors(*[parts[k] for k in split])),
-                    (self.mesh.fp_axis,))
-                parts.update(zip(split, summed.unbind(0)))
+            parts = self._fp_summed(self._local_prior().log_prob_parts(
+                params))
         return {k: v * prior_weight for k, v in parts.items()}
 
     def _row_total(self, t):
@@ -203,8 +212,9 @@ class PoissonFactorization(BayesianModel):
 
     def _row_mesh_axes(self):
         """The mesh axes the batch rows shard over: ('dp',), or the joint
-        ('dcn', 'dp') on a multi-slice mesh."""
-        return self.mesh.row_axes if self.mesh is not None else ()
+        ('dcn', 'dp') on a multi-slice mesh (the mesh's, whatever the batch
+        being trained does)."""
+        return self.mesh.data_axes if self.mesh is not None else ()
 
     def _global_shape(self, shape):
         """The (B, D) of the whole batch whose tile has ``shape``."""
@@ -552,10 +562,6 @@ class PoissonFactorization(BayesianModel):
         np_dt = np.float64 if dt == torch.float64 else np.float32
         np_ones = lambda *shape: np.ones(shape, np_dt)  # noqa: E731
 
-        if self._fp_split() and D % self.mesh.fp:
-            raise ValueError(
-                f"feature_dim {D} does not divide over the mesh's fp axis "
-                f"of {self.mesh.fp}: pad the features to a multiple")
         self.bijectors = {k: tfb.Softplus() for k in (
             "u", "u_eta", "u_tau", "s", "s_eta", "s_tau")}
         if self._u_signed:
@@ -681,7 +687,7 @@ class PoissonFactorization(BayesianModel):
         finite = torch.where(torch.isfinite(ll), ll, torch.zeros_like(ll))
         min_val = torch.min(finite)
         if self._meshed():
-            min_val = self.mesh.all_min(min_val)
+            min_val = self.mesh.all_min(min_val, self._tile_axes())
         min_val = min_val - 10.0
         if self.dtype == torch.float32:
             # keep sum(clip(ll, min_val, 0)) representable
@@ -690,7 +696,8 @@ class PoissonFactorization(BayesianModel):
         ll = torch.where(torch.isfinite(ll), ll, min_val)
         prior_parts["x"] = torch.sum(ll, dim=(-1, -2))
         if self._meshed():
-            prior_parts["x"] = self.mesh.all_sum(prior_parts["x"])
+            prior_parts["x"] = self.mesh.all_sum(prior_parts["x"],
+                                                 self._tile_axes())
         return prior_parts
 
     def _fused_x_part(self, theta, B, phi, x):
@@ -711,7 +718,7 @@ class PoissonFactorization(BayesianModel):
         width = x.shape[-1]
         return fused_poisson_loglik_sharded(
             theta, B, phi, x, self._lane(self.eta_i, width), self.mesh,
-            self.log_transform, data_axis=self._row_mesh_axes(),
+            self.log_transform, data_axis=self.mesh.row_axes,
             likelihood=self._fused_kind(),
             codes=self._lane(self._codes_lane(), width),
             clip=self.likelihood_clip)
@@ -1019,7 +1026,7 @@ class PoissonFactorization(BayesianModel):
                       codes=self._lane(self._codes_lane(), x.shape[-1]))
             if self._meshed():
                 out = fused_poisson_row_loglik_sharded(
-                    *args, self.mesh, data_axis=self._row_mesh_axes(), **kw)
+                    *args, self.mesh, data_axis=self.mesh.row_axes, **kw)
             else:
                 out = fused_poisson_row_loglik(*args, **kw)
             out = out.to(self.dtype)

@@ -23,7 +23,9 @@ on CUDA tensors, so two ranks sharing one card (gloo) and one rank per card
 
 ``STATS`` counts the gradient reductions (calls, bytes, seconds; with
 ``TIME_GRADIENTS`` each is bracketed by device synchronisations so that
-its seconds are its own).
+its seconds are its own), and every collective of this module, forward and
+backward alike (calls and the bytes of the buffer each one reduces or
+broadcasts).
 """
 from __future__ import annotations
 
@@ -35,8 +37,10 @@ import torch.distributed as dist
 __all__ = ["STATS", "all_reduce_sum", "all_reduce_min", "all_min_", "all_sum_", "broadcast_",
            "gather_full", "gather_cols", "reduce_gradients", "reset_stats"]
 
-#: the gradient reductions of this process: calls, bytes reduced, seconds
-STATS = {"grad_calls": 0, "grad_bytes": 0, "grad_seconds": 0.0}
+#: the gradient reductions of this process: calls, bytes reduced, seconds;
+#: and every collective's calls and bytes, the gradient reductions included
+STATS = {"grad_calls": 0, "grad_bytes": 0, "grad_seconds": 0.0,
+         "calls": 0, "bytes": 0}
 #: synchronise the device around each gradient reduction (its seconds then
 #: hold the reduction alone; off by default)
 TIME_GRADIENTS = False
@@ -47,18 +51,24 @@ def reset_stats():
         STATS[k] = 0 if isinstance(STATS[k], int) else 0.0
 
 
+def _all_reduce(t, op, group):
+    STATS["calls"] += 1
+    STATS["bytes"] += t.numel() * t.element_size()
+    dist.all_reduce(t, op=op, group=group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(out, dist.ReduceOp.SUM, group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(g, dist.ReduceOp.SUM, ctx.group)
         return g, None
 
 
@@ -72,11 +82,11 @@ class _AllReduceMin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
+        _all_reduce(out, dist.ReduceOp.MIN, group)
         # the ranks that hold the minimum share its cotangent
         owner = (x.detach() == out).to(x.dtype)
         holders = owner.clone()
-        dist.all_reduce(holders, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(holders, dist.ReduceOp.SUM, group)
         ctx.group = group
         ctx.save_for_backward(owner / holders)
         return out
@@ -85,7 +95,7 @@ class _AllReduceMin(torch.autograd.Function):
     def backward(ctx, g):
         share, = ctx.saved_tensors
         g = g.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(g, dist.ReduceOp.SUM, ctx.group)
         return g * share, None
 
 
@@ -99,20 +109,22 @@ def all_reduce_min(x, group):
 @torch.no_grad()
 def all_min_(x, group):
     """``x`` replaced in place by its MIN over ``group`` (no gradient)."""
-    dist.all_reduce(x, op=dist.ReduceOp.MIN, group=group)
+    _all_reduce(x, dist.ReduceOp.MIN, group)
     return x
 
 
 @torch.no_grad()
 def all_sum_(x, group):
     """``x`` replaced in place by its SUM over ``group`` (no gradient)."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _all_reduce(x, dist.ReduceOp.SUM, group)
     return x
 
 
 @torch.no_grad()
 def broadcast_(x, group, src):
     """``x`` replaced in place by the value on global rank ``src``."""
+    STATS["calls"] += 1
+    STATS["bytes"] += x.numel() * x.element_size()
     dist.broadcast(x, src=src, group=group)
     return x
 
@@ -134,7 +146,7 @@ def gather_full(local, dim, parts, index, group):
     rank: each block placed in a zero buffer, then one SUM (exact: each
     element is one block's value plus zeros). No gradient."""
     buf = _placed(local.detach(), dim, local.shape[dim] * parts, index)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    _all_reduce(buf, dist.ReduceOp.SUM, group)
     return buf
 
 
@@ -148,7 +160,7 @@ class _GatherCols(torch.autograd.Function):
     def backward(ctx, g):
         dim, width, index, group = ctx.args
         g = g.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(g, dist.ReduceOp.SUM, group)
         return (g.narrow(dim, index * width, width).contiguous(), None, None,
                 None, None)
 
@@ -175,7 +187,7 @@ def reduce_gradients(buckets):
             torch.cuda.synchronize(grads[0].device)
         t0 = time.perf_counter()
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(flat, dist.ReduceOp.SUM, group)
         for t, piece in zip(tensors, flat.split([g.numel() for g in grads])):
             if t.grad is None:
                 t.grad = piece.view(t.shape).clone()

@@ -16,12 +16,26 @@ Where JAX's GSPMD inserts the collectives of one global program, each rank
 here runs its own program and the collectives are written out
 (``parallel.collectives``, used by the engine and the models). A mesh whose
 axes all have size 1 is trivial: nothing is sharded and no collective runs.
-The mesh makes one process group for each line of the row axes (the joint
-(dcn, dp) line on a multi-slice mesh), one for each fp line, and uses the
-world for the whole mesh.
+
+A mesh holds any ranks of the world, each once, as a JAX mesh holds any
+devices: ``data_parallel_mesh(n)`` takes the first n. ``new_group`` is
+collective over the whole world, so every rank of the world builds every
+mesh, and each makes the process groups of every line of every combination
+of the mesh's live axes, in the same order, members and non-members alike.
+A rank outside the mesh (``member`` False) owns no shard: the entry points
+refuse to train or score on it, and nothing on a member waits on it. The
+whole-mesh group is the world only for a mesh over the whole world.
+
+Where fp does not divide a feature dim, the variables and columns of that
+width stay whole on every rank of an fp line (``splits``), as spmf_tpu
+replicates what does not divide; inside ``whole_rows()`` every row rank
+holds all the rows of the batch (the scan's remainder that the row ranks do
+not divide), and ``row_axes`` is empty, so a sum over rows counts them once.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 from typing import Optional
 
@@ -65,10 +79,11 @@ def _world():
 
 
 class Mesh:
-    """The ranks of the process group on named axes. ``devices``: the ranks
-    as an array of the mesh's shape (every rank of the world once);
-    ``shape``: axis name -> size; ``coords``: this rank's index on each
-    axis."""
+    """Ranks of the process group on named axes. ``devices``: the ranks as
+    an array of the mesh's shape (any ranks of the world, each once);
+    ``shape``: axis name -> size; ``member``: whether this rank is one of
+    them; ``coords``: this rank's index on each axis (empty on a
+    non-member)."""
 
     def __init__(self, ranks, axis_names):
         ranks = np.asarray(ranks, dtype=np.int64)
@@ -77,27 +92,63 @@ class Mesh:
             raise ValueError(f"mesh of shape {ranks.shape} needs "
                              f"{ranks.ndim} axis names, got {axis_names}")
         world, rank = _world()
-        if sorted(ranks.ravel().tolist()) != list(range(world)):
+        flat = ranks.ravel().tolist()
+        if len(set(flat)) != len(flat) or not all(0 <= r < world
+                                                  for r in flat):
             raise ValueError(
-                f"a Mesh holds every rank of the process group once: got "
-                f"ranks {ranks.ravel().tolist()} for a world of {world} "
-                "(call initialize_distributed first for several ranks)")
+                f"a Mesh takes ranks of the process group, each once: got "
+                f"ranks {flat} for a world of {world} (every rank lies in "
+                f"0..{world - 1}; call initialize_distributed first for "
+                "several ranks)")
         self.devices = ranks
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, ranks.shape))
         self.size = int(ranks.size)
         self.rank = rank
-        self.coords = dict(zip(axis_names, (
+        self.member = rank in flat
+        self.coords = (dict(zip(axis_names, (
             int(i) for i in np.argwhere(ranks == rank)[0])))
+            if self.member else {})
+        self._whole_rows = False
         self._groups = {}
         if not self.trivial:
-            # every rank makes every line's group, in the same order
-            for axes in (self.row_axes, (self.fp_axis,), self.live_axes):
-                if all(axes):
-                    self.group(axes)
+            # new_group is collective over the world: every rank makes every
+            # line's group of every combination of live axes, in one order
+            live = self.live_axes
+            for n in range(1, len(live) + 1):
+                for axes in itertools.combinations(live, n):
+                    self._make_groups(axes, world)
 
     def __repr__(self):
-        return f"Mesh({self.shape}, rank={self.rank})"
+        who = "" if self.member else ", not a member"
+        return f"Mesh({self.shape}, rank={self.rank}{who})"
+
+    def _make_groups(self, axes, world):
+        pos = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in pos]
+        lines = np.transpose(self.devices, rest + pos).reshape(
+            -1, self.size_of(axes))
+        for line in lines:
+            line = sorted(line.tolist())
+            g = (dist.group.WORLD if len(line) == world
+                 else dist.new_group(line))
+            if self.rank in line:
+                self._groups[axes] = g
+
+    def check_member(self, what):
+        """Raise ``ValueError`` for ``what`` (an entry point) on a rank
+        outside the mesh."""
+        if not self.member:
+            raise ValueError(
+                f"{what}: rank {self.rank} is not in this mesh (ranks "
+                f"{self.devices.ravel().tolist()}); a rank outside a mesh "
+                "owns no shard and does not train or score on it")
+
+    @property
+    def writes(self):
+        """Whether this rank writes the files of the mesh's ranks: its
+        first rank (rank 0 on a mesh over the world)."""
+        return self.member and self.rank == int(self.devices.ravel()[0])
 
     # ------------------------------------------------------------- layout
     @property
@@ -116,8 +167,13 @@ class Mesh:
             return "fp"
         return None
 
+    def splits(self, d):
+        """Whether fp splits a feature dim ``d`` (fp divides it; a size of
+        1 or one fp does not divide stays whole on every rank)."""
+        return self.fp_axis is not None and d > 1 and d % self.fp == 0
+
     @property
-    def row_axes(self):
+    def data_axes(self):
         """The live axes the batch rows shard over: 'dp' (or the first
         axis that is not 'fp'), jointly with 'dcn' on a multi-slice mesh."""
         names = [a for a in self.axis_names if a != "fp"]
@@ -129,6 +185,24 @@ class Mesh:
                 and data != "dcn"):
             axes = ("dcn", data)
         return tuple(a for a in axes if self.shape[a] > 1)
+
+    @property
+    def row_axes(self):
+        """The axes the rows of the batch being trained split over:
+        ``data_axes``, or none inside ``whole_rows()``."""
+        return () if self._whole_rows else self.data_axes
+
+    @contextlib.contextmanager
+    def whole_rows(self):
+        """Inside this block every row rank holds all the rows of its batch
+        (a batch the row ranks do not divide, replicated over them as
+        spmf_tpu replicates the scan's remainder): ``row_axes`` is empty,
+        so the sums over rows count each row once."""
+        self._whole_rows = True
+        try:
+            yield self
+        finally:
+            self._whole_rows = False
 
     def size_of(self, axes):
         return int(np.prod([self.shape[a] for a in axes], dtype=np.int64))
@@ -159,24 +233,12 @@ class Mesh:
 
     def group(self, axes):
         """The process group of this rank's line over ``axes`` (the world
-        when the line is the whole mesh); made for every line at first
-        use, which every rank reaches in the same order."""
-        axes = tuple(a for a in axes if self.shape[a] > 1)
+        when the line is the whole world), made when the mesh was built."""
+        axes = tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
         if not axes:
             return None
-        if axes not in self._groups:
-            if self.size_of(axes) == self.size:
-                self._groups[axes] = dist.group.WORLD
-            else:
-                pos = [self.axis_names.index(a) for a in axes]
-                rest = [i for i in range(len(self.axis_names))
-                        if i not in pos]
-                arr = np.transpose(self.devices, rest + pos)
-                arr = arr.reshape(-1, self.size_of(axes))
-                for line in arr:
-                    g = dist.new_group(line.tolist())
-                    if self.rank in line:
-                        self._groups[axes] = g
+        self.check_member("a collective")
         return self._groups[axes]
 
     # -------------------------------------------------------- collectives
@@ -201,7 +263,7 @@ class Mesh:
         return x if g is None else _coll.all_min_(x, g)
 
     def broadcast_(self, x):
-        """``x`` from rank 0 of the mesh, in place."""
+        """``x`` from the mesh's first rank, in place."""
         if not self.trivial:
             _coll.broadcast_(x, self.group(self.live_axes),
                              int(self.devices.ravel()[0]))
@@ -226,15 +288,16 @@ class Mesh:
     def feature_slice(self, d):
         """(start, stop) of this rank's columns of a feature dim ``d``
         (all of it when fp does not split it)."""
-        if self.fp_axis is None or d <= 1 or d % self.fp:
+        if not self.splits(d):
             return 0, d
         per = d // self.fp
         return per * self.fp_index, per * (self.fp_index + 1)
 
 
 def make_mesh(shape=None, axis_names=("dp",), devices=None) -> Mesh:
-    """A mesh over ``devices`` (ranks; default every rank of the world),
-    reshaped to ``shape`` (default: all on the first axis)."""
+    """A mesh over ``devices`` (ranks of the world, each once; default
+    every rank), reshaped to ``shape`` (default: all on the first axis).
+    Every rank of the world calls it, members or not."""
     world, _ = _world()
     ranks = list(range(world)) if devices is None else list(devices)
     if shape is None:
@@ -269,13 +332,12 @@ def make_multislice_mesh(ici_shape=None, ici_axis_names=("dp",),
 
 
 def data_parallel_mesh(num_devices: Optional[int] = None) -> Mesh:
-    """A one-axis ('dp',) mesh over every rank (``num_devices``, when
-    given, must be the world size)."""
+    """A one-axis ('dp',) mesh over the first ``num_devices`` ranks of the
+    world, as spmf_tpu takes ``jax.devices()[:n]``: None or 0 means all of
+    them, and so does a count past the world."""
     world, _ = _world()
-    if num_devices not in (None, world):
-        raise ValueError(f"data_parallel_mesh({num_devices}) in a world of "
-                         f"{world} ranks: a mesh holds every rank")
-    return make_mesh((world,), ("dp",))
+    ranks = list(range(world))[: num_devices or world]
+    return make_mesh((len(ranks),), ("dp",), ranks)
 
 
 def _is_coo(batch):
@@ -300,8 +362,7 @@ def shard_batch(batch: dict, mesh: Mesh, axis: str = "dp") -> dict:
             continue
         r0, r1 = mesh.local_rows(len(v))
         v = v[r0:r1]
-        if (mesh.fp_axis is not None and np.ndim(v) >= 2
-                and v.shape[1] > 1 and v.shape[1] % mesh.fp == 0):
+        if np.ndim(v) >= 2 and mesh.splits(v.shape[1]):
             c0, c1 = mesh.feature_slice(v.shape[1])
             v = v[:, c0:c1]
         out[k] = v
@@ -309,7 +370,7 @@ def shard_batch(batch: dict, mesh: Mesh, axis: str = "dp") -> dict:
 
 
 def replicate(tree, mesh: Mesh):
-    """Every tensor of a (nested dict) tree, as rank 0 of the mesh holds
+    """Every tensor of a (nested dict) tree, as the mesh's first rank holds
     it, on every rank (a broadcast; copies)."""
     if isinstance(tree, dict):
         return {k: replicate(v, mesh) for k, v in tree.items()}
@@ -319,7 +380,9 @@ def replicate(tree, mesh: Mesh):
 
 # Feature-dim axis position per variable of the factorization models:
 # u (D,K) -> 0, v (K,D) -> 1, w (1,D) -> 1, s (2,D) -> 1, and the same for
-# every horseshoe auxiliary (they share their primary's shape).
+# every horseshoe auxiliary (they share their primary's shape). The
+# autoencoder's weights w_l (d_in, d_out) match the stem w: their output
+# axis; its biases b_l match nothing and stay whole.
 _FEATURE_AXIS = {"u": 0, "v": 1, "w": 1, "s": 1}
 
 
@@ -337,8 +400,7 @@ def sharded_axis(name, shape, mesh):
     if mesh is None or mesh.fp_axis is None:
         return None
     ax = _feature_axis_for(name)
-    if ax is None or ax >= len(shape) or shape[ax] == 1 \
-            or shape[ax] % mesh.fp:
+    if ax is None or ax >= len(shape) or not mesh.splits(shape[ax]):
         return None
     return ax
 

@@ -152,6 +152,6 @@ def gather_shard(t, axis, mesh):
 
 
 def writes_files(mesh):
-    """Whether this rank writes checkpoint files: rank 0 of a mesh, or the
-    one process."""
-    return mesh is None or mesh.rank == 0
+    """Whether this rank writes checkpoint files: the first rank of a mesh
+    (rank 0 on a mesh over the world), or the one process."""
+    return mesh is None or mesh.writes

@@ -28,11 +28,16 @@ On a rank mesh (a ``DeviceArrayDataset``; sparse sources keep the general
 loop there, as in spmf_tpu) every rank holds all rows of its columns of the
 resident tensors, draws the same global permutation from the engine's
 generator (seeded alike on every rank) and gathers its rows of each batch.
-With more than one rank the step runs uncaptured: its collectives stage
-through the host, which a CUDA graph cannot hold.
+A remainder batch that the row ranks do not divide is replicated over them,
+as spmf_tpu's scan replicates it (``_row_spec``): every rank trains on all
+of its rows, inside ``Mesh.whole_rows()``, so that its energy is counted
+once. A full batch they do not divide raises, as in spmf_tpu. With more
+than one rank the step runs uncaptured: its collectives stage through the
+host, which a CUDA graph cannot hold.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List
 
 import numpy as np
@@ -236,7 +241,8 @@ class EpochScan:
     the permutations and the step's samples; ``remat``: the step's
     ``RematDraw`` (vi/remat.py) when it rematerialises its draw, whose
     generator replicas each capture registers. Batches follow spmf_tpu's
-    scan: a dense remainder batch is trained; the sparse layouts drop it,
+    scan: a dense remainder batch is trained (on a mesh whose row ranks do
+    not divide it, whole on each of them); the sparse layouts drop it,
     and only with ``drop_remainder=True``; the blocked layout needs
     ``bs % block_rows == 0``; with no full batch the remainder is the one
     batch."""
@@ -251,6 +257,7 @@ class EpochScan:
         self.generator = generator
         self.device = device
         self.capture = capture
+        self.mesh = mesh
         n = ds.num_rows
         bs = int(ds._batch_size or n)
         self.blocked = isinstance(ds, DeviceSparseCounts) and bool(
@@ -275,8 +282,7 @@ class EpochScan:
                 # every row of this rank's columns (the permutation is
                 # global)
                 for k, v in self.tensors.items():
-                    if v.dim() >= 2 and v.shape[1] > 1 \
-                            and v.shape[1] % mesh.fp == 0:
+                    if v.dim() >= 2 and mesh.splits(v.shape[1]):
                         c0, c1 = mesh.feature_slice(v.shape[1])
                         self.tensors[k] = v[:, c0:c1].contiguous()
             self.extras = {}
@@ -309,11 +315,14 @@ class EpochScan:
         self.nnz = (torch.zeros(nb, dtype=torch.int64, device=device)
                     if self.sparse else None)
         # the batch positions this rank gathers: all of them, or its rows
+        # (a full batch the row ranks do not divide raises here)
         lo, hi = (0, self.rb if self.blocked else bs) if mesh is None \
             else mesh.local_rows(bs)
         self.arange = torch.arange(lo, hi, device=device)
+        # a remainder the row ranks do not divide: all its rows on each
+        self.rem_whole = mesh is not None and rem % mesh.rows != 0
         self.rem_rows = (0, rem) if mesh is None or not rem \
-            else mesh.local_rows(rem)
+            or self.rem_whole else mesh.local_rows(rem)
         self.perm = None      # this epoch's permutation (int32)
         self.perms = None     # the drawn epochs' permutations, and the next
         self.next_perm = 0
@@ -355,8 +364,10 @@ class EpochScan:
     def _rem_step(self):
         lo, hi = self.rem_rows
         rows = self.perm[self.nb * self.bs + lo:self.nb * self.bs + hi]
-        loss = self.step({k: v.index_select(0, rows)
-                          for k, v in self.tensors.items()})
+        with (self.mesh.whole_rows() if self.rem_whole
+              else contextlib.nullcontext()):
+            loss = self.step({k: v.index_select(0, rows)
+                              for k, v in self.tensors.items()})
         self.losses[self.nb:].copy_(loss.reshape(1).to(self.losses.dtype))
 
     # ------------------------------------------------------------ capture

@@ -25,10 +25,11 @@ batches ahead in a worker thread (``data/prefetch.py``).
 
 On a rank mesh (``mesh=``, ``parallel.Mesh``) every rank runs this loop
 over the same global batch sequence and keeps its part of each batch: its
-rows and, with an fp axis, its columns (a sparse batch stays whole; the
-COO energies split its triplets). With ``param_sharding`` 'fp' (or 'auto'
-on an fp mesh) each rank holds its slice of the feature dim of the
-variables the surrogate maps to a feature axis. The energy returns the
+rows and, with an fp axis, its columns where fp divides their width (a
+sparse batch stays whole; the COO energies split its triplets). With
+``param_sharding`` 'fp' (or 'auto' on an fp mesh) each rank holds its slice
+of the feature dim of the variables the surrogate maps to a feature axis,
+where fp divides it; the others stay whole. The energy returns the
 whole batch's energy on every rank, so each rank computes the one global
 loss L; it backpropagates L / ranks, and each gradient is summed over the
 ranks that hold the same copy of its parameter (one flat bucket a group)
@@ -180,7 +181,7 @@ class _MeshPlan:
         whole = [t for n, sub in params.items() if n not in self.split
                  for t in sub.values()]
         out = []
-        for axes, leaves in ((self.mesh.row_axes, split),
+        for axes, leaves in ((self.mesh.data_axes, split),
                              (self.mesh.live_axes, whole)):
             group = self.mesh.group(axes)
             if group is not None and leaves:
@@ -396,7 +397,8 @@ def fit_surrogate_posterior(
 
     ``mesh``: a ``parallel.Mesh`` of the ranks that run this fit together
     (see the module docstring; a mesh whose axes all have size 1 changes
-    nothing); the energy must return the global energy on every rank.
+    nothing; a rank outside it raises ``ValueError``); the energy must
+    return the global energy on every rank.
     ``param_sharding``: 'auto' (split the feature dim over an fp axis),
     'fp' or 'replicated'. With more than one rank the scan path runs
     uncaptured: the collectives stage through the host and cannot sit in
@@ -415,6 +417,8 @@ def fit_surrogate_posterior(
     if param_sharding not in ("auto", "fp", "replicated"):
         raise ValueError(f"unknown param_sharding {param_sharding!r}: "
                          "'auto', 'fp' or 'replicated'")
+    if mesh is not None:
+        mesh.check_member("fit")
     if mesh is not None and mesh.trivial:
         mesh = None
     plan = (None if mesh is None

@@ -82,6 +82,8 @@ def waic(
     by default). Returns {'waic', 'se', 'lppd', 'pwaic', 'n_rows'}.
     ``mesh``: score each batch's part on this rank (see the module
     docstring)."""
+    if mesh is not None:
+        mesh.check_member("waic")
     if mesh is not None and mesh.trivial:
         mesh = None
     sample_chunk = min(sample_chunk, num_samples)
@@ -108,9 +110,9 @@ def waic(
 
     lppd_i = np.concatenate(lppd_all)
     pwaic_i = np.concatenate(pwaic_all)
-    if mesh is not None and mesh.row_axes:
+    if mesh is not None and mesh.data_axes:
         both = torch.as_tensor(np.stack([lppd_i, pwaic_i], 1), device=device)
-        both = mesh.gather(both, 0, mesh.row_axes).cpu().numpy()
+        both = mesh.gather(both, 0, mesh.data_axes).cpu().numpy()
         lppd_i, pwaic_i = both[:, 0], both[:, 1]
     waic_i = -2.0 * (lppd_i - pwaic_i)
     n = waic_i.shape[0]

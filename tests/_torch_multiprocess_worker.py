@@ -401,31 +401,50 @@ def ae_samples(model):
 
 
 def case_autoencoder(mesh, outdir):
-    """:468: the autoencoder on a row mesh against one process."""
+    """tests/test_sharding.py:468: the autoencoder on every layout against
+    one process: on a row mesh its weights whole; on fp=2 every w_l split
+    over its output axis (D=6 and latent 2 both divide), on fp=4 none; the
+    first step's loss and gradients, a two-step fit, the energy on given
+    weights, waic and encode after the fit."""
+    import torch
+
     from spmf_tpu_torch import PoissonAutoencoder
     from spmf_tpu_torch.data import ArrayDataset
 
     data = ArrayDataset({"counts": AE_X, "indices": np.arange(64)}).batch(32)
     m = PoissonAutoencoder(data, latent_dim=2, dtype="float64", device="cpu",
                            mesh=mesh)
+    plan = _plan(m, mesh)
+    first = {"counts": AE_X[:32], "indices": np.arange(32)}
+    loss, grads = loss_and_grads(m, mesh, first, None, sample_size=4)
     losses = m.fit(batched_data_factory=data, num_steps=2,
                    learning_rate=0.05, sample_size=4, verbose=False,
                    rel_tol=None)
-    parts = energy_parts(m, mesh, {"counts": AE_X[:32],
-                                   "indices": np.arange(32)}, ae_samples(m))
-    return {"fit": np.asarray(losses), "x": parts["x"]}
+    parts = energy_parts(m, mesh, first, ae_samples(m))
+    return {"fit": np.asarray(losses), "x": parts["x"], "loss": loss,
+            "grads": grads, "split": {} if plan is None else plan.split,
+            "waic": m.waic(data=first, num_samples=4, sample_chunk=4),
+            "z": _np(m.encode(torch.as_tensor(AE_X[:4]))),
+            "w0": tuple(m.surrogate_params["w_0"]["loc"].shape)}
 
 
 def case_scan(mesh, outdir):
     """:587 / :621 / :722: the scan path on the mesh (2 full batches and a
     remainder), chunks of 3 against single epochs, and the fused kernel
-    inside the scan."""
-    from spmf_tpu_torch.data import DeviceArrayDataset, as_data_factory
+    inside the scan. And 31 rows at batch 12: the remainder of 7 that the
+    row ranks do not divide is replicated over them (spmf_tpu's
+    ``_row_spec``), with fusion off for it alone; a full batch they do not
+    divide, and the general loop's remainder, still raise."""
+    import warnings
 
-    def run(bs, steps, **kw):
+    from spmf_tpu_torch.data import (ArrayDataset, DeviceArrayDataset,
+                                     as_data_factory)
+
+    def run(bs, steps, rows=B, **kw):
         fused = kw.pop("fused", False)
         m = pf(mesh, fused_likelihood=fused)
-        ds = DeviceArrayDataset({"counts": X, "indices": np.arange(B)},
+        ds = DeviceArrayDataset({"counts": X[:rows],
+                                 "indices": np.arange(rows)},
                                 batch_size=bs, shuffle=True, seed=0,
                                 device="cpu")
         losses = m.fit(batched_data_factory=as_data_factory(ds),
@@ -433,12 +452,36 @@ def case_scan(mesh, outdir):
                        seed=7, verbose=False, rel_tol=None, **kw)
         return m, np.asarray(losses)
 
+    def refused(fn):
+        try:
+            fn()
+        except ValueError as exc:
+            return str(exc)
+        return "no error"
+
     out = {}
     m, out["scan"] = run(12, 3)
     out["scan_extras"] = {k: m.last_fit.extras.get(k) for k in (
         "epoch_scan", "captured", "capture_reason")}
     out["scan_u"] = tuple(m.surrogate_params["u"]["loc"].shape)
-    if mesh is not None and mesh.shape != {"dp": 2, "fp": 2}:
+    layout = None if mesh is None else mesh.shape
+    if layout in (None, {"dp": 4}, {"dp": 2, "fp": 2}, {"dcn": 2, "dp": 2}):
+        _, out["odd"] = run(12, 3, rows=B - 1)
+    if layout in (None, {"dp": 4}):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mf, out["odd_fused"] = run(12, 2, rows=B - 1, fused=True)
+        out["odd_reason"] = str(mf.fusion_inactive_reason)
+        out["odd_warnings"] = sum("fused likelihood disabled" in str(w.message)
+                                  for w in caught)
+    if layout == {"dp": 4}:
+        out["full_refused"] = refused(lambda: run(10, 1))
+        host = ArrayDataset({"counts": X[:B - 1],
+                             "indices": np.arange(B - 1)}).batch(12)
+        out["loop_refused"] = refused(lambda: pf(mesh).fit(
+            batched_data_factory=host, num_steps=1, learning_rate=0.05,
+            sample_size=S, verbose=False, rel_tol=None))
+    if mesh is not None and layout != {"dp": 2, "fp": 2}:
         return out     # the chunk and fused arms: on the dp x fp mesh
     m1, out["single"] = run(8, 6, patience=2, epoch_chunk=1)
     mk, out["chunked"] = run(8, 6, patience=2, epoch_chunk=3)
@@ -507,19 +550,109 @@ WAIC_DENSE = ((np.random.default_rng(11).random((B, D)) < 0.05)
               * np.random.default_rng(12).poisson(2.0, (B, D)))
 
 
+def _sub_fit(mesh):
+    m = pf(mesh)
+    return np.asarray(m.fit(batched_data_factory={"counts": X,
+                                                  "indices": np.arange(B)},
+                            num_steps=3, learning_rate=0.05, sample_size=S,
+                            seed=7, verbose=False, rel_tol=None))
+
+
 def case_meshes(mesh, outdir):
     """:825: the multi-slice mesh builder with one node of four ranks, and
-    the mesh's shape."""
-    from spmf_tpu_torch.parallel import make_multislice_mesh
+    the mesh's shape. Meshes over some of the world's ranks
+    (tests/test_models.py:478 and :569 / :589, tests/test_engine.py:218
+    take data_parallel_mesh(2) of 8 devices): data_parallel_mesh(2) and a
+    mesh over ranks 2 and 3, their members' fits against one process, the
+    refusals of each entry point on a rank outside a mesh, the fusion rule
+    of a 7-row batch on two ranks, and data_parallel_mesh(8) in a world of
+    four."""
+    import warnings
+
+    from spmf_tpu_torch.parallel import (data_parallel_mesh, make_mesh,
+                                         make_multislice_mesh)
 
     out = {}
-    if mesh is not None:
-        os.environ["LOCAL_WORLD_SIZE"] = "4"
-        ms = make_multislice_mesh(ici_shape=(2, 2),
-                                  ici_axis_names=("dp", "fp"))
-        out["multislice"] = (ms.axis_names, ms.shape)
-        out["shape"] = mesh.shape
-        out["coords"] = mesh.coords
+    if mesh is None:
+        out["sub_fit"] = _sub_fit(None)
+        return out
+    os.environ["LOCAL_WORLD_SIZE"] = "4"
+    ms = make_multislice_mesh(ici_shape=(2, 2),
+                              ici_axis_names=("dp", "fp"))
+    out["multislice"] = (ms.axis_names, ms.shape)
+    out["shape"] = mesh.shape
+    out["coords"] = mesh.coords
+    for tag, devices in (("twice", [0, 0]), ("outside", [3, 4])):
+        try:
+            make_mesh((2,), ("dp",), devices=devices)
+            out[tag] = "no error"
+        except ValueError as exc:
+            out[tag] = str(exc)
+    # every rank builds both meshes, in the same order
+    first, last = data_parallel_mesh(2), make_mesh((2,), ("dp",),
+                                                   devices=[2, 3])
+    whole = data_parallel_mesh(8)
+    out["whole"] = (whole.size, whole.devices.tolist(), whole.member)
+    for tag, sub in (("first", first), ("last", last)):
+        out[tag + "_member"] = sub.member
+        out[tag + "_writes"] = sub.writes
+        if sub.member:
+            out[tag + "_fit"] = _sub_fit(sub)
+            m = pf(fused_likelihood=True)
+            m.mesh = sub
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ok = (m._can_fuse(batch_shape=(7, D)),
+                      m._can_fuse(batch_shape=(7, D)),
+                      m._can_fuse(batch_shape=(8, D)))
+            out[tag + "_fusion"] = (ok, len(caught), str(caught[0].message))
+            continue
+        m = pf(sub, data={"counts": X, "indices": np.arange(B)})
+        errs = []
+        for call in (lambda: m.fit(num_steps=1, verbose=False),
+                     lambda: m.calibrate_advi(num_steps=1, verbose=False),
+                     lambda: m.waic(num_samples=2),
+                     lambda: m.log_likelihood(num_samples=2)):
+            try:
+                call()
+                errs.append("no error")
+            except ValueError as exc:
+                errs.append(str(exc))
+        out[tag + "_refusals"] = errs
+    return out
+
+
+#: a feature dim that neither fp=2 nor fp=4 divides
+X15 = np.random.default_rng(15).poisson(1.0, size=(B, 15)).astype(np.float64)
+
+
+def case_pf15(mesh, outdir):
+    """A feature dim fp does not divide (D=15): spmf_tpu leaves every
+    variable and column whole (``shard_params_feature_dim``,
+    ``_device_batch``) and its fusion check sends the batch to the plain
+    path. The loss and gradients of one step on the JAX draws, a two-step
+    fit with the fused likelihood asked for (its one warning and reason),
+    and waic, against one process."""
+    import warnings
+
+    batch = {"counts": X15, "indices": np.arange(B)}
+    m = pf(mesh, D=15)
+    plan = _plan(m, mesh)
+    out = {"split": {} if plan is None else plan.split}
+    out["loss"], out["grads"] = loss_and_grads(m, mesh, batch,
+                                               _draws(outdir, "pf15"))
+    mf = pf(mesh, D=15, fused_likelihood=mesh is not None)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["fit"] = np.asarray(mf.fit(
+            batched_data_factory=batch, num_steps=2, learning_rate=0.05,
+            sample_size=S, seed=7, verbose=False, rel_tol=None))
+    out["reason"] = str(mf.fusion_inactive_reason)
+    out["warnings"] = sum("fused likelihood disabled" in str(w.message)
+                          for w in caught)
+    out["u"] = tuple(mf.surrogate_params["u"]["loc"].shape)
+    out["waic"] = pf(mesh, D=15).waic(data=batch, num_samples=4,
+                                      sample_chunk=4)
     return out
 
 
@@ -638,7 +771,8 @@ SUITES = {
         "normals": ("dpfp", "fp"),
         "coo": tuple(LAYOUTS),
         "mixed": ("dpfp", "fp"),
-        "autoencoder": ("dp", "dcn"),
+        "autoencoder": tuple(LAYOUTS),
+        "pf15": ("dpfp", "fp"),
         "scan": tuple(LAYOUTS),
         "waic": tuple(LAYOUTS),
         "meshes": ("dpfp",),

@@ -968,3 +968,94 @@ def test_debug_nans_on_the_card(cuda):
         out.sum().backward()
         assert torch.isfinite(theta.grad).all()
     torch.log(torch.tensor([-1.0], device=cuda))
+
+
+# ------------------------------------------- meshes that split some widths
+def _trivial_fp_mesh():
+    from spmf_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((1, 1), ("dp", "fp"))
+    assert mesh.trivial and mesh.member
+    return mesh
+
+
+def test_feature_dim_fp_does_not_divide_on_the_card(cuda):
+    """D=15, which fp=2 would leave whole on every rank, in one process on
+    a trivial dp x fp mesh: the energy through K1 and the per-row scores
+    through K4 on the card equal the float64 plain path on the CPU on the
+    same samples, and a fit step launches K1 and K3. (Two ranks on the
+    card: phase M (g) of chip_smoke.py.)"""
+    from spmf_tpu_torch import PoissonFactorization
+
+    x = np.random.default_rng(2).poisson(1.0, (64, 15)).astype(np.float32)
+    rng = np.random.default_rng(3)
+
+    def model(dev, dtype, **kw):
+        return PoissonFactorization(latent_dim=4, feature_dim=15,
+                                    u_tau_scale=0.1, device=dev, dtype=dtype,
+                                    mesh=_trivial_fp_mesh(), **kw)
+
+    mk = model(cuda, "float32")
+    mc = model("cpu", "float64", fused_likelihood=False)
+    samples = {n: rng.lognormal(-1.0, 0.5, (3,) + tuple(s.shape))
+               for n, s in mc._surrogate.surrogates.items()}
+    with torch.no_grad():
+        xk = mk.unormalized_log_prob_parts(
+            {"counts": x}, **{k: torch.as_tensor(v, device=cuda).float()
+                              for k, v in samples.items()})["x"]
+        xc = mc.unormalized_log_prob_parts(
+            {"counts": x.astype(np.float64)},
+            **{k: torch.as_tensor(v) for k, v in samples.items()})["x"]
+        rk = mk._row_log_likelihood({"counts": x}, {
+            k: torch.as_tensor(v, device=cuda).float()
+            for k, v in samples.items()})
+        rc = mc._row_log_likelihood({"counts": x.astype(np.float64)}, {
+            k: torch.as_tensor(v) for k, v in samples.items()})
+    assert mk.fusion_active
+    assert _rel_max(xk.cpu(), xc) < 1e-5
+    assert _rel_max(rk.cpu(), rc) < 1e-5
+    for d_ in (tig.LAUNCHES, tfp.LAUNCHES):
+        for k in d_:
+            d_[k] = 0
+    losses = mk.fit(batched_data_factory={"counts": x}, num_steps=1,
+                    sample_size=4, verbose=False, rel_tol=None)
+    assert np.isfinite(losses).all()
+    assert tfp.LAUNCHES["stats"] > 0 and tig.LAUNCHES["fwd"] > 0
+
+
+def test_autoencoder_mesh_forward_on_the_card(cuda):
+    """The autoencoder's mesh-aware forward (``assemble_networks(mesh=)``,
+    its prior and tile sums) in one process on a trivial dp x fp mesh: the
+    energy on the card equals the float64 CPU path on the same weights,
+    and a step with fused_normals draws the block through K6. (The split
+    forward over two ranks on the card: phase M (f) of chip_smoke.py.)"""
+    from spmf_tpu_torch import PoissonAutoencoder
+
+    x = np.random.default_rng(4).poisson(1.0, (64, 12)).astype(np.float32)
+    data = {"counts": x, "indices": np.arange(64)}
+
+    def model(dev, dtype):
+        return PoissonAutoencoder(data, latent_dim=4, device=dev, dtype=dtype,
+                                  mesh=_trivial_fp_mesh())
+
+    mk, mc = model(cuda, "float32"), model("cpu", "float64")
+    rng = np.random.default_rng(6)
+    w = {n: rng.normal(0.0, 0.3, (2,) + tuple(s.shape))
+         for n, s in mc._surrogate.surrogates.items()}
+    with torch.no_grad():
+        pk = mk.unormalized_log_prob_parts(
+            data, **{k: torch.as_tensor(v, device=cuda).float()
+                     for k, v in w.items()})
+        pc = mc.unormalized_log_prob_parts(
+            {"counts": x.astype(np.float64)},
+            **{k: torch.as_tensor(v) for k, v in w.items()})
+    for k, v in pc.items():
+        assert _rel_max(pk[k].cpu(), v) < 1e-5, k
+    sur = mk._surrogate
+    sur.gamma_sampler, sur.fused_normals = "fused", True
+    for k in tfn.LAUNCHES:
+        tfn.LAUNCHES[k] = 0
+    losses = mk.fit(batched_data_factory=data, num_steps=1, sample_size=4,
+                    verbose=False, rel_tol=None)
+    assert np.isfinite(losses).all()
+    assert tfn.LAUNCHES["fwd"] > 0 and tfn.LAUNCHES["bwd"] > 0

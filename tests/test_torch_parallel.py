@@ -85,6 +85,9 @@ def _jax_models():
                            lambda self, *a, **kw: None):
         pf = JPF(latent_dim=W.P, feature_dim=W.D, u_tau_scale=0.1,
                  dtype="float64", scale_columns=False, gamma_sampler="fast")
+        pf15 = JPF(latent_dim=W.P, feature_dim=15, u_tau_scale=0.1,
+                   dtype="float64", scale_columns=False,
+                   gamma_sampler="fast")
         coo = JPF(latent_dim=3, feature_dim=12, u_tau_scale=0.1,
                   dtype="float64", gamma_sampler="fast",
                   data=JSparse.from_dense(W.COO_DENSE).batch(40))
@@ -92,7 +95,8 @@ def _jax_models():
         mixed = JMixed(column_types=types, latent_dim=3, u_tau_scale=0.1,
                        dtype="float64", fused_likelihood=True, obs_scale=0.7,
                        gamma_sampler="fast")
-    return {"pf": (pf, W.S), "coo_eps": (coo, 3), "mixed_eps": (mixed, 2)}
+    return {"pf": (pf, W.S), "coo_eps": (coo, 3), "mixed_eps": (mixed, 2),
+            "pf15": (pf15, W.S)}
 
 
 def _write_draws(outdir, models):
@@ -154,6 +158,16 @@ def _jax_refs(models):
              "indices": jax.device_put(jnp.arange(W.B),
                                        NamedSharding(dpfp, P_("dp")))}
     refs["loss"], refs["grads"] = _jax_loss(pf, dpfp, batch, W.S, W.B)
+    # a feature dim fp does not divide: every leaf and column replicated
+    pf15, _ = models["pf15"]
+    pf15.mesh = dpfp
+    pf15._surrogate.mesh = dpfp
+    b15 = {"counts": jax.device_put(jnp.asarray(W.X15),
+                                    NamedSharding(dpfp, P_("dp"))),
+           "indices": jax.device_put(jnp.arange(W.B),
+                                     NamedSharding(dpfp, P_("dp")))}
+    refs["pf15_loss"], refs["pf15_grads"] = _jax_loss(pf15, dpfp, b15, W.S,
+                                                      W.B)
 
     with mock.patch.object(JPF, "set_calibration_expectations",
                            lambda self, *a, **kw: None):
@@ -223,6 +237,20 @@ def _jax_refs(models):
     refs["ae"] = _parts(am, shard_batch({"counts": W.AE_X[:32],
                                          "indices": np.arange(32)}, dp4),
                         W.ae_samples(am))
+    # and on a (2, 2) dp x fp and a (1, 4) fp mesh: each w_l's output axis
+    # over fp where fp divides it, as shard_params_feature_dim lays it out
+    for name, mesh in (("ae_dpfp", dpfp), ("ae_fp", _mesh4((1, 4),
+                                                           ("dp", "fp")))):
+        fp = mesh.shape["fp"]
+        placed = {k: jax.device_put(jnp.asarray(v), NamedSharding(
+            mesh, P_(None, None, "fp") if k.startswith("w_")
+            and v.shape[-1] > 1 and v.shape[-1] % fp == 0 else P_()))
+            for k, v in W.ae_samples(am).items()}
+        ab = shard_batch({"counts": W.AE_X[:32], "indices": np.arange(32)},
+                         mesh)
+        refs[name] = {k: np.asarray(v) for k, v in jax.jit(
+            lambda s: am.unormalized_log_prob_parts(ab, **s))(
+                placed).items()}
 
     rng = np.random.default_rng(5)
     theta = rng.gamma(1.0, 1.0, (W.S, W.B, W.P)).astype(np.float32)
@@ -523,6 +551,65 @@ def test_autoencoder_trains_on_dp_mesh(run, layout):
     close(res["x"], run[2]["ae"]["x"], 1e-9)
 
 
+@pytest.mark.parametrize("layout", ALL)
+def test_autoencoder_first_step_matches_single_device(run, layout):
+    """:468 on every layout: the loss and every gradient of the
+    autoencoder's first step (its weights split over fp where fp divides
+    their output axis, the Normal block drawn whole and sliced) equal one
+    process's, on every rank."""
+    res, one = got(run, "autoencoder", layout), run[1]["autoencoder"]
+    close(res["loss"], one["loss"], 1e-10)
+    close_tree(res["grads"], one["grads"], 1e-9, 1e-13)
+    same_on_every_rank(run, "autoencoder", layout, ["loss", "grads"])
+
+
+@pytest.mark.parametrize("layout", ("dpfp", "fp"))
+def test_autoencoder_trains_on_fp_mesh(run, layout):
+    """:468 on fp meshes: at D=6 and latent 2, fp=2 splits every w_l over
+    its output axis and fp=4 none (the biases stay whole). The fit, the
+    energy on given weights (against one process and spmf_tpu's
+    autoencoder on its (2, 2) and (1, 4) meshes), waic and encode after
+    the fit equal one process; the parameters come back whole."""
+    res, one = got(run, "autoencoder", layout), run[1]["autoencoder"]
+    layers = [f"w_{l}" for l in range(4)]
+    assert res["split"] == ({n: 1 for n in layers} if layout == "dpfp"
+                            else {})
+    close(res["fit"], one["fit"], 1e-10)
+    close(res["x"], one["x"], 1e-10)
+    close(res["x"], run[2]["ae_" + layout]["x"], 1e-9)
+    for k in ("waic", "lppd", "pwaic", "se"):
+        close(res["waic"][k], one["waic"][k], 1e-10, 1e-12, k)
+    close(res["z"], one["z"], 1e-9)
+    assert res["w0"] == (6, 6)
+    same_on_every_rank(run, "autoencoder", layout, ["fit"])
+
+
+# ---------------------------------------------------- a non-dividing feature
+@pytest.mark.parametrize("layout", ("dpfp", "fp"))
+def test_feature_dim_fp_does_not_divide_is_replicated(run, layout):
+    """D=15 on fp=2 and fp=4: every variable and column stays whole, as
+    spmf_tpu's shard_params_feature_dim and _device_batch leave them. The
+    loss and gradients of one step on the JAX draws equal one process's
+    and spmf_tpu's on its (2, 2) mesh; a fit with the fused likelihood
+    asked for takes the plain path with spmf_tpu's reason and one warning,
+    and equals one process; waic too."""
+    res, one = got(run, "pf15", layout), run[1]["pf15"]
+    assert res["split"] == {}
+    close(res["loss"], one["loss"], 1e-10)
+    close(res["loss"], run[2]["pf15_loss"], 1e-9)
+    close_tree(res["grads"], one["grads"], 1e-9, 1e-13)
+    close_tree(res["grads"], run[2]["pf15_grads"], 1e-9, 1e-13)
+    close(res["fit"], one["fit"], 1e-10)
+    fp = W.LAYOUTS[layout][0][1]
+    assert (f"batch dim 15 does not divide mesh axes ('fp',) (total {fp} "
+            "shards)") in res["reason"]
+    assert res["warnings"] == 1
+    assert res["u"] == (15, W.P)
+    for k in ("waic", "lppd", "pwaic", "se"):
+        close(res["waic"][k], one["waic"][k], 1e-10, 1e-12, k)
+    same_on_every_rank(run, "pf15", layout, ["loss", "grads", "fit"])
+
+
 # ------------------------------------------------------------ :587 :621 :722
 @pytest.mark.parametrize("layout", ALL)
 def test_epoch_scan_composes_with_mesh(run, layout):
@@ -536,6 +623,34 @@ def test_epoch_scan_composes_with_mesh(run, layout):
     assert res["scan_extras"]["captured"] is False
     assert "ranks" in res["scan_extras"]["capture_reason"]
     assert res["scan_u"] == (W.D, W.P)
+
+
+@pytest.mark.parametrize("layout", ("dp", "dpfp", "dcn"))
+def test_epoch_scan_replicates_a_remainder_the_rows_do_not_divide(run,
+                                                                  layout):
+    """:587 at 31 rows and batch 12: the remainder of 7, which the row
+    ranks do not divide, is replicated over them as spmf_tpu's _row_spec
+    replicates it, and counted once: the scan equals one process's."""
+    res = got(run, "scan", layout)
+    close(res["odd"], run[1]["scan"]["odd"], 1e-10)
+    same_on_every_rank(run, "scan", layout, ["odd"])
+
+
+def test_epoch_scan_remainder_takes_the_plain_path_alone(run):
+    """The fused likelihood asked for on the odd scan (dp=4): the full
+    batches keep the kernel (its twin here), the remainder of 7 goes to
+    the plain path by spmf_tpu's rule, with one warning; the trajectory is
+    one process's at float32's tolerance. A full batch the row ranks do
+    not divide, and the general loop's remainder, still raise
+    (process_local_rows' message), as in spmf_tpu."""
+    res = got(run, "scan", "dp")
+    assert ("batch dim 7 does not divide mesh axes ('dp',) (total 4 "
+            "shards)") in res["odd_reason"]
+    assert res["odd_warnings"] == 1
+    assert run[1]["scan"]["odd_warnings"] == 0
+    close(res["odd_fused"], run[1]["scan"]["odd_fused"], 1e-5)
+    for k in ("full_refused", "loop_refused"):
+        assert "does not divide over 4 processes" in res[k], res[k]
 
 
 @pytest.mark.parametrize("layout", ("dpfp",))
@@ -601,9 +716,41 @@ def test_make_multislice_mesh_single_process_shape(run):
     assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
 
 
+def test_meshes_over_some_of_the_ranks(run):
+    """tests/test_models.py:478 / :569 / :589 and tests/test_engine.py:218
+    build data_parallel_mesh(2) of 8 devices; here of four ranks. Its
+    members (0, 1) and those of a mesh over ranks 2 and 3 train equal to
+    one process, the first rank of each writes, a 7-row batch is refused
+    the fused kernel on two ranks (one warning), and on a rank outside a
+    mesh fit, calibrate_advi, waic and log_likelihood raise and name the
+    rank and the mesh's ranks. data_parallel_mesh(8) in a world of four is
+    the world; a rank named twice or outside the world is refused."""
+    one = run[1]["meshes"]["sub_fit"]
+    for r in range(WORLD):
+        res = got(run, "meshes", "dpfp", r)
+        assert res["whole"] == (4, [0, 1, 2, 3], True)
+        for tag in ("twice", "outside"):
+            assert "every rank" in res[tag], res[tag]
+        for tag, ranks in (("first", [0, 1]), ("last", [2, 3])):
+            assert res[tag + "_member"] == (r in ranks)
+            assert res[tag + "_writes"] == (r == ranks[0])
+            if r in ranks:
+                close(res[tag + "_fit"], one, 1e-10)
+                ok, n_warned, message = res[tag + "_fusion"]
+                assert ok == (False, False, True) and n_warned == 1
+                assert "does not divide mesh axes ('dp',)" in message
+            else:
+                errs = res[tag + "_refusals"]
+                assert len(errs) == 4
+                for what, err in zip(("fit", "fit", "waic",
+                                      "log_likelihood"), errs):
+                    assert err.startswith(f"{what}: rank {r} is not in "
+                                          f"this mesh (ranks {ranks})"), err
+
+
 def test_trivial_mesh_and_refusals():
-    """In one process a mesh is trivial; a batch the row ranks do not
-    divide, a non-Mesh mesh and an fp autoencoder are refused."""
+    """In one process a mesh is trivial; a mesh over a rank outside the
+    world and a non-Mesh mesh are refused."""
     from spmf_tpu_torch import PoissonFactorization
     from spmf_tpu_torch.parallel import (
         data_parallel_mesh,

@@ -192,12 +192,14 @@ Phases, each printing lines; any failure raises and exits non-zero:
              (v scaled by min(1, sqrt(8 / K))), at the K=32 tolerances.
              (b) at S=8, B=4096, D=20000, K=128 (the wide K4 also at K=256):
              kernel and twin times, registers, shared memory, blocks an SM,
-             the bound. (c) at K=128 end to end: the dense captured-scan
-             fit (16,384 rows resident, B=4096, 3 epochs; ms/step, busy
-             share, peak GB, launches) and a clip='static' epoch; one dense
-             step through K1 and one COO step through K5 against the float64
-             plain path on the same draws; the 0.1% flat COO set one epoch
-             through K5; log_likelihood of the 4096 held-out rows through
+             the bound (K1/K2 and K5: the share of both routes' bounds,
+             three TF32 passes and one FP32 pass). (c) at K=128 end to end:
+             the dense captured-scan fit (16,384 rows resident, B=4096, 3
+             epochs; ms/step, busy share, peak GB, launches) and a
+             clip='static' epoch; one dense step through K1 and one COO step
+             through K5 against the float64 plain path on the same draws;
+             the 0.1% flat COO set two epochs through K5 (ms/step of the
+             second); log_likelihood of the 4096 held-out rows through
              K4, their per-row log-likelihood at 100 samples against the
              float64 plain path (1e-5), and log_likelihood at K=256 through
              the wide K4
@@ -350,13 +352,20 @@ def bounds(B, total, n_total, k=K, s=S, d=D):
     once per cell of x for K1/K2 and K4 (it does not depend on the sample:
     the least any implementation must do); for
     K3 and K6 the least work per pipe (``ig_bound``, independent mode, and
-    ``normal_bound``). K5: ``expsum_bound``'s tensor route."""
+    ``normal_bound``). K5: ``expsum_bound``'s tensor route; K1/K2:
+    ``stats_bound``'s route of the kernel that runs at k (its tensor route
+    past the whole-K tiles, the FP32 one within them)."""
+    from spmf_tpu_torch.ops import fused_poisson as tfp
+
     cells = s * B * d
     theta, v, vec = s * B * k, s * k * d, s * d
-    stats_bytes = 4 * (2 * theta + 2 * v + 2 * vec + B * d + d)
     lgamma_ops = 4 * B * d
-    out = {"stats": bound(stats_bytes, cells * (6 * k + 2) + lgamma_ops),
-           "static": bound(stats_bytes, cells * (6 * k + 2) + lgamma_ops),
+    # K1/K2: the route of the kernel that runs at k (split-TF32 tensor cores
+    # past the whole-K tiles)
+    route = ("tf32x3" if tfp.launch_geometry("stats", s, B, k, d).chunks > 1
+             else "fp32")
+    k1 = stats_bound(B, k, s, d)[route][:2]
+    out = {"stats": k1, "static": k1,
            "row_ll": bound(4 * (theta + v + vec + B * d + d + s * B),
                            cells * (2 * k + 2) + lgamma_ops),
            "expsum": expsum_bound(B, k, s, d)["tf32x3"][:2],
@@ -365,6 +374,33 @@ def bounds(B, total, n_total, k=K, s=S, d=D):
            "nfwd": normal_bound("fwd", n_total, S)[:2],
            "nbwd": normal_bound("bwd", n_total, S)[:2]}
     return out
+
+
+def stats_bound(B, k=K, s=S, d=D):
+    """K1/K2's least time at B rows (S=8, D=20000, K=32 unless ``s``,
+    ``d`` and ``k`` say otherwise) by route, as ``expsum_bound``: 'tf32x3',
+    the products (6 S B D K flops: decode, dtheta, dv) as three TF32 passes
+    on the tensor cores at 494.7 TFLOP/s (the route of the K-chunked kernel
+    past the whole-K tiles), against the transcendentals at the timed
+    identity link (log and x / rate a cell and sample, lgamma's 3 logs and a
+    reciprocal once a cell of x; 16 a clock and SM); 'fp32', ``bound``'s
+    count: the products once on the FP32 pipes at 67 TFLOP/s, with 2
+    operations a cell and sample and lgamma's 4 a cell of x. Bytes: theta,
+    v, phi, eta and x read, dtheta, dv, dphi and the sums written."""
+    cells = s * B * d
+    flops = 6 * k * cells
+    n_bytes = 4 * (2 * s * B * k + 2 * s * k * d + 2 * s * d + B * d + d)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    pipe, t_o = max((("tensor cores, 3 TF32 passes",
+                      3 * flops / PEAK_TF32_OPS_PER_S * 1e3),
+                     ("transcendentals",
+                      (2 * cells + 4 * B * d) / PEAK_MUFU_PER_S * 1e3)),
+                    key=lambda p: p[1])
+    fp32 = bound(n_bytes, cells * (6 * k + 2) + 4 * B * d)
+    return {"tf32x3": (t_o, "operations", pipe) if t_o >= t_b
+            else (t_b, "bytes", "memory"),
+            "fp32": fp32 + ("FP32 pipes" if fp32[1] == "operations"
+                            else "memory",)}
 
 
 def expsum_bound(B, k=K, s=S, d=D):
@@ -3030,14 +3066,16 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
     """Phase W: the latent dimensions past the whole-K tiles. (a) K1, K2
     (both links), K4 (both links) and K5 against their float64 twins at
     S=2, B=1000, D=19,997 for each K of W_LATENT, at the K=32 tolerances.
-    (b) at the full width S=8, B=4096, D=20000 and K=128: each kernel's time
-    (CUDA events), its twin's, its registers, shared memory, blocks an SM
-    and bound; the wide K4 at K=256. (c) end to end at K=128: the dense
-    captured-scan fit (16,384 rows resident, B=4096, 3 epochs, in two turns,
+    (b) at the full width S=8, B=4096, D=20000 and K = 128 and 256: each
+    kernel's time (CUDA events), its twin's, its registers, shared memory,
+    blocks an SM and bound (K1/K2 and K5: the share of both routes' bounds,
+    three TF32 passes and one FP32 pass); at 256 K1/K2 and K5 take their
+    streaming route and K4 its wide kernel. (c) end to end at K=128: the
+    dense captured-scan fit (16,384 rows resident, B=4096, 3 epochs, in two turns,
     the second profiled), a clip='static' epoch, one step's loss and
     gradients through K1 against the float64 plain path on the same draws;
-    the 0.1% flat COO set ``coo`` (data, column norms) one epoch through K5,
-    and one small COO step against the float64 plain path; log_likelihood
+    the 0.1% flat COO set ``coo`` (data, column norms) two epochs through K5
+    (ms/step of the second), and one small COO step against the float64 plain path; log_likelihood
     of the 4096 held-out rows ``held`` (100 samples) through K4, and their
     per-row log-likelihood at 100 samples against the float64 plain path
     (1e-5 relative); log_likelihood at K=256 through the wide K4. Returns
@@ -3120,11 +3158,13 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
                  f"rel-of-max {e_g:.2e}")
     del args, args64, out_k, out_t
 
-    # (b) the full width at K=128 (and the wide K4 at K=256)
+    # (b) the full width at K=128, and at K=256 (the streaming route of
+    # the wide K1/K2 and K5, the wide K4); the JSON line takes each wide
+    # kernel's first time
     kt = {}
     bd = {}
-    for k_b, kinds in ((W_K, ("stats", "static", "row_ll", "expsum")),
-                       (256, ("row_ll",))):
+    for k_b in (W_K, 256):
+        kinds = ("stats", "static", "row_ll", "expsum")
         args = stats_inputs(4096, dev, seed=6, k=k_b, v_scale=w_scale(k_b))
         th, vv, ee = args[0], args[1], args[4]
         calls = {
@@ -3137,6 +3177,9 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
             "expsum": (lambda: tfp._kernel_expsum(th, vv, ee),
                        lambda: tfp.expsum_twin(th, vv, ee))}
         bk = bounds(4096, IG_TOTAL, N_TOTAL, k=k_b)
+        routes = {"stats": stats_bound(4096, k_b),
+                  "static": stats_bound(4096, k_b),
+                  "expsum": expsum_bound(4096, k_b)}
         for name in kinds:
             kind = "stats" if name == "static" else name
             key = kernel_key(kind, name, k_b, S, 4096, D)
@@ -3145,11 +3188,17 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
             geom = tfp.launch_geometry(kind, S, 4096, k_b, D)
             info = tfp.kernel_info(kind, k_b)
             ms_b, by = bk[name]
-            if key.endswith("_wide"):
+            if key.endswith("_wide") and key not in kt:
                 kt[key], bd[key] = (k_ms, t_ms), (ms_b, by)
+            # the share of each route's bound: three TF32 passes on the
+            # tensor cores and one pass on the FP32 pipes (K4: FP32 only)
+            shares = "; ".join(
+                f"{r} bound {b[0]:.3f} ms ({b[2]}), {b[0] / k_ms:.1%} of it"
+                for r, b in routes.get(name, {}).items())
             say("W", f"(b) {key} K={k_b}: kernel {k_ms:.3f} ms, twin "
                      f"{t_ms:.3f} ms, bound {ms_b:.3f} ms ({by}; "
-                     f"{ms_b / k_ms:.1%} of it); {info['registers']} "
+                     f"{ms_b / k_ms:.1%} of it){'; ' if shares else ''}"
+                     f"{shares}; {info['registers']} "
                      f"registers a thread, {info['smem_bytes']} + "
                      f"{info['static_smem_bytes']} bytes of shared memory a "
                      f"block, {info['blocks_per_sm']} blocks an SM "
@@ -3237,7 +3286,7 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
              f"{e_loss:.2e}), grads rel-of-max {e_grad:.2e}")
     del pair, res
 
-    # the 0.1% flat COO set one epoch at K=128 through K5 (the scan)
+    # the 0.1% flat COO set two epochs at K=128 through K5 (the scan)
     flat_c, norms_c = coo
 
     def coo_model(data, dtype="float32", n_rows=N_SPARSE, d=D, **kw):
@@ -3250,22 +3299,24 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss = m_c.fit(num_steps=1, learning_rate=0.01, sample_size=S,
+    loss = m_c.fit(num_steps=2, learning_rate=0.01, sample_size=S,
                    verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     got = read_launches()
     launches.update(got)
     n_steps = N_SPARSE // B_SPARSE
+    coo_ms = m_c.last_fit.extras["epoch_seconds"][-1] / n_steps * 1e3
     check(np.isfinite(loss).all() and got["expsum_wide"] >= n_steps
           and got["expsum"] == 0 and m_c.last_fit.extras["epoch_scan"]
           and m_c.fusion_inactive_reason.startswith(
               "sparse COO gather energy"),
           f"W COO K={W_K}: losses {loss}, launches {got}, dispatch "
           f"{m_c.fusion_inactive_reason!r}")
-    say("W", f"(c) 0.1% flat COO K={W_K}: one epoch of {n_steps} steps on "
-             f"the scan in {fit_s:.1f} s (capture included), losses "
-             f"{[round(x, 4) for x in loss]}; launches {got}")
+    say("W", f"(c) 0.1% flat COO K={W_K}: two epochs of {n_steps} steps "
+             f"on the scan in {fit_s:.1f} s (capture included), the second "
+             f"{coo_ms:.2f} ms/step; losses {[round(x, 4) for x in loss]}; "
+             f"launches {got} ({smi})")
     # ... and one COO step at a small size through K5 against the float64
     # plain path on the card on the same draws
     sp_w, _ = sparse_counts(512, 3000, DENSITY_COO, 54, dev)

@@ -83,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_tf32.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -107,70 +109,15 @@ __host__ __device__ constexpr int smem_floats(int KP) {
 }
 
 // ------------------------------------------------------ the split products
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in three TF32 passes, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4], uint32_t bh0, uint32_t bh1,
-                                     uint32_t bl0, uint32_t bl1) {
-  mma(d, a_lo, bh0, bh1);
-  mma(d, a_hi, bl0, bl1);
-  mma(d, a_hi, bh0, bh1);
-}
+// (csrc/split_tf32.cuh, shared with the wide K1/K2)
+using tf32x3::bits;
+using tf32x3::mma3;
+using tf32x3::split;
 
 // ------------------------------------------------------ asynchronous loads
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// four neighbouring floats of a global row into dst, of which the row still
-// holds `left` (zeros for the others); vec: whole 16-byte groups
-__device__ __forceinline__ void load_group(float* dst, const float* __restrict__ src, int left,
-                                           bool vec) {
-  if (vec) {
-    if (left > 0) cp_async16(dst, src);
-    else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i < left) cp_async4(dst + i, src + i);
-      else dst[i] = 0.0f;
-    }
-  }
-}
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait_all;
+using tf32x3::load_group;
 
 // raw rows k < K: v_smp (K, D) at columns col0 .. col0+63; row KP: eta
 __device__ __forceinline__ void load_raw(float* raw, const float* __restrict__ v_smp,
@@ -455,326 +402,86 @@ expsum_kernel(const float* __restrict__ theta, const float* __restrict__ v,
 
 // ------------------------------------------------------------ the wide path
 // Past K = 64 neither theta's A fragments nor the dtheta sums fit the
-// registers, nor theta^T hi/lo of the whole latent dimension the shared
-// memory (K = 1024: 1 MB). The wide kernel walks the latent dimension in
-// chunks of KCW = 32 (four k-steps) inside each column tile, on the same
-// tiling, fragments and split products as the kernel above:
-//  - decode: for each chunk, theta's rows of the block and v's rows of the
-//    tile at the chunk's latent dimensions land raw (cp.async), are split
-//    once into theta^T hi/lo [KCW][132] and v hi/lo [KCW][72], and each warp
-//    adds the chunk's three-pass products into a fresh partial (4 k-steps),
-//    which a float32 add takes into T (16 x 64 a warp, in registers);
-//  - cells: E, its masked sum and G = E eta as above, G to shared memory;
-//  - gradients: for each chunk again (the last decode chunk is still split
-//    in place, then the others in descending order): dtheta_w (16 x 32) +=
-//    G_w @ v^T with G's fragments read back from shared memory in the
-//    permuted order of the C-to-A trick, a fresh partial per 32 columns, the
-//    tile's two added in float32 and then into dtheta in device memory (the
-//    block owns its rows: plain loads and stores, no atomics; the first
-//    column tile stores); dv (32 x 64) += theta^T @ G over the block's 128
-//    rows in 16 k-steps, as above, by float2 atomics.
-// No tensor-core accumulator runs over more than 16 k-steps in any chunk.
-// Each column tile reads theta's chunks twice, less the one reused (2n - 1
-// loads for n chunks), and splits what it loads. Shared memory: raw theta
-// [TB][KCW], raw v [KCW + 1][64] (the eta row last), v hi/lo, eta, theta^T
-// hi/lo, G: 114,176 bytes whatever K, two blocks an SM.
-constexpr int KCW = 32;          // latent dims a chunk
-constexpr int KSW = KCW / 8;     // its k-steps
+// registers. The wide kernel is csrc/split_tf32.cuh's K-chunked design
+// (shared with the wide K1/K2): to padded K = 128 (N = 3 or 4 chunks) theta,
+// the tile's split v and dtheta (in registers, written once) stay on chip;
+// past that (N = 0) the chunks stream and dtheta accumulates in device
+// memory by its owner thread. A fragments split in registers, v once per
+// load, G once per tile, dv by float4 atomics. Its cells: E = __expf(T
+// eta) (as above), its masked sum into a double per thread, G = E eta. The
+// arithmetic is the kernel's above cut into chunks: a fresh decode partial
+// per chunk (4 k-steps), dtheta's per 32 columns (the tile's two added in
+// float32), dv's 16 k-steps a block; the rate
+// total's order is fixed, so two launches give the same R and dtheta.
+using tf32x3::W_KC;
+using tf32x3::W_RES;
+using tf32x3::padded_kc;
 
-__host__ __device__ constexpr int wide_smem_floats() {
-  return TB * KCW + (KCW + 1) * RP + 2 * KCW * VP + TD + 2 * KCW * TBP + TB * VP;
+__host__ __device__ constexpr int wide_smem_floats() { return W_RES + TD; }
+
+// cells of the warp's tile: E, its masked sum (returned), G = E eta in
+// place of T
+__device__ __forceinline__ float exp_cells(float (&T)[8][4], const float* eta_s, int col0, int D,
+                                           bool row_ok, bool row8_ok) {
+  const int t = threadIdx.x & 3;
+  float tsum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 e = *reinterpret_cast<const float2*>(eta_s + c);
+    const bool c_ok = col0 + c < D, c1_ok = col0 + c + 1 < D;
+    const float x0 = __expf(T[j][0] * e.x), x1 = __expf(T[j][1] * e.y);
+    const float x2 = __expf(T[j][2] * e.x), x3 = __expf(T[j][3] * e.y);
+    const float m0 = row_ok && c_ok ? x0 : 0.0f, m1 = row_ok && c1_ok ? x1 : 0.0f;
+    const float m2 = row8_ok && c_ok ? x2 : 0.0f, m3 = row8_ok && c1_ok ? x3 : 0.0f;
+    tsum += (m0 + m1) + (m2 + m3);
+    T[j][0] = m0 * e.x;
+    T[j][1] = m1 * e.y;
+    T[j][2] = m2 * e.x;
+    T[j][3] = m3 * e.y;
+  }
+  return tsum;
 }
 
-// the raw chunk at latent dims kc0..: theta's rows of the block [TB][KCW]
-// (zeros past row B and past K) and v's rows at columns col0.. [k][RP] for
-// k < K; with_eta: eta's columns col0.. into row KCW
-__device__ __forceinline__ void load_chunk_raw(float* raw_th, float* raw_v,
-                                               const float* __restrict__ th_blk,
-                                               const float* __restrict__ v_smp,
-                                               const float* __restrict__ eta, int rows, int kc0,
-                                               int col0, int K, int D, bool vec, bool vec_th,
-                                               bool with_eta) {
-  for (int p = threadIdx.x; p < TB * (KCW / 4); p += THREADS) {
-    const int r = p / (KCW / 4), k = kc0 + 4 * (p % (KCW / 4));
-    float* dst = raw_th + r * KCW + (k - kc0);
-    if (r < rows) load_group(dst, th_blk + (size_t)r * K + k, K - k, vec_th);
-    else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  const int gi = threadIdx.x % (TD / 4);
-  const int col = col0 + gi * 4;
-  const int kend = min(KCW, K - kc0);
-  for (int j = threadIdx.x / (TD / 4); j < kend; j += THREADS / (TD / 4))
-    load_group(raw_v + j * RP + gi * 4, v_smp + (size_t)(kc0 + j) * D + col, D - col, vec);
-  if (with_eta && threadIdx.x < TD / 4) load_group(raw_v + KCW * RP + gi * 4, eta + col, D - col, vec);
-}
-
-// the raw chunk split into theta^T hi/lo [k][row] and v hi/lo [k][col] (zero
-// rows past K); with_eta: the tile's eta into eta_s
-__device__ __forceinline__ void split_chunk(const float* raw_th, const float* raw_v, float* th_hi,
-                                            float* th_lo, float* v_hi, float* v_lo, float* eta_s,
-                                            int kc0, int K, bool with_eta) {
-  for (int p = threadIdx.x; p < TB * (KCW / 4); p += THREADS) {
-    const int r = p / (KCW / 4), q = p % (KCW / 4);
-    const float4 x = *reinterpret_cast<const float4*>(raw_th + r * KCW + 4 * q);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t h, l;
-      split(xs[i], h, l);
-      th_hi[(4 * q + i) * TBP + r] = __uint_as_float(h);
-      th_lo[(4 * q + i) * TBP + r] = __uint_as_float(l);
-    }
-  }
-  for (int p = threadIdx.x; p < KCW * (TD / 4); p += THREADS) {
-    const int k = p / (TD / 4), c = (p % (TD / 4)) * 4;
-    const float4 x = kc0 + k < K ? *reinterpret_cast<const float4*>(raw_v + k * RP + c)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    uint32_t h[4], l[4];
-    split(x.x, h[0], l[0]);
-    split(x.y, h[1], l[1]);
-    split(x.z, h[2], l[2]);
-    split(x.w, h[3], l[3]);
-    *reinterpret_cast<uint4*>(v_hi + k * VP + c) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(v_lo + k * VP + c) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-  if (with_eta && threadIdx.x < TD) eta_s[threadIdx.x] = raw_v[KCW * RP + threadIdx.x];
-}
-
-// T[h][j] (C fragment of T's n8 tile 4h + j, rows rw..) += the chunk's
-// products over its nks k-steps, through a fresh partial per half
-__device__ __forceinline__ void decode_chunk(const float* th_hi, const float* th_lo,
-                                             const float* v_hi, const float* v_lo, int nks, int rw,
-                                             float (&T)[2][4][4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float part[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < KSW; ++ks) {
-      if (ks < nks) {
-        uint32_t ah[4], al[4];
-        load_a(th_hi, th_lo, ks, rw, ah, al);
-        const int o = (8 * ks + t) * VP + 32 * h + g;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma3(part[j], ah, al, bits(v_hi[o + 8 * j]), bits(v_hi[o + 4 * VP + 8 * j]),
-               bits(v_lo[o + 8 * j]), bits(v_lo[o + 4 * VP + 8 * j]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) T[h][j][i] += part[j][i];
-  }
-}
-
-// d = first ? x : d + x where ok
-__device__ __forceinline__ void add_to(float* p, float x, bool ok, bool first) {
-  if (ok) *p = first ? x : *p + x;
-}
-
-// dtheta (rows rw.. of the block, the chunk's latent dims) and dv (the
-// chunk's latent dims, columns 8 warp ..) of one column tile, from G in g_s
-__device__ __forceinline__ void grads_chunk(const float* th_hi, const float* th_lo,
-                                            const float* v_hi, const float* v_lo, const float* g_s,
-                                            int nks, int rw, int kc0, float* __restrict__ dth_row,
-                                            bool row_ok, bool row8_ok, int K, bool first,
-                                            float* __restrict__ dv_smp, int col0, int D,
-                                            bool pair) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float dsum[KSW][4];
-#pragma unroll
-  for (int n = 0; n < KSW; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dsum[n][i] = 0.0f;
-#pragma unroll 1
-  for (int h = 0; h < 2; ++h) {
-    float part[KSW][4];
-#pragma unroll
-    for (int n = 0; n < KSW; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) part[n][i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // G's C fragment of n8 tile 4h + j as the A fragment of a k-step
-      const int og = (rw + g) * VP + 32 * h + 8 * j + 2 * t;
-      const float2 c01 = *reinterpret_cast<const float2*>(g_s + og);
-      const float2 c23 = *reinterpret_cast<const float2*>(g_s + og + 8 * VP);
-      uint32_t a_h[4], a_l[4];
-      split(c01.x, a_h[0], a_l[0]);  // a0 (g, k = t)     = c0 (g, 2t)
-      split(c23.x, a_h[1], a_l[1]);  // a1 (g+8, k = t)   = c2 (g+8, 2t)
-      split(c01.y, a_h[2], a_l[2]);  // a2 (g, k = t+4)   = c1 (g, 2t+1)
-      split(c23.y, a_h[3], a_l[3]);  // a3 (g+8, k = t+4) = c3 (g+8, 2t+1)
-#pragma unroll
-      for (int n = 0; n < KSW; ++n) {
-        if (n < nks) {
-          const int o = (8 * n + g) * VP + 32 * h + 8 * j + 2 * t;
-          const float2 hv = *reinterpret_cast<const float2*>(v_hi + o);
-          const float2 lv = *reinterpret_cast<const float2*>(v_lo + o);
-          mma3(part[n], a_h, a_l, bits(hv.x), bits(hv.y), bits(lv.x), bits(lv.y));
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < KSW; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsum[n][i] += part[n][i];
-  }
-#pragma unroll
-  for (int n = 0; n < KSW; ++n) {
-    const int k = kc0 + 8 * n + 2 * t;
-    if (n < nks) {
-      add_to(dth_row + k, dsum[n][0], row_ok && k < K, first);
-      add_to(dth_row + k + 1, dsum[n][1], row_ok && k + 1 < K, first);
-      add_to(dth_row + 8 * K + k, dsum[n][2], row8_ok && k < K, first);
-      add_to(dth_row + 8 * K + k + 1, dsum[n][3], row8_ok && k + 1 < K, first);
-    }
-  }
-
-  const int m16 = (nks + 1) / 2;
-  float dacc[KSW / 2][4];
-#pragma unroll
-  for (int m = 0; m < KSW / 2; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dacc[m][i] = 0.0f;
-#pragma unroll 4
-  for (int kk = 0; kk < TB / 8; ++kk) {
-    const int ob = (8 * kk + t) * VP + 8 * warp + g;  // b0 = G[8 kk + t][8 warp + g]
-    uint32_t bh0, bl0, bh1, bl1;
-    split(g_s[ob], bh0, bl0);
-    split(g_s[ob + 4 * VP], bh1, bl1);
-#pragma unroll
-    for (int m = 0; m < KSW / 2; ++m) {
-      if (m < m16) {
-        const int o = (16 * m + (lane & 7) + 8 * ((lane >> 3) & 1)) * TBP + 8 * kk +
-                      4 * (lane >> 4);
-        uint32_t a_h[4], a_l[4];
-        ldsm_a(a_h, th_hi + o);
-        ldsm_a(a_l, th_lo + o);
-        mma3(dacc[m], a_h, a_l, bh0, bh1, bl0, bl1);
-      }
-    }
-  }
-  const int c = col0 + 8 * warp + 2 * t;
-#pragma unroll
-  for (int m = 0; m < KSW / 2; ++m) {
-    if (m < m16) {
-      add_pair(dv_smp, kc0 + 16 * m + g, c, K, D, pair, dacc[m][0], dacc[m][1]);
-      add_pair(dv_smp, kc0 + 16 * m + g + 8, c, K, D, pair, dacc[m][2], dacc[m][3]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
 expsum_wide_kernel(const float* __restrict__ theta, const float* __restrict__ v,
                    const float* __restrict__ eta, double* __restrict__ psum,
                    float* __restrict__ dtheta, float* __restrict__ dv, int S, int B, int K, int D,
-                   bool vec, bool vec_th, bool pair) {
+                   bool vec, bool vec_th, bool vec4) {
   extern __shared__ __align__(16) float smem[];
-  float* raw_th = smem;                     // [TB][KCW]
-  float* raw_v = raw_th + TB * KCW;         // [KCW + 1][RP]: v rows, eta
-  float* v_hi = raw_v + (KCW + 1) * RP;     // [KCW][VP]
-  float* v_lo = v_hi + KCW * VP;            // [KCW][VP]
-  float* eta_s = v_lo + KCW * VP;           // [TD]
-  float* th_hi = eta_s + TD;                // [KCW][TBP] theta^T
-  float* th_lo = th_hi + KCW * TBP;         // [KCW][TBP]
-  float* g_s = th_lo + KCW * TBP;           // [TB][VP]
+  float* eta_s = smem + W_RES;              // [TD], after the wide layouts
   __shared__ double red[WARPS];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
   const int s = blockIdx.x % S;             // samples of one row tile are adjacent
   const int r0 = (blockIdx.x / S) * TB;
   const int rw = warp * 16;                 // this warp's first row in the block
-  const float* v_smp = v + (size_t)s * K * D;
   const float* th_blk = theta + ((size_t)s * B + r0) * K;
+  const float* v_smp = v + (size_t)s * K * D;
   float* dv_smp = dv + (size_t)s * K * D;
   float* dth_row = dtheta + ((size_t)s * B + r0 + rw + g) * K;
   const bool row_ok = r0 + rw + g < B, row8_ok = r0 + rw + g + 8 < B;
-  const int KP = (K + 7) / 8 * 8;
-  const int n = (KP + KCW - 1) / KCW;       // chunks
-  const int last = 2 * n - 2;               // the last load of a column tile:
-                                            // decode 0 .. n-1, gradients n-2 .. 0
-  const auto chunk = [&](int q) { return q < n ? q : last - q; };
-  const auto nks_of = [&](int c) { return min(KSW, (KP - c * KCW) / 8); };
-
-  load_chunk_raw(raw_th, raw_v, th_blk, v_smp, eta, B - r0, 0, 0, K, D, vec, vec_th, true);
-  cp_async_commit();
+  const auto load_eta = [&](int col0) {
+    if (tid < TD / 4) load_group(eta_s + 4 * tid, eta + col0 + 4 * tid, D - col0 - 4 * tid, vec);
+  };
   double rsum = 0.0;
 
-  for (int col0 = 0; col0 < D; col0 += TD) {
-    // wait for load q of this tile, split it, request the next one
-    const auto step = [&](int q) {
-      cp_async_wait_all();
-      __syncthreads();  // the raw chunk is in; the last chunk's readers are done
-      split_chunk(raw_th, raw_v, th_hi, th_lo, v_hi, v_lo, eta_s, chunk(q) * KCW, K, q == 0);
-      __syncthreads();  // the split chunk is whole; raw is free
-      const int nq = q < last ? q + 1 : 0, ncol = q < last ? col0 : col0 + TD;
-      if (ncol < D) {
-        load_chunk_raw(raw_th, raw_v, th_blk, v_smp, eta, B - r0, chunk(nq) * KCW, ncol, K, D,
-                       vec, vec_th, nq == 0);
-        cp_async_commit();
-      }
-    };
-    float T[2][4][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) T[h][j][i] = 0.0f;
-    for (int q = 0; q < n; ++q) {
-      step(q);
-      decode_chunk(th_hi, th_lo, v_hi, v_lo, nks_of(q), rw, T);
-    }
-
-    // cells: E, its masked sum, G = E eta to shared memory (the last tile's
-    // readers of g_s are done: the barriers of the decode)
-    float tsum = 0.0f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 32 * h + 8 * j + 2 * t;
-        const float2 e = *reinterpret_cast<const float2*>(eta_s + c);
-        const bool c_ok = col0 + c < D, c1_ok = col0 + c + 1 < D;
-        const float x0 = __expf(T[h][j][0] * e.x), x1 = __expf(T[h][j][1] * e.y);
-        const float x2 = __expf(T[h][j][2] * e.x), x3 = __expf(T[h][j][3] * e.y);
-        const float m0 = row_ok && c_ok ? x0 : 0.0f, m1 = row_ok && c1_ok ? x1 : 0.0f;
-        const float m2 = row8_ok && c_ok ? x2 : 0.0f, m3 = row8_ok && c1_ok ? x3 : 0.0f;
-        tsum += (m0 + m1) + (m2 + m3);
-        const int o = (rw + g) * VP + c;
-        *reinterpret_cast<float2*>(g_s + o) = make_float2(m0 * e.x, m1 * e.y);
-        *reinterpret_cast<float2*>(g_s + o + 8 * VP) = make_float2(m2 * e.x, m3 * e.y);
-      }
-    rsum += (double)tsum;
-    __syncthreads();  // G is whole
-
-    const bool first = col0 == 0;
-    for (int q = n - 1; q <= last; ++q) {
-      if (q >= n) step(q);  // chunk n-1 is still split in place
-      const int c = chunk(q);
-      grads_chunk(th_hi, th_lo, v_hi, v_lo, g_s, nks_of(c), rw, c * KCW, dth_row, row_ok,
-                  row8_ok, K, first, dv_smp, col0, D, pair);
-    }
-  }
+  load_eta(0);
+  // the decode takes a fresh partial a chunk (split_tf32.cuh)
+  const tf32x3::WideOperands ops{smem, th_blk, v_smp, dv_smp, dth_row, B - r0, K, D,
+                                 vec, vec_th, vec4, row_ok, row8_ok};
+  tf32x3::wide_products<N, tf32x3::W_KSC>(
+      ops, [](int) {},
+      [&](int col0, float (&T)[8][4]) {
+        rsum += (double)exp_cells(T, eta_s, col0, D, row_ok, row8_ok);
+      },
+      load_eta, [](int) {});
 
   // the rate total of the block, in a fixed order
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) rsum += __shfl_down_sync(FULL, rsum, off);
-  if (lane == 0) red[warp] = rsum;
-  __syncthreads();
-  if (tid == 0) {
-    double total = 0.0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) total += red[w];
-    psum[s * (gridDim.x / S) + blockIdx.x / S] = total;
-  }
+  const double total = tf32x3::block_sum_fixed(rsum, red);
+  if (tid == 0) psum[s * (gridDim.x / S) + blockIdx.x / S] = total;
 }
 
 inline bool aligned(const void* p, uintptr_t bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
@@ -794,18 +501,19 @@ int launch(const float* theta, const float* v, const float* eta, double* psum, f
   return (int)cudaGetLastError();
 }
 
+template <int N>
 int launch_wide(const float* theta, const float* v, const float* eta, double* psum,
                 float* dtheta, float* dv, int S, int B, int K, int D, cudaStream_t stream) {
   const int smem = (int)sizeof(float) * wide_smem_floats();
-  int err = (int)cudaFuncSetAttribute(expsum_wide_kernel,
+  int err = (int)cudaFuncSetAttribute(expsum_wide_kernel<N>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
   const bool vec = D % 4 == 0 && aligned(v, 16) && aligned(eta, 16);
   const bool vec_th = K % 4 == 0 && aligned(theta, 16);
-  const bool pair = D % 2 == 0 && aligned(dv, 8);
+  const bool vec4 = D % 4 == 0 && aligned(dv, 16);
   const int blocks = S * ((B + TB - 1) / TB);
-  expsum_wide_kernel<<<blocks, THREADS, smem, stream>>>(theta, v, eta, psum, dtheta, dv, S, B, K,
-                                                        D, vec, vec_th, pair);
+  expsum_wide_kernel<N><<<blocks, THREADS, smem, stream>>>(theta, v, eta, psum, dtheta, dv, S, B,
+                                                           K, D, vec, vec_th, vec4);
   return (int)cudaGetLastError();
 }
 
@@ -841,7 +549,13 @@ extern "C" int poisson_expsum(const float* theta, const float* v, const float* e
                               double* psum, float* dtheta, float* dv, int S, int B, int K,
                               int D, void* stream) {
   cudaStream_t cs = (cudaStream_t)stream;
-  if (K > 8 * KS_MAX) return launch_wide(theta, v, eta, psum, dtheta, dv, S, B, K, D, cs);
+  if (K > 8 * KS_MAX) {
+    switch (padded_kc(K) / W_KC) {  // chunks: on chip to W_NRES, streamed past that
+      case 3: return launch_wide<3>(theta, v, eta, psum, dtheta, dv, S, B, K, D, cs);
+      case 4: return launch_wide<4>(theta, v, eta, psum, dtheta, dv, S, B, K, D, cs);
+      default: return launch_wide<0>(theta, v, eta, psum, dtheta, dv, S, B, K, D, cs);
+    }
+  }
   switch ((K + 7) / 8) {
     case 1: return launch<1>(theta, v, eta, psum, dtheta, dv, S, B, K, D, cs);
     case 2: return launch<2>(theta, v, eta, psum, dtheta, dv, S, B, K, D, cs);
@@ -867,8 +581,14 @@ extern "C" int expsum_smem_bytes(int K) {
 // blocks an SM (the occupancy API's) of the instance for latent dimension K,
 // into info[0..3]; past K = 64 the wide kernel's.
 extern "C" int expsum_kernel_info(int K, int* info) {
-  if (K > 8 * KS_MAX)
-    return kernel_info(expsum_wide_kernel, (int)sizeof(float) * wide_smem_floats(), info);
+  if (K > 8 * KS_MAX) {
+    const int smem = (int)sizeof(float) * wide_smem_floats();
+    switch (padded_kc(K) / W_KC) {
+      case 3: return kernel_info(expsum_wide_kernel<3>, smem, info);
+      case 4: return kernel_info(expsum_wide_kernel<4>, smem, info);
+      default: return kernel_info(expsum_wide_kernel<0>, smem, info);
+    }
+  }
   switch ((K + 7) / 8) {
     case 1: return kernel_info<1>(info);
     case 2: return kernel_info<2>(info);

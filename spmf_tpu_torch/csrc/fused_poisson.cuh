@@ -10,6 +10,7 @@
 #include <stdint.h>
 
 #include "fast_math.cuh"  // div_normal
+#include "split_tf32.cuh"  // the wide K1/K2's layout
 
 namespace {
 
@@ -138,23 +139,12 @@ __device__ __forceinline__ float cell_ll(float x, float rate, float code, float 
 }
 
 // ------------------------------------------------------ asynchronous loads
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+// (csrc/split_tf32.cuh's, shared with K5 and the wide kernels' design)
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait_all;
+using tf32x3::load_group;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -162,23 +152,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// Four neighbouring floats of a global row into dst, of which the row still
-// holds `left` (zeros for the others). vec: rows start on 16 bytes (D % 4 ==
-// 0, aligned base), so a group is all in or all out; else float by float.
-__device__ __forceinline__ void load_group(float* dst, const float* __restrict__ src, int left,
-                                           bool vec) {
-  if (vec) {
-    if (left > 0) cp_async16(dst, src);
-    else st4(dst, 0.0f, 0.0f, 0.0f, 0.0f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i < left) cp_async4(dst + i, src + i);
-      else dst[i] = 0.0f;
-    }
-  }
 }
 
 // x tile [TB][TD] at rows r0.., columns col0.., zeros past row B and column D:
@@ -409,16 +382,16 @@ constexpr int row_ll_smem_floats(int KP) {
 }
 
 // ------------------------------------------------------- the wide kernels
-// (csrc/fused_poisson_wide.cu) walk the latent dimension in chunks of KC:
-// a stage holds theta's rows of the block at KC latent dimensions [TB][KC]
-// and the v tile's KC rows [KC][TP]; two stages. K1/K2: the ring, the x
-// and dtv tiles, the eta / phi / codes lanes, dphi and the table; K4: the
-// ring, two stages of the x tile and the lanes, and the table. Both fit two
-// blocks an SM, whatever K.
+// (csrc/fused_poisson_wide.cu). K4 walks the latent dimension in chunks of
+// KC: a stage holds theta's rows of the block at KC latent dimensions
+// [TB][KC] and the v tile's KC rows [KC][TP]; two stages, two of the x tile
+// and the lanes, and the table: two blocks an SM, whatever K. K1/K2 take
+// csrc/split_tf32.cuh's shared memory, the eta / phi / codes lanes, a row
+// of dphi a warp and the table: one block an SM, whatever K.
 constexpr int KC = 28;
 constexpr int STAGE = TB * KC + KC * TP;
 constexpr int stats_wide_smem_floats() {
-  return 2 * STAGE + TB * TD + TB * TP + NLANE * TD + TD + TABLE_N;
+  return tf32x3::W_RES + NLANE * TD + (THREADS / 32) * TD + TABLE_N;
 }
 constexpr int row_ll_wide_smem_floats() { return 2 * STAGE + 2 * (TB * TD + NLANE * TD) + TABLE_N; }
 

@@ -2,46 +2,35 @@
 // csrc/fused_poisson.cu (K1/K2: padded K > 124, K4: > 152). They replace the
 // same TPU kernels (spmf_tpu/ops/fused_poisson.py::_stats_grad_kernel,
 // ::_sum_static_grad_kernel and ::_row_ll_kernel), which put the whole
-// latent dimension in one block and set no limit on it. The tiling, the cells
-// and the outputs are those of fused_poisson.cu: one block owns (row tile of
-// TB = 128 rows, sample s) and loops over the column tiles of TD = 64; only
-// the K-deep products are cut.
+// latent dimension in one block and set no limit on it. The cells and the
+// outputs are those of fused_poisson.cu; one block owns (row tile of TB =
+// 128 rows, sample s) and loops over the column tiles of TD = 64. The decode
+// tv = theta . v needs the whole of K before any cell can be scored, so a
+// block walks K in chunks inside each column tile and never launches per
+// chunk.
 //
-// The decode tv = theta . v needs the whole of K before any cell can be
-// scored, so a block walks K in chunks of KC = 28 inside each column tile and
-// never launches per chunk. A chunk is theta's TB rows at KC latent
-// dimensions, row-major [TB][KC], and the v tile's KC rows [KC][TP]; the ring
-// holds two, and cp.async brings the next while the block computes on the
-// current one. Per column tile:
-//   decode  chunks 0 .. n-1: acc (8 rows x 4 columns a thread, registers) +=
-//           theta_c . v_c, k ascending as in the whole-K kernel; per 4 k one
-//           float4 of theta for each of the thread's 8 rows and one of v for
-//           each k: 12 loads for 128 multiply-adds;
-//   cells   K1: the cells of fused_poisson.cuh's stats_cells (dtv in place in
-//           the dtv tile); K4: row_ll_cells from the registers;
-//   grads   (K1) chunks n-1 .. 0, the last decode chunk still in its stage:
-//           dtheta[r][k] += sum_c dtv[r][c] v[k][c] and dv[k][c] +=
-//           sum_r theta[r][k] dtv[r][c], the whole-K kernel's two products
-//           cut to the chunk's latent dimensions.
-// dtheta no longer fits shared memory (TB x K floats: 256 KB at K = 512), so
-// it accumulates in device memory. A block owns its (sample, row tile) over
-// every column tile (launch_geometry's block()), so each element has one
-// owner thread: plain loads and stores, no atomics; the first column tile
-// stores. That costs each tile a read and a write of the block's dtheta rows
-// (2 x 4 TB K bytes: 128 KB at K = 128, from L2, where the S x B x K
-// gradient, 16.8 MB at S = 8, B = 4096, K = 128, stays), and the theta chunks
-// are read again in every column tile: 2n - 1 chunk loads a tile for K1, n
-// for K4. The other way, looping the column tiles once per chunk, recomputes
-// the decode n times. dv keeps its float4 atomics, one per (chunk, column
-// tile) and element. K4 keeps its double per row owned by one thread: the
-// same bits on every launch.
+// K1/K2 run the three K-deep products (decode, dtheta, dv: 6 S B D K flops,
+// 503 GFLOP at S=8, B=4096, D=20000, K=128) on the tensor cores in three
+// split-TF32 passes, in csrc/split_tf32.cuh's design (K5's wide kernel is
+// the same): to padded K = 128 theta, the tile's split v and dtheta stay on
+// chip, past that the chunks stream and dtheta accumulates in device memory
+// by its owner thread; dv by atomics. Their bound falls from 7.54 ms on the
+// FP32 pipes to 3.05 ms (three passes at 494.7 TFLOP/s). One block an SM;
+// the link and the clip are run-time flags (an instance per likelihood and
+// per route, 10 in all, where the whole-K kernel has 20).
 //
-// Occupancy: K1/K2 take 112,768 bytes of dynamic shared memory (the ring
-// 43,904, the x tile 32,768, the dtv tile 34,816, the lanes 768, dphi and
-// the table 512) and K4 111,232 (the ring, two stages of the x tile and the
-// lanes, the table), whatever K: two blocks an SM, and __launch_bounds__(256,
-// 2) holds them to 128 registers (chip_smoke.py fails on a spill). KC = 28 is
-// the widest chunk with which K1/K2 keep two blocks an SM.
+// K4 decodes on the FP32 pipes in chunks of KC = 28 latent dimensions: a
+// chunk is theta's TB rows at KC latent dimensions, row-major [TB][KC], and
+// the v tile's KC rows [KC][TP]; the ring holds two, and cp.async brings the
+// next while the block computes on the current one. Per column tile: acc (8
+// rows x 4 columns a thread, registers) += theta_c . v_c, k ascending as in
+// the whole-K kernel; per 4 k one float4 of theta for each of the thread's 8
+// rows and one of v for each k: 12 loads for 128 multiply-adds; then
+// row_ll_cells from the registers, a double per row owned by one thread: the
+// same bits on every launch. 111,232 bytes of dynamic shared memory (the
+// ring, two stages of the x tile and the lanes, the table), whatever K: two
+// blocks an SM, and __launch_bounds__(256, 2) holds it to 128 registers
+// (chip_smoke.py fails on a spill).
 #include "fused_poisson.cuh"
 
 namespace {
@@ -110,208 +99,211 @@ __device__ __forceinline__ void decode_chunk(const float* th, const float* vc, i
   }
 }
 
-// dtheta[r][kc0 + k] += sum_c dtv[r][c] v[k][c] for the chunk's kw latent
-// dimensions. Work item m = rq (kw / 4) + kq takes rows rq + 32 i and
-// latent dimensions kq + (kw / 4) j, as the whole-K kernel's add_dtheta_tile
-// (neighbouring lanes read neighbouring v rows); dth_blk is the block's first
-// row of dtheta, rows its rows that lie inside B. first: store, else add.
-__device__ __forceinline__ void add_dtheta_chunk(const float* t_s, const float* vc, int kw,
-                                                 float* __restrict__ dth_blk, int kc0, int rows,
-                                                 int K, bool first) {
-  const int nkq = kw / 4;
-  const int items = (TB / 4) * nkq;
-  for (int m = threadIdx.x; m < items; m += THREADS) {
-    const int kq = m % nkq, rq = m / nkq;
-    const float* a = t_s + rq * TP;
-    const float* b = vc + kq * TP;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 2
-    for (int c = 0; c < TD; c += 4) {
-      float4 d[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = ld4(a + i * (TB / 4) * TP + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = ld4(b + j * nkq * TP + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(d[i].x, w[j].x, acc[i][j]);
-          acc[i][j] = fmaf(d[i].y, w[j].y, acc[i][j]);
-          acc[i][j] = fmaf(d[i].z, w[j].z, acc[i][j]);
-          acc[i][j] = fmaf(d[i].w, w[j].w, acc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rq + (TB / 4) * i;
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = kc0 + kq + nkq * j;
-        if (k < K) {
-          float* o = dth_blk + (size_t)r * K + k;
-          *o = first ? acc[i][j] : *o + acc[i][j];
-        }
-      }
-    }
-  }
-}
-
-// dv_s[kc0 + k][col0 + c] += sum_r theta[r][kc0 + k] dtv[r][c]: the whole-K
-// kernel's add_dv_tile on the chunk, theta read row-major (per 4 rows a
-// float4 of 4 latent dimensions from each row)
-__device__ __forceinline__ void add_dv_chunk(const float* th, const float* t_s,
-                                             float* __restrict__ dv_s, int kc0, int kw, int col0,
-                                             int K, int D, bool vec) {
-  const int lane = threadIdx.x & 31;
-  const int cq = lane % TX, rh = lane / TX;
-  for (int kq = threadIdx.x / 32; kq < kw / 4; kq += THREADS / 32) {
-    const float* a = th + rh * (TB / 2) * KC + kq * 4;
-    const float* b = t_s + rh * (TB / 2) * TP + cq * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
-#pragma unroll 2
-    for (int r = 0; r < TB / 2; r += 4) {
-      float4 tr[4], d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) tr[i] = ld4(a + (r + i) * KC);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = ld4(b + (r + i) * TP);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float t = comp(tr[i], j);
-          acc[j][0] = fmaf(t, d[i].x, acc[j][0]);
-          acc[j][1] = fmaf(t, d[i].y, acc[j][1]);
-          acc[j][2] = fmaf(t, d[i].z, acc[j][2]);
-          acc[j][3] = fmaf(t, d[i].w, acc[j][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][c] += __shfl_xor_sync(FULL, acc[j][c], TX);
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int k = kc0 + kq * 4 + rh * 2 + jj;
-      const float o0 = rh ? acc[2 + jj][0] : acc[jj][0];
-      const float o1 = rh ? acc[2 + jj][1] : acc[jj][1];
-      const float o2 = rh ? acc[2 + jj][2] : acc[jj][2];
-      const float o3 = rh ? acc[2 + jj][3] : acc[jj][3];
-      if (k < K) atomic_add4(dv_s + (size_t)k * D, col0 + cq * 4, D, vec, o0, o1, o2, o3);
-    }
-  }
-}
-
 // ------------------------------------------------------------- K1 / K2
-// The loads of a column tile, in ring order: q = 0 .. n-1 the decode's
-// chunks, q = n .. 2n-2 the gradients' chunks n-2 .. 0 (chunk n-1 is the
-// last decode chunk, still in its stage). After the tile's last load comes
-// the next tile's first.
-__device__ __forceinline__ int stats_chunk(int q, int n) { return q < n ? q : 2 * n - 2 - q; }
+// csrc/split_tf32.cuh's design (shared with K5's wide kernel): to padded K
+// = 128 (N = 4 chunks) theta, the tile's split v and dtheta (in registers,
+// written once) stay on chip; past that (N = 0) the chunks stream and
+// dtheta accumulates in device memory by its owner thread. The three
+// products run on the tensor cores in three TF32 passes; dv by float4
+// atomics. The cells between decode and gradients are fused_poisson.cuh's,
+// on the warp's C fragments: each thread stages its decode sums in its own
+// cells of the G tile, whose lo half holds the tile's counts x until the
+// split (requested at the tile's top, under the decode), scores its 32
+// cells there and splits dtv once; the tile's d/d(phi) is summed over the
+// warp's rows by shuffles into the warp's row, over the warps in a fixed
+// order.
+using tf32x3::W_G;
+using tf32x3::W_GP;
+using tf32x3::W_NRES;
+using tf32x3::W_RES;
 
-template <int LIK, bool LOG, bool STATIC>
-__global__ void __launch_bounds__(THREADS, 2)
-stats_wide_kernel(const CellArgs a, double* __restrict__ psum, int* __restrict__ pcnt,
-                  float* __restrict__ pmin, float* __restrict__ dtheta, float* __restrict__ dv,
-                  float* __restrict__ dphi) {
+// the counts x of the warp's 16 rows of the block at columns col0 ..
+// col0 + 63 into x_s [TB][GP] (rows rw ..), by the warp's own lanes (so a
+// __syncwarp after the wait makes them the warp's); zeros past row B and D
+__device__ __forceinline__ void load_x_rows(float* x_s, const float* __restrict__ x, int r0,
+                                            int rw, int col0, int B, int D, bool vec) {
+  for (int p = threadIdx.x & 31; p < 16 * TX; p += 32) {
+    const int r = rw + p / TX, gi = p % TX, col = col0 + 4 * gi;
+    float* dst = x_s + r * W_GP + 4 * gi;
+    if (r0 + r < B) load_group(dst, x + (size_t)(r0 + r) * D + col, D - col, vec);
+    else st4(dst, 0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// This thread's cells of the tile: rows rw + g and rw + g + 8 of the block,
+// columns 8j + 2t and 8j + 2t + 1 for j = 0..7, their decode sums in t_s
+// [TB][GP] (staged by this thread) and replaced there by dtv, their counts
+// in x_s [TB][GP]; the clipped sum, count and minimum into lsum / lcnt /
+// lmin, the warp's d/d(phi) of the tile into its row dphi_w [TD]. The
+// per-cell arithmetic is stats_cells', the link (lg) and the clip (st)
+// chosen at run time: a branch the whole block takes alike, where the
+// whole-K kernel has an instance each. A rolled loop, as there, keeps the
+// code small.
+template <int LIK>
+__device__ __forceinline__ void stats_cells_frag(const CellArgs& a, bool lg, bool st, float* t_s,
+                                                 const float* x_s, const float* lane_s,
+                                                 const float* tab_s, float* dphi_w, int r0,
+                                                 int rw, int col0, double& lsum, int& lcnt,
+                                                 float& lmin) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float tsum = 0.0f;  // this thread's 32 cells; the double sum takes it whole
+#pragma unroll 1
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 eta2 = *reinterpret_cast<const float2*>(lane_s + c);
+    const float2 phi2 = *reinterpret_cast<const float2*>(lane_s + TD + c);
+    const float2 code2 = *reinterpret_cast<const float2*>(lane_s + 2 * TD + c);
+    float drs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rw + g + 8 * rr;
+      const bool row_ok = r0 + r < a.B;
+      float* tp = t_s + r * W_GP + c;
+      const float2 tv2 = *reinterpret_cast<const float2*>(tp);
+      const float2 x2 = *reinterpret_cast<const float2*>(x_s + r * W_GP + c);
+      float dtv[2];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const float tv = cc ? tv2.y : tv2.x, xv = cc ? x2.y : x2.x;
+        const float eta = cc ? eta2.y : eta2.x, phi = cc ? phi2.y : phi2.x;
+        const float code = cc ? code2.y : code2.x;
+        const bool inb = row_ok && col0 + c + cc < a.D;
+        float ev;
+        const float rate = lg ? decode_rate<true>(tv, eta, phi, ev)
+                              : decode_rate<false>(tv, eta, phi, ev);
+        const float lgx = HAS_POISSON<LIK> ? lgamma_xp1(xv, tab_s) : 0.0f;
+        float dll;
+        const float ll = cell_ll<LIK>(xv, rate, code, a.inv_scale, a.norm_const, lgx, dll);
+        const bool finite = fabsf(ll) <= FLT_MAX;  // false for inf and NaN
+        const bool keep = finite && ll > FLOOR;
+        const bool active = inb && keep && ll < 0.0f;
+        const float drate = active ? dll : 0.0f;
+        // mask after the product: padded cells must contribute exact zeros
+        dtv[cc] = active ? drate * (lg ? ev * eta : eta) : 0.0f;
+        drs[cc] += drate;
+        if (inb) {
+          if (st) {
+            tsum += keep ? fminf(ll, 0.0f) : FLOOR;
+          } else {
+            if (finite) lmin = fminf(lmin, ll);
+            if (keep) tsum += fminf(ll, 0.0f);
+            else ++lcnt;
+          }
+        }
+      }
+      *reinterpret_cast<float2*>(tp) = make_float2(dtv[0], dtv[1]);
+    }
+    // d/d(phi) of the column pair over the warp's 16 rows: the 8 lanes of t
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      float d = drs[cc];
+      d += __shfl_xor_sync(FULL, d, 4);
+      d += __shfl_xor_sync(FULL, d, 8);
+      d += __shfl_xor_sync(FULL, d, 16);
+      if (g == 0) dphi_w[c + cc] = d;
+    }
+  }
+  lsum += (double)tsum;
+}
+
+template <int N, int LIK>
+__global__ void __launch_bounds__(THREADS, 1)
+stats_wide_kernel(const CellArgs a, bool lg, bool st, double* __restrict__ psum,
+                  int* __restrict__ pcnt, float* __restrict__ pmin, float* __restrict__ dtheta,
+                  float* __restrict__ dv, float* __restrict__ dphi) {
   extern __shared__ __align__(16) float smem[];
-  const int K = a.K, KP = a.KP, B = a.B, D = a.D;
-  float* ring = smem;                       // 2 x STAGE: theta [TB][KC], v [KC][TP]
-  float* x_s = ring + 2 * STAGE;            // [TB][TD]  x tile
-  float* t_s = x_s + TB * TD;               // [TB][TP]  tv, then d(sum)/d(theta.v)
-  float* lane_s = t_s + TB * TP;            // [NLANE][TD] eta, phi, codes
-  float* dphi_s = lane_s + NLANE * TD;      // [TD]
-  float* tab_s = dphi_s + TD;               // [TABLE_N]
+  float* g_s = smem + W_RES - W_G;          // [TB][GP] hi, lo (lo: x before the split)
+  float* x_s = g_s + TB * W_GP;
+  float* lane_s = smem + W_RES;             // [NLANE][TD] eta, phi, codes
+  float* dphi_w = lane_s + NLANE * TD;      // [WARPS][TD] each warp's d/d(phi)
+  float* tab_s = dphi_w + (THREADS / 32) * TD;  // [TABLE_N]
+  __shared__ double red_sum[THREADS / 32];
+  __shared__ int red_cnt[THREADS / 32];
+  __shared__ float red_min[THREADS / 32];
 
+  const int K = a.K, B = a.B, D = a.D;
   const int s = blockIdx.x % a.S;           // samples of one row tile are adjacent
   const int r0 = (blockIdx.x / a.S) * TB;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int rw = warp * 16;                 // this warp's first row in the block
+  const float* th_blk = a.theta + ((size_t)s * B + r0) * K;
   const float* v_smp = a.v + (size_t)s * K * D;
   const float* phi_smp = a.phi + (size_t)s * D;
   float* dv_smp = dv + (size_t)s * K * D;
-  float* dth_blk = dtheta + ((size_t)s * B + r0) * K;
-  const int n = (KP + KC - 1) / KC;         // chunks
-  const int last = 2 * n - 2;               // the last load of a tile
-
-  load_x_tile(x_s, a.x, r0, 0, B, D, a.vec);
-  load_lanes(lane_s, a, phi_smp, 0);
-  load_chunk(ring, a, s, r0, v_smp, 0, 0);
-  cp_async_commit();
-  if (tid < TD) dphi_s[tid] = 0.0f;
-  if (HAS_POISSON<LIK> && tid < TABLE_N) tab_s[tid] = a.lgtab[tid];
-
+  float* dth_row = dtheta + ((size_t)s * B + r0 + rw + g) * K;
+  const bool row_ok = r0 + rw + g < B, row8_ok = r0 + rw + g + 8 < B;
+  // the tile's d/d(phi) out to device memory, the warps' rows summed in a
+  // fixed order (every warp's cells are done)
+  const auto flush_dphi = [&](int col0) {
+    if (tid < TX) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) {
+        const float4 e = ld4(dphi_w + w * TD + 4 * tid);
+        d[0] += e.x, d[1] += e.y, d[2] += e.z, d[3] += e.w;
+      }
+      atomic_add4(dphi + (size_t)s * D, col0 + 4 * tid, D, a.vec, d[0], d[1], d[2], d[3]);
+    }
+  };
+  // the cells of the warp's tile: T staged in its own cells of g_s, its
+  // counts (requested into g_s's lo half) waited for, dtv back in T
   double lsum = 0.0;
   int lcnt = 0;
   float lmin = 0.0f;
-  int stage = 0;  // the stage of the chunk being computed on
+  const auto cells = [&](int col0, float (&T)[8][4]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = (rw + g) * W_GP + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(g_s + o) = make_float2(T[j][0], T[j][1]);
+      *reinterpret_cast<float2*>(g_s + o + 8 * W_GP) = make_float2(T[j][2], T[j][3]);
+    }
+    cp_async_wait_all();
+    __syncwarp();
+    stats_cells_frag<LIK>(a, lg, st, g_s, x_s, lane_s, tab_s, dphi_w + warp * TD, r0, rw, col0,
+                          lsum, lcnt, lmin);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int o = (rw + g) * W_GP + 8 * j + 2 * t;
+      const float2 u = *reinterpret_cast<const float2*>(g_s + o);
+      const float2 w = *reinterpret_cast<const float2*>(g_s + o + 8 * W_GP);
+      T[j][0] = u.x, T[j][1] = u.y, T[j][2] = w.x, T[j][3] = w.y;
+    }
+  };
 
-  for (int col0 = 0; col0 < D; col0 += TD) {
-    // request the load after load q of this tile into the other stage
-    auto request_after = [&](int q) {
-      const int nq = q < last ? q + 1 : 0, ncol = q < last ? col0 : col0 + TD;
-      if (ncol < D) {
-        load_chunk(ring + (stage ^ 1) * STAGE, a, s, r0, v_smp, stats_chunk(nq, n) * KC, ncol);
-        cp_async_commit();
-      }
-    };
-    float acc[RI][4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int q = 0; q < n; ++q) {
-      cp_async_wait_all();
-      __syncthreads();  // chunk q is in; the other stage's readers are done
-      request_after(q);
-      decode_chunk(ring + stage * STAGE, ring + stage * STAGE + TB * KC, min(KC, KP - q * KC), tx,
-                   ty, acc);
-      if (q < n - 1) stage ^= 1;
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-      st4(t_s + tile_row(ty, i) * TP + tx * 4, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    stats_cells<LIK, LOG, STATIC>(a, t_s, x_s, lane_s, lane_s + TD, lane_s + 2 * TD, tab_s,
-                                  dphi_s, r0, col0, lsum, lcnt, lmin);
-    __syncthreads();  // dtv and dphi_s are whole; x_s and lane_s are free
-    if (col0 + TD < D) {
-      load_x_tile(x_s, a.x, r0, col0 + TD, B, D, a.vec);
-      load_lanes(lane_s, a, phi_smp, col0 + TD);
-      cp_async_commit();
-    }
-    if (tid < TX) {
-      const float4 d = ld4(dphi_s + tid * 4);
-      atomic_add4(dphi + (size_t)s * D, col0 + tid * 4, D, a.vec, d.x, d.y, d.z, d.w);
-      st4(dphi_s + tid * 4, 0.0f, 0.0f, 0.0f, 0.0f);
-    }
+  load_lanes(lane_s, a, phi_smp, 0);
+  if (HAS_POISSON<LIK> && tid < TABLE_N) tab_s[tid] = a.lgtab[tid];
+  // the decode takes a fresh partial every k-step (split_tf32.cuh)
+  const tf32x3::WideOperands ops{smem, th_blk, v_smp, dv_smp, dth_row, B - r0, K, D,
+                                 a.vec, a.vec_theta, a.vec, row_ok, row8_ok};
+  tf32x3::wide_products<N, 1>(
+      ops, [&](int col0) { load_x_rows(x_s, a.x, r0, rw, col0, B, D, a.vec); }, cells,
+      [&](int col1) { load_lanes(lane_s, a, phi_smp, col1); }, flush_dphi);
 
-    const bool first = col0 == 0;
-    for (int q = n - 1; q <= last; ++q) {
-      if (q >= n) {
-        cp_async_wait_all();
-        __syncthreads();  // chunk stats_chunk(q) is in; the last chunk's readers are done
-        stage ^= 1;
-        request_after(q);
-      }
-      const int kc0 = stats_chunk(q, n) * KC, kw = min(KC, KP - kc0);
-      const float* th = ring + stage * STAGE;
-      add_dtheta_chunk(t_s, th + TB * KC, kw, dth_blk, kc0, B - r0, K, first);
-      add_dv_chunk(th, t_s, dv_smp, kc0, kw, col0, K, D, a.vec);
-    }
-    stage ^= 1;  // the next tile's first chunk
+  // the block's partials of the per-sample statistics: psum, pcnt and pmin
+  // at [sample][row tile], the sum in a fixed order
+  lcnt = warp_sum(lcnt);
+  lmin = warp_min(lmin);
+  if ((tid & 31) == 0) {
+    red_cnt[warp] = lcnt;
+    red_min[warp] = lmin;
   }
-  write_block_stats<STATIC>(a.S, lsum, lcnt, lmin, psum, pcnt, pmin);
+  const double total = tf32x3::block_sum_fixed(lsum, red_sum);  // synchronises
+  if (tid == 0) {
+    const int out = s * (gridDim.x / a.S) + blockIdx.x / a.S;
+    psum[out] = total;
+    if (!st) {
+      int cnt = 0;
+      float mn = 0.0f;
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) {
+        cnt += red_cnt[w];
+        mn = fminf(mn, red_min[w]);
+      }
+      pcnt[out] = cnt;
+      pmin[out] = mn;
+    }
+  }
 }
 
 // ------------------------------------------------------------------ K4
@@ -371,26 +363,26 @@ row_ll_wide_kernel(const CellArgs a, float* __restrict__ out) {
 }
 
 // ------------------------------------------------------------ launches
-template <int LIK, bool LOG, bool STATIC>
-int launch_stats_wide(const CellArgs& a, const StatsOut& o, cudaStream_t stream) {
+template <int N, int LIK>
+int launch_stats_wide(const CellArgs& a, bool lg, bool st, const StatsOut& o,
+                      cudaStream_t stream) {
   const int smem = (int)sizeof(float) * stats_wide_smem_floats();
-  const int err = prepare(stats_wide_kernel<LIK, LOG, STATIC>, smem);
+  const int err = prepare(stats_wide_kernel<N, LIK>, smem);
   if (err != 0) return err;
   const int blocks = a.S * ((a.B + TB - 1) / TB);
-  stats_wide_kernel<LIK, LOG, STATIC><<<blocks, THREADS, smem, stream>>>(
-      a, o.psum, o.pcnt, o.pmin, o.dtheta, o.dv, o.dphi);
+  stats_wide_kernel<N, LIK><<<blocks, THREADS, smem, stream>>>(a, lg, st, o.psum, o.pcnt, o.pmin,
+                                                               o.dtheta, o.dv, o.dphi);
   return (int)cudaGetLastError();
 }
 
+// K1/K2 past their whole-K tiles (padded K >= 128): on chip at 4 chunks,
+// streamed past that
 template <int LIK>
 int stats_wide_by_flags(const CellArgs& a, bool lg, bool st, const StatsOut& o,
                         cudaStream_t stream) {
-  if (lg) {
-    return st ? launch_stats_wide<LIK, true, true>(a, o, stream)
-              : launch_stats_wide<LIK, true, false>(a, o, stream);
-  }
-  return st ? launch_stats_wide<LIK, false, true>(a, o, stream)
-            : launch_stats_wide<LIK, false, false>(a, o, stream);
+  return tf32x3::padded_kc(a.K) / tf32x3::W_KC == W_NRES
+             ? launch_stats_wide<W_NRES, LIK>(a, lg, st, o, stream)
+             : launch_stats_wide<0, LIK>(a, lg, st, o, stream);
 }
 
 template <int LIK, bool LOG>
@@ -465,12 +457,13 @@ extern "C" int poisson_row_ll_wide(const float* theta, const float* v,
 }
 
 // Registers a thread, static and dynamic shared memory a block and resident
-// blocks an SM of the Poisson identity-link instance of the wide K1 (kind 0)
-// or K4 (kind 1), into info[0..3]; their shared memory does not depend on K.
+// blocks an SM of the Poisson identity-link instance of the wide K1 (kind 0;
+// its instance at padded K = 128) or K4 (kind 1), into info[0..3]; their
+// shared memory does not depend on K.
 extern "C" int poisson_wide_kernel_info(int kind, int* info) {
   return kind == 1
              ? kernel_info(row_ll_wide_kernel<LIK_POISSON, false>,
                            (int)sizeof(float) * row_ll_wide_smem_floats(), info)
-             : kernel_info(stats_wide_kernel<LIK_POISSON, false, false>,
+             : kernel_info(stats_wide_kernel<W_NRES, LIK_POISSON>,
                            (int)sizeof(float) * stats_wide_smem_floats(), info);
 }

@@ -303,14 +303,23 @@ _EXPSUM_SIGNATURES = {"poisson_expsum": [_P] * 6 + [_I] * 4 + [_P],
 # libraries' poisson_smem_bytes and expsum_smem_bytes).
 _THREADS, _TB, _TD, _K_STEP = 256, 128, 64, 4
 _TBP, _TP, _NLANE, _TABLE_N = _TB + 4, _TD + 4, 3, 64
-# the wide K1/K2 and K4: chunks of KC latent dimensions, two stages of
-# theta's rows [TB][KC] and v's rows [KC][TP]
+# the wide K4: chunks of KC latent dimensions, two stages of theta's rows
+# [TB][KC] and v's rows [KC][TP]
 _KC = 28
 _STAGE = _TB * _KC + _KC * _TP
 # K5: k-steps of 8 (mma.m16n8k8), an instance per k-step to K = 64 (its
-# dtheta sums live in registers), past that chunks of 32; v and G tiles at
-# pitch 72, two blocks an SM to K = 32 and in the wide kernel
-_EXPSUM_K_STEP, _EXPSUM_K_MAX, _EXPSUM_KC, _VP = 8, 64, 32, _TD + 8
+# dtheta sums live in registers); v and G tiles at pitch 72, two blocks an
+# SM to K = 32
+_EXPSUM_K_STEP, _EXPSUM_K_MAX, _VP = 8, 64, _TD + 8
+# the wide K1/K2 and K5 (csrc/split_tf32.cuh): chunks of 32 latent
+# dimensions; one size of shared memory, the larger of the layout that keeps
+# everything on chip to padded K = 128 (theta [128][132], the tile's split
+# v [2][128][72], two raw v stages [32][64], split G [2][128][68]) and the
+# streaming one past it; then K1/K2's lanes, dphi rows and table, or K5's
+# eta
+_W_KC = 32
+_W_RES = (_TB * (4 * _W_KC + 4) + 2 * 4 * _W_KC * (_TD + 8) + 2 * _W_KC * _TD
+          + 2 * _TB * (_TD + 4))
 _STATIC_SMEM = {"stats": 128, "expsum": 8 * 8, "row_ll": 8 * _TB}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 _SMEM_PER_SM = 233472       # ... and an SM holds, each block reserving 1 KB
@@ -368,19 +377,17 @@ def launch_geometry(kind, S, B, K, D):
     elif kind == "stats":  # theta^T, dtheta, v, x, dtv, dphi, the table
         floats = (kp * _TBP + _TB * kp + v_tile + _TB * _TD + _TB * _TP
                   + _TD + _TABLE_N)
-        # wide: the chunk ring, x, dtv, the lanes, dphi, the table
-        wide = (2 * _STAGE + _TB * _TD + _TB * _TP + _NLANE * _TD + _TD
-                + _TABLE_N)
-        stages, wide_chunk = 1, _KC
+        # wide: the split-TF32 layout, the lanes, a row of dphi a warp, the
+        # table
+        wide = _W_RES + _NLANE * _TD + (_THREADS // 32) * _TD + _TABLE_N
+        stages, wide_chunk = 1, _W_KC
     else:   # the raw v tile with eta, v hi/lo, eta, theta^T hi/lo, G
         kp16 = -(-kp // 16) * 16
         floats = ((kp + 1) * _TD + 2 * kp * _VP + _TD + 2 * kp16 * _TBP
                   + _TB * _VP)
-        # wide: raw theta and v chunks, their hi/lo, eta, G
-        c = _EXPSUM_KC
-        wide = (_TB * c + (c + 1) * _TD + 2 * c * _VP + _TD
-                + 2 * c * _TBP + _TB * _VP)
-        stages, wide_chunk = 2, c
+        # wide: the split-TF32 layout, eta
+        wide = _W_RES + _TD
+        stages, wide_chunk = 2, _W_KC
     fits = (kp <= _EXPSUM_K_MAX if kind == "expsum"
             else 4 * floats + static <= _SMEM_LIMIT)
     chunk = kp if fits else wide_chunk

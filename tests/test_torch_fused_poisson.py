@@ -209,9 +209,13 @@ WHOLE_K_LIMIT = {"stats": 124, "row_ll": 152, "expsum": 64}
 @pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
 @pytest.mark.parametrize("K", WIDE_K)
 def test_launch_geometry_past_the_whole_k_tiles(K, kind):
-    """Every K gets a geometry that fits a Hopper block's shared memory
-    (two blocks an SM past the whole-K tiles), whose chunks cover the padded
-    latent dimension, and whose blocks own every (sample, row) once."""
+    """Every K gets a geometry that fits a Hopper block's shared memory,
+    whose chunks cover the padded latent dimension, and whose blocks own
+    every (sample, row) once. Past the whole-K tiles: the wide K4 takes two
+    stages of 28 latent dimensions and two blocks an SM; the split-TF32 wide
+    K1/K2 and K5 take chunks of 32 (four mma k-steps), two stages of them
+    when they stream (padded K > 128), and one block an SM (231,552 and
+    228,672 bytes of the SM's 233,472 with the 1 KB each block reserves)."""
     S, B, D = 2, 1000, 19997
     g = tfp.launch_geometry(kind, S, B, K, D)
     assert g.k_padded % g.k_step == 0 and K <= g.k_padded < K + g.k_step
@@ -219,8 +223,11 @@ def test_launch_geometry_past_the_whole_k_tiles(K, kind):
     assert g.smem_bytes + g.static_smem_bytes <= 232448
     assert (g.chunks > 1) == (g.k_padded > WHOLE_K_LIMIT[kind])
     if g.chunks > 1:
-        assert g.blocks_per_sm == 2 and g.k_chunk % g.k_step == 0
-        assert 2 * (g.smem_bytes + g.static_smem_bytes + 1024) <= 233472
+        assert g.stages == 2 and g.k_chunk % g.k_step == 0
+        per_sm = 2 if kind == "row_ll" else 1
+        assert g.k_chunk == (28 if kind == "row_ll" else 32)
+        assert g.blocks_per_sm == per_sm
+        assert per_sm * (g.smem_bytes + g.static_smem_bytes + 1024) <= 233472
     assert g.grid == S * g.row_tiles
     owned = np.zeros((S, B), np.int64)
     for i in range(g.grid):

@@ -185,8 +185,12 @@ def test_launch_geometry_matches_the_library(cuda, kind):
     info = tfp.kernel_info(kind, wide)
     geom = tfp.launch_geometry(kind, 8, 4096, wide, 20000)
     assert geom.chunks > 1 and info["smem_bytes"] == geom.smem_bytes
-    assert info["blocks_per_sm"] == geom.blocks_per_sm == 2
-    assert info["registers"] <= 128
+    assert info["static_smem_bytes"] <= geom.static_smem_bytes
+    # the wide K4 keeps two blocks an SM under 128 registers; the split-TF32
+    # wide K1/K2 and K5 take one block an SM and up to 255 registers
+    per_sm, regs = (2, 128) if kind == "row_ll" else (1, 255)
+    assert info["blocks_per_sm"] == geom.blocks_per_sm == per_sm
+    assert info["registers"] <= regs
 
 
 def _wide_inputs(K, dev, seed):
@@ -599,6 +603,70 @@ def test_softplus_link_rescue_batch(cuda, name):
     assert bad.any()
     np.testing.assert_array_equal(~np.isfinite(rows_k), bad)
     np.testing.assert_allclose(rows_k[~bad], rows_t[~bad], rtol=1e-5)
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("name", list(SELECTORS))
+def test_wide_stats_kernel_likelihoods_match_twin(cuda, name, static,
+                                                  log_transform):
+    """The split-TF32 wide K1/K2 at K = 128 (S=2, B=300, D=997: no tile
+    multiples) for the four likelihoods past 'poisson', both clips and both
+    links, against the float64 twin at the tolerances above; the wide
+    kernel is the one that launches. Under the log link the largest rates
+    are about 30, where a few ulps of theta . v move the minimum by 1e-6
+    (tests/test_torch_stats_split.py emulates the kernel's decode here)."""
+    lik = SELECTORS[name]
+    args, codes = _likelihood_inputs(name, 2, 300, 128, 997, cuda, seed=11)
+    assert tfp.launch_geometry("stats", 2, 300, 128, 997).chunks > 1
+    key = ("static" if static else "stats") + "_wide"
+    before = tfp.LAUNCHES[key]
+    out_k = tfp._kernel_stats(*args, log_transform, static, lik, codes)
+    out_t = tfp.stats_twin(*[a.double() for a in args],
+                           log_transform=log_transform, static=static,
+                           likelihood=lik, codes=codes)
+    torch.cuda.synchronize()
+    assert tfp.LAUNCHES[key] == before + 1
+    np.testing.assert_allclose(out_k[0].cpu().numpy(), out_t[0].cpu().numpy(),
+                               rtol=1e-5)
+    assert torch.equal(out_k[1].cpu(), out_t[1].cpu())
+    np.testing.assert_allclose(out_k[2].cpu().numpy(), out_t[2].cpu().numpy(),
+                               rtol=1e-6)
+    for k, t in zip(out_k[3:], out_t[3:]):
+        assert _rel_max(k, t) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["poisson_softplus", "mixed"])
+def test_wide_softplus_link_rescue_batch(cuda, name):
+    """An underflowed softplus rate through the wide K1 at K = 128: the
+    clipped cells are counted exactly, the sums and gradients held to the
+    twin."""
+    lik = SELECTORS[name]
+    args, codes = _likelihood_inputs(name, 2, 150, 128, 400, cuda, seed=1,
+                                     rescue=True)
+    out_k = tfp._kernel_stats(*args, False, False, lik, codes)
+    out_t = tfp.stats_twin(*[a.double() for a in args], likelihood=lik,
+                           codes=codes)
+    assert int(out_t[1].sum()) > 0
+    assert torch.equal(out_k[1].cpu(), out_t[1].cpu())
+    np.testing.assert_allclose(out_k[0].cpu().numpy(), out_t[0].cpu().numpy(),
+                               rtol=1e-5)
+    for k, t in zip(out_k[3:], out_t[3:]):
+        assert bool(torch.isfinite(k).all()) and _rel_max(k, t) < 1e-4
+
+
+def test_wide_expsum_rate_total_is_deterministic(cuda):
+    """The wide K5 at K = 128 (S=8, B=1000, D=19,997): R is a fixed-order
+    sum and dtheta has one owner per element (kept on chip for the block's
+    life and written once), so two launches give the same bits of both."""
+    theta, v, _, _, eta = _stats_inputs(8, 1000, 128, 19997, cuda, seed=12)
+    v *= 0.25 * (8.0 / 128) ** 0.5
+    assert tfp.launch_geometry("expsum", 8, 1000, 128, 19997).chunks > 1
+    first = tfp._kernel_expsum(theta, v, eta)
+    second = tfp._kernel_expsum(theta, v, eta)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 def test_fused_loglik_mixed_backward_runs_the_kernel(cuda):

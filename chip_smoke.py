@@ -185,24 +185,27 @@ Phases, each printing lines; any failure raises and exits non-zero:
              writing its artifacts with finite, falling losses. One line
              an example: loss, epochs, wall s, ms/step, launches, peak GB
              (above what was allocated when the example began)
-  W wide     the latent dimensions past the whole-K tiles (K1/K2 past padded
-             K=124, K4 past 152, K5 past 64: the K-chunked kernels). (a) K1,
-             K2 and K4 (both links) and K5 against their float64 twins at
-             S=2, B=1000, D=19,997 for K = 65, 125, 128, 153, 256 and 1024
-             (v scaled by min(1, sqrt(8 / K))), at the K=32 tolerances.
-             (b) at S=8, B=4096, D=20000, K=128 (the wide K4 also at K=256):
-             kernel and twin times, registers, shared memory, blocks an SM,
-             the bound (K1/K2 and K5: the share of both routes' bounds,
-             three TF32 passes and one FP32 pass). (c) at K=128 end to end:
+  W wide     the latent dimensions past the whole-K kernels (K1/K2 past
+             padded K=124, K4 and K5 past 64: the K-chunked kernels). (a)
+             K1, K2 and K4 (both links) and K5 against their float64 twins
+             at S=2, B=1000, D=19,997 for K = 65, 125, 128, 153, 256 and
+             1024 (v scaled by min(1, sqrt(8 / K))), at the K=32
+             tolerances; K4 also at the four other likelihoods (both
+             links), twice for the same bits, and on a rescue batch (NaN
+             rows at the twin's positions). (b) at S=8, B=4096, D=20000,
+             K=128 and 256: kernel and twin times, registers, shared
+             memory, blocks an SM, the bound (K1/K2, K4 and K5: the share
+             of both routes' bounds, three TF32 passes and one FP32 pass).
+             (c) at K=128 end to end:
              the dense captured-scan fit (16,384 rows resident, B=4096, 3
              epochs; ms/step, busy share, peak GB, launches) and a
              clip='static' epoch; one dense step through K1 and one COO step
              through K5 against the float64 plain path on the same draws;
              the 0.1% flat COO set two epochs through K5 (ms/step of the
              second); log_likelihood of the 4096 held-out rows through
-             K4, their per-row log-likelihood at 100 samples against the
-             float64 plain path (1e-5), and log_likelihood at K=256 through
-             the wide K4
+             the wide K4, their per-row log-likelihood at 100 samples
+             against the float64 plain path (1e-5), and log_likelihood at
+             K=256
   9 times    kernel vs twin times and bounds; ms/step, rows/s, peak memory
              and a torch.profiler breakdown (device-busy share, device
              kernels per step, costliest kernels) of the dense and the three
@@ -352,22 +355,20 @@ def bounds(B, total, n_total, k=K, s=S, d=D):
     once per cell of x for K1/K2 and K4 (it does not depend on the sample:
     the least any implementation must do); for
     K3 and K6 the least work per pipe (``ig_bound``, independent mode, and
-    ``normal_bound``). K5: ``expsum_bound``'s tensor route; K1/K2:
-    ``stats_bound``'s route of the kernel that runs at k (its tensor route
-    past the whole-K tiles, the FP32 one within them)."""
+    ``normal_bound``). K5: ``expsum_bound``'s tensor route; K1/K2 and K4:
+    ``stats_bound``'s and ``row_ll_bound``'s route of the kernel that runs
+    at k (the tensor route past the whole-K kernels, the FP32 one within
+    them)."""
     from spmf_tpu_torch.ops import fused_poisson as tfp
 
-    cells = s * B * d
-    theta, v, vec = s * B * k, s * k * d, s * d
-    lgamma_ops = 4 * B * d
-    # K1/K2: the route of the kernel that runs at k (split-TF32 tensor cores
-    # past the whole-K tiles)
-    route = ("tf32x3" if tfp.launch_geometry("stats", s, B, k, d).chunks > 1
-             else "fp32")
-    k1 = stats_bound(B, k, s, d)[route][:2]
+    def route(kind):
+        # split-TF32 tensor cores past the whole-K kernels
+        return ("tf32x3" if tfp.launch_geometry(kind, s, B, k, d).chunks > 1
+                else "fp32")
+
+    k1 = stats_bound(B, k, s, d)[route("stats")][:2]
     out = {"stats": k1, "static": k1,
-           "row_ll": bound(4 * (theta + v + vec + B * d + d + s * B),
-                           cells * (2 * k + 2) + lgamma_ops),
+           "row_ll": row_ll_bound(B, k, s, d)[route("row_ll")][:2],
            "expsum": expsum_bound(B, k, s, d)["tf32x3"][:2],
            "fwd": ig_bound("fwd", total, S, False)[:2],
            "bwd": ig_bound("bwd", total, S, False)[:2],
@@ -397,6 +398,33 @@ def stats_bound(B, k=K, s=S, d=D):
                       (2 * cells + 4 * B * d) / PEAK_MUFU_PER_S * 1e3)),
                     key=lambda p: p[1])
     fp32 = bound(n_bytes, cells * (6 * k + 2) + 4 * B * d)
+    return {"tf32x3": (t_o, "operations", pipe) if t_o >= t_b
+            else (t_b, "bytes", "memory"),
+            "fp32": fp32 + ("FP32 pipes" if fp32[1] == "operations"
+                            else "memory",)}
+
+
+def row_ll_bound(B, k=K, s=S, d=D):
+    """K4's least time at B rows (S=8, D=20000, K=32 unless ``s``, ``d``
+    and ``k`` say otherwise) by route, as ``expsum_bound``: 'tf32x3', the
+    decode (2 S B D K flops) as three TF32 passes on the tensor cores at
+    494.7 TFLOP/s (the route of the wide kernel past K = 64), against the
+    transcendentals at the timed log link (exp and log a cell and sample,
+    lgamma's 3 logs and a reciprocal once a cell of x; 16 a clock and SM);
+    'fp32', ``bound``'s count: the decode once on the FP32 pipes at 67
+    TFLOP/s, with 2 operations a cell and sample and lgamma's 4 a cell of x
+    (the whole-K kernel's route). Bytes: theta, v, phi, eta and x read, the
+    row sums written."""
+    cells = s * B * d
+    flops = 2 * k * cells
+    n_bytes = 4 * (s * B * k + s * k * d + s * d + B * d + d + s * B)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    pipe, t_o = max((("tensor cores, 3 TF32 passes",
+                      3 * flops / PEAK_TF32_OPS_PER_S * 1e3),
+                     ("transcendentals",
+                      (2 * cells + 4 * B * d) / PEAK_MUFU_PER_S * 1e3)),
+                    key=lambda p: p[1])
+    fp32 = bound(n_bytes, flops + 2 * cells + 4 * B * d)
     return {"tf32x3": (t_o, "operations", pipe) if t_o >= t_b
             else (t_b, "bytes", "memory"),
             "fp32": fp32 + ("FP32 pipes" if fp32[1] == "operations"
@@ -3048,8 +3076,8 @@ def examples_phase(dev, smi, zero_launches, read_launches):
             for k in next(iter(launches.values()))}
 
 
-#: phase W: (a)'s latent dimensions, past one whole-K tile or another (K5's
-#: instances end at 64, K1/K2's tiles at 124, K4's at 152), at a ragged
+#: phase W: (a)'s latent dimensions, past one whole-K kernel or another
+#: (K4's and K5's end at their switch, 64, K1/K2's tiles at 124), at a ragged
 #: shape (B no multiple of the row tile, D odd); (b) and (c)'s width
 W_LATENT = (65, 125, 128, 153, 256, 1024)
 W_S, W_B, W_D = 2, 1000, 19997
@@ -3063,14 +3091,17 @@ def w_scale(k):
 
 
 def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
-    """Phase W: the latent dimensions past the whole-K tiles. (a) K1, K2
+    """Phase W: the latent dimensions past the whole-K kernels. (a) K1, K2
     (both links), K4 (both links) and K5 against their float64 twins at
-    S=2, B=1000, D=19,997 for each K of W_LATENT, at the K=32 tolerances.
+    S=2, B=1000, D=19,997 for each K of W_LATENT, at the K=32 tolerances;
+    K4 also at the four other likelihoods (both links, D=20000), twice for
+    the same bits, and on a rescue batch (NaN rows at the twin's
+    positions).
     (b) at the full width S=8, B=4096, D=20000 and K = 128 and 256: each
     kernel's time (CUDA events), its twin's, its registers, shared memory,
-    blocks an SM and bound (K1/K2 and K5: the share of both routes' bounds,
-    three TF32 passes and one FP32 pass); at 256 K1/K2 and K5 take their
-    streaming route and K4 its wide kernel. (c) end to end at K=128: the
+    blocks an SM and bound (K1/K2, K4 and K5: the share of both routes'
+    bounds, three TF32 passes and one FP32 pass); at 256 K1/K2 and K5 take
+    their streaming route. (c) end to end at K=128: the
     dense captured-scan fit (16,384 rows resident, B=4096, 3 epochs, in two turns,
     the second profiled), a clip='static' epoch, one step's loss and
     gradients through K1 against the float64 plain path on the same draws;
@@ -3078,7 +3109,8 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
     (ms/step of the second), and one small COO step against the float64 plain path; log_likelihood
     of the 4096 held-out rows ``held`` (100 samples) through K4, and their
     per-row log-likelihood at 100 samples against the float64 plain path
-    (1e-5 relative); log_likelihood at K=256 through the wide K4. Returns
+    (1e-5 relative); log_likelihood at K=256, also through the wide K4.
+    Returns
     the main path's launches, the wide kernels' largest absolute errors,
     their (ms, twin ms) and bounds."""
     import torch
@@ -3099,12 +3131,13 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
         if key.endswith("_wide"):
             errs[key] = max(errs.get(key, 0.0), err)
 
-    # (a) every kernel against its float64 twin past the whole-K tiles
+    # (a) every kernel against its float64 twin past the whole-K kernels
     for k_w in W_LATENT:
         args = stats_inputs(W_B, dev, seed=k_w, k=k_w, s=W_S, d=W_D,
                             v_scale=w_scale(k_w))
         args64 = [a.double() for a in args]
-        worst = {"sums": 0.0, "grads": 0.0, "gmin": 0.0, "rows": 0.0}
+        worst = {"sums": 0.0, "grads": 0.0, "gmin": 0.0, "rows": 0.0,
+                 "lik": 0.0}
         for log_w in (False, True):
             for static in (False, True):
                 out_k = tfp._kernel_stats(*args, log_w, static)
@@ -3125,19 +3158,57 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
                       f"{out_t[1].tolist()}")
                 note(kernel_key("stats", "static" if static else "stats",
                                 k_w), abs_max(zip(out_k[3:], out_t[3:])))
-                worst = {"sums": max(worst["sums"], e_sum),
-                         "grads": max(worst["grads"], e_grad),
-                         "gmin": max(worst["gmin"], e_min),
-                         "rows": worst["rows"]}
+                worst.update(sums=max(worst["sums"], e_sum),
+                             grads=max(worst["grads"], e_grad),
+                             gmin=max(worst["gmin"], e_min))
             out_k = tfp._kernel_row_ll(*args, log_w)
+            again = tfp._kernel_row_ll(*args, log_w)
             out_t = tfp.row_loglik_twin(*args64, log_transform=log_w)
             torch.cuda.synchronize()
             e_row = rel_elem(out_k, out_t)
             check(e_row < 1e-5, f"W K={k_w} K4 log_transform={log_w}: row "
                                 f"sums rel err {e_row}")
+            check(torch.equal(out_k, again),
+                  f"W K={k_w} K4 log_transform={log_w}: two launches gave "
+                  f"different bits")
             note(kernel_key("row_ll", "row_ll", k_w),
                  abs_max([(out_k, out_t)]))
             worst["rows"] = max(worst["rows"], e_row)
+        # K4 at the four other likelihoods, both links (S=2 of
+        # likelihood_inputs' batches: signed operands, D=20000)
+        for lname, lik in LIKELIHOODS.items():
+            largs, codes = likelihood_inputs(lname, W_B, dev, seed=k_w + 1,
+                                             k=k_w)
+            largs = [a[:W_S] if a.dim() == 3 else a for a in largs]
+            for log_w in (False, True):
+                out_k = tfp._kernel_row_ll(*largs, log_w, lik, codes)
+                out_t = tfp.row_loglik_twin(*[a.double() for a in largs],
+                                            log_w, lik, codes)
+                torch.cuda.synchronize()
+                e_lik = rel_elem(out_k, out_t)
+                check(e_lik < 1e-5, f"W K={k_w} K4 {lik} log_transform="
+                                    f"{log_w}: row sums rel err {e_lik}")
+                note(kernel_key("row_ll", "row_ll", k_w),
+                     abs_max([(out_k, out_t)]))
+                worst["lik"] = max(worst["lik"], e_lik)
+        # the rescue batch: a negative intercept in column 7 of every sample,
+        # the rate of every 97th row there: those rows NaN, as in the twin
+        phi_r, theta_r = args[2].clone(), args[0].clone()
+        phi_r[:, :, 7] = -1e-3
+        theta_r[:, ::97] = 0.0
+        out_k = tfp._kernel_row_ll(theta_r, args[1], phi_r, args[3], args[4],
+                                   False)
+        out_t = tfp.row_loglik_twin(theta_r.double(), args64[1],
+                                    phi_r.double(), args64[3], args64[4])
+        torch.cuda.synchronize()
+        nan_t = torch.isnan(out_t)
+        check(int(nan_t.sum()) == W_S * len(range(0, W_B, 97))
+              and torch.equal(torch.isnan(out_k), nan_t),
+              f"W K={k_w} K4 rescue: NaN rows {int(torch.isnan(out_k).sum())}"
+              f" against the twin's {int(nan_t.sum())}")
+        e_nan = rel_elem(out_k[~nan_t], out_t[~nan_t])
+        check(e_nan < 1e-5, f"W K={k_w} K4 rescue rows rel err {e_nan}")
+        del phi_r, theta_r, largs
         th, vv, ee = args[0], args[1], args[4]
         out_k = tfp._kernel_expsum(th, vv, ee)
         out_t = tfp.expsum_twin(th.double(), vv.double(), ee.double())
@@ -3154,13 +3225,16 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
                  f"B={W_B} D={W_D}, both links: K1/K2 sums rel "
                  f"{worst['sums']:.2e}, gmin rel {worst['gmin']:.2e}, "
                  f"grads rel-of-max {worst['grads']:.2e}, counts exact; K4 "
-                 f"rows rel {worst['rows']:.2e}; K5 R rel {e_r:.2e}, grads "
-                 f"rel-of-max {e_g:.2e}")
+                 f"rows rel {worst['rows']:.2e} (two launches bit-equal), "
+                 f"the four other likelihoods {worst['lik']:.2e}, rescue "
+                 f"{int(nan_t.sum())} NaN rows at the twin's positions, the "
+                 f"others {e_nan:.2e}; K5 R rel {e_r:.2e}, grads rel-of-max "
+                 f"{e_g:.2e}")
     del args, args64, out_k, out_t
 
     # (b) the full width at K=128, and at K=256 (the streaming route of
-    # the wide K1/K2 and K5, the wide K4); the JSON line takes each wide
-    # kernel's first time
+    # the wide K1/K2 and K5; the wide K4 keeps theta on chip to 256); the
+    # JSON line takes each wide kernel's first time
     kt = {}
     bd = {}
     for k_b in (W_K, 256):
@@ -3179,6 +3253,7 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
         bk = bounds(4096, IG_TOTAL, N_TOTAL, k=k_b)
         routes = {"stats": stats_bound(4096, k_b),
                   "static": stats_bound(4096, k_b),
+                  "row_ll": row_ll_bound(4096, k_b),
                   "expsum": expsum_bound(4096, k_b)}
         for name in kinds:
             kind = "stats" if name == "static" else name
@@ -3191,7 +3266,7 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
             if key.endswith("_wide") and key not in kt:
                 kt[key], bd[key] = (k_ms, t_ms), (ms_b, by)
             # the share of each route's bound: three TF32 passes on the
-            # tensor cores and one pass on the FP32 pipes (K4: FP32 only)
+            # tensor cores and one pass on the FP32 pipes
             shares = "; ".join(
                 f"{r} bound {b[0]:.3f} ms ({b[2]}), {b[0] / k_ms:.1%} of it"
                 for r, b in routes.get(name, {}).items())
@@ -3356,9 +3431,10 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
     ll_s = time.perf_counter() - t0
     got = read_launches()
     launches.update(got)
-    check(got["row_ll"] >= 13 and ll["n_rows"] == B_SPARSE
+    k4 = kernel_key("row_ll", "row_ll", W_K, S, B_SPARSE, D)
+    check(got[k4] >= 13 and ll["n_rows"] == B_SPARSE
           and np.isfinite(ll["total"]),
-          f"W log_likelihood K={W_K}: {ll}, launches {got}")
+          f"W log_likelihood K={W_K}: {ll}, launches {got} ({k4})")
     # the samples as phase 8's small check takes them (lognormal, valid for
     # any scorer; the posterior after one epoch has rates near 0, where the
     # log link's exp(.) - 1 cancels in float32 in any implementation), made
@@ -3390,7 +3466,7 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
     say("W", f"(c) log_likelihood K={W_K} ({B_SPARSE} held-out rows, 100 "
              f"samples): per_row {ll['per_row']:.4f} in {ll_s:.2f} s, "
              f"launches {got}; per-row log-likelihood at 100 samples "
-             f"through K4 vs the float64 plain path: rel {e_row:.2e}")
+             f"through {k4} vs the float64 plain path: rel {e_row:.2e}")
     del plain, batch, smp, out_k, out_p, gen
     # ... and at K=256 through the wide K4
     m_256 = PoissonFactorization(
@@ -3398,13 +3474,18 @@ def wide_phase(dev, smi, zero_launches, read_launches, coo, held):
         column_norms=norms_c, u_tau_scale=1.0 / np.sqrt(N_SPARSE * D),
         dtype="float32", device=dev, data=flat_c)
     zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ll = m_256.log_likelihood(held, num_samples=100, sample_chunk=8)
+    torch.cuda.synchronize()
+    ll_s = time.perf_counter() - t0
     got = read_launches()
     launches.update(got)
-    check(got["row_ll_wide"] >= 13 and np.isfinite(ll["total"]),
-          f"W log_likelihood K=256: {ll}, launches {got}")
-    say("W", f"(c) log_likelihood K=256 through the wide K4: per_row "
-             f"{ll['per_row']:.4f}, launches {got}")
+    k4 = kernel_key("row_ll", "row_ll", 256, S, B_SPARSE, D)
+    check(got[k4] >= 13 and np.isfinite(ll["total"]),
+          f"W log_likelihood K=256: {ll}, launches {got} ({k4})")
+    say("W", f"(c) log_likelihood K=256 through {k4}: per_row "
+             f"{ll['per_row']:.4f} in {ll_s:.2f} s, launches {got}")
     del m_c, m_256
     say("W", f"phase W took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches), errs, kt, bd
@@ -4510,8 +4591,7 @@ def main():
     sizes = {"fwd": f"total={IG_TOTAL}", "bwd": f"total={IG_TOTAL}",
              "nfwd": f"total={N_TOTAL}", "nbwd": f"total={N_TOTAL}"}
     kt.update(kt_w)
-    sizes.update({k: f"B={B}, K={W_K if k != 'row_ll_wide' else 256}"
-                  for k in kt_w})
+    sizes.update({k: f"B={B}, K={W_K}" for k in kt_w})
     for key, (k_ms, t_ms) in kt.items():
         say(9, f"{key}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, bound "
                f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
@@ -4605,7 +4685,7 @@ def main():
                         "clip='static')",
                         "spmf_tpu_torch/csrc/fused_poisson_wide.cu",
                         "spmf_tpu/ops/fused_poisson.py:387"),
-        "row_ll_wide": ("fused_poisson_row_ll_wide (K4 past K=152)",
+        "row_ll_wide": ("fused_poisson_row_ll_wide (K4 past K=64)",
                         "spmf_tpu_torch/csrc/fused_poisson_wide.cu",
                         "spmf_tpu/ops/fused_poisson.py:768"),
         "expsum_wide": ("fused_exp_rate_sum_wide (K5 past K=64)",

@@ -1,5 +1,5 @@
 // Shared by csrc/fused_poisson.cu (K1/K2 and K4 at the latent dimensions
-// whose whole-K tiles fit one block) and csrc/fused_poisson_wide.cu (the
+// their whole-K kernels take) and csrc/fused_poisson_wide.cu (the
 // K-chunked kernels past them): the tiling constants, the per-cell
 // likelihoods, the asynchronous loads, the cell passes of one column tile and
 // the reductions. See fused_poisson.cu for the design.
@@ -150,25 +150,31 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-// x tile [TB][TD] at rows r0.., columns col0.., zeros past row B and column D:
-// a thread keeps its column group and takes every 16th row
+// x tile [TB][pitch] at rows r0.., columns col0.., zeros past row B and
+// column D, by the block's NT threads: a thread keeps its column group and
+// takes every (NT / 16)-th row
+template <int NT = THREADS>
 __device__ __forceinline__ void load_x_tile(float* x_s, const float* __restrict__ x, int r0,
-                                            int col0, int B, int D, bool vec) {
+                                            int col0, int B, int D, bool vec, int pitch = TD) {
   const int g = threadIdx.x % TX, rb = threadIdx.x / TX;
   const int col = col0 + g * 4;
   const float* src = x + (size_t)(r0 + rb) * D + col;
-  float* dst = x_s + rb * TD + g * 4;
-  const size_t step = (size_t)(THREADS / TX) * D;
+  float* dst = x_s + rb * pitch + g * 4;
+  const size_t step = (size_t)(NT / TX) * D;
 #pragma unroll
-  for (int i = 0; i < TB / (THREADS / TX); ++i) {
-    if (r0 + rb + i * (THREADS / TX) < B) load_group(dst, src, D - col, vec);
+  for (int i = 0; i < TB / (NT / TX); ++i) {
+    if (r0 + rb + i * (NT / TX) < B) load_group(dst, src, D - col, vec);
     else st4(dst, 0.0f, 0.0f, 0.0f, 0.0f);
     src += step;
-    dst += (THREADS / TX) * TD;
+    dst += (NT / TX) * pitch;
   }
 }
 
@@ -297,6 +303,19 @@ __device__ __forceinline__ void stats_cells(const CellArgs& a, float* t_s, const
   }
 }
 
+// K4's unclipped ll of one cell from its decode sum tv: the rate at the
+// link, lgamma(x + 1) where the selector needs it, the likelihood; one
+// function for the whole-K kernel's micro-tile and the wide kernel's C
+// fragments
+template <int LIK, bool LOG>
+__device__ __forceinline__ float row_cell_ll(const CellArgs& a, float tv, float x, float eta,
+                                             float phi, float code, const float* tab_s) {
+  float ev, dll;
+  const float rate = decode_rate<LOG>(tv, eta, phi, ev);
+  const float lgx = HAS_POISSON<LIK> ? lgamma_xp1(x, tab_s) : 0.0f;
+  return cell_ll<LIK>(x, rate, code, a.inv_scale, a.norm_const, lgx, dll);
+}
+
 // K4: the cells of this thread from the decode sums in its registers; a
 // row's 64 cells of the tile summed in float32 (4 in a thread, 16 lanes by
 // shuffle) and added into the row's double in row_sum by one owner thread.
@@ -324,17 +343,61 @@ __device__ __forceinline__ void row_ll_cells(const CellArgs& a, const float (&ac
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const bool inb = row_ok && col0 + tx * 4 + j < a.D;
-      float ev;
-      const float rate = decode_rate<LOG>(acc[i][j], eta_c[j], phi_c[j], ev);
-      const float lgx = HAS_POISSON<LIK> ? lgamma_xp1(xs[j], tab_s) : 0.0f;
-      float dll;
-      const float ll = cell_ll<LIK>(xs[j], rate, code_c[j], a.inv_scale, a.norm_const, lgx, dll);
+      const float ll = row_cell_ll<LIK, LOG>(a, acc[i][j], xs[j], eta_c[j], phi_c[j], code_c[j],
+                                             tab_s);
       part += inb ? ll : 0.0f;  // select: a NaN ll stays NaN
     }
 #pragma unroll
     for (int off = TX / 2; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
     if (tx == 0) row_sum[r] += (double)part;
   }
+}
+
+// K4 past its switch (csrc/fused_poisson_wide.cu): the cells of a warp's
+// 16 rows (rw ..) and 8 NJ columns (cb ..) of a tile from the decode's C
+// fragments: thread (g, t) holds rows rw + g (T[j][0], T[j][1]) and rw + g
+// + 8 (T[j][2], T[j][3]) at columns cb + 8j + 2t and cb + 8j + 2t + 1. x in
+// x_s [TB][xp] and the lanes [NLANE][TD] are read at those positions as
+// float2 (xp 8 mod 32: a half-warp's 16 float2 loads hit 32 distinct
+// banks). A row's 2 NJ cells of this thread are summed in float32 (j, then
+// the column pair), the 4 lanes t by xor-shuffles (t ^ 1, then t ^ 2:
+// every lane holds the same bits), and added into the rows' doubles, sum0
+// (row rw + g) and sum8 (rw + g + 8).
+template <int LIK, bool LOG, int NJ>
+__device__ __forceinline__ void row_ll_cells_frag(const CellArgs& a, const float (&T)[NJ][4],
+                                                  const float* x_s, int xp, const float* lane_s,
+                                                  const float* tab_s, int r0, int rw, int cb,
+                                                  int col0, double& sum0, double& sum8) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float part[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = cb + 8 * j + 2 * t;
+    const float2 eta2 = ld2(lane_s + c);
+    const float2 phi2 = ld2(lane_s + TD + c);
+    const float2 code2 = ld2(lane_s + 2 * TD + c);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rw + g + 8 * rr;
+      const bool row_ok = r0 + r < a.B;
+      const float2 x2 = ld2(x_s + r * xp + c);
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const bool inb = row_ok && col0 + c + cc < a.D;
+        const float ll = row_cell_ll<LIK, LOG>(a, T[j][2 * rr + cc], cc ? x2.y : x2.x,
+                                               cc ? eta2.y : eta2.x, cc ? phi2.y : phi2.x,
+                                               cc ? code2.y : code2.x, tab_s);
+        part[rr] += inb ? ll : 0.0f;  // select: a NaN ll stays NaN
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    part[rr] += __shfl_xor_sync(FULL, part[rr], 1);
+    part[rr] += __shfl_xor_sync(FULL, part[rr], 2);
+  }
+  sum0 += (double)part[0];
+  sum8 += (double)part[1];
 }
 
 // K1/K2's per-block partials of the per-sample statistics, at the block's
@@ -382,30 +445,35 @@ constexpr int row_ll_smem_floats(int KP) {
 }
 
 // ------------------------------------------------------- the wide kernels
-// (csrc/fused_poisson_wide.cu). K4 walks the latent dimension in chunks of
-// KC: a stage holds theta's rows of the block at KC latent dimensions
-// [TB][KC] and the v tile's KC rows [KC][TP]; two stages, two of the x tile
-// and the lanes, and the table: two blocks an SM, whatever K. K1/K2 take
-// csrc/split_tf32.cuh's shared memory, the eta / phi / codes lanes, a row
-// of dphi a warp and the table: one block an SM, whatever K.
-constexpr int KC = 28;
-constexpr int STAGE = TB * KC + KC * TP;
+// (csrc/fused_poisson_wide.cu). K1/K2 take csrc/split_tf32.cuh's shared
+// memory, the eta / phi / codes lanes, a row of dphi a warp and the table;
+// K4 theta on chip to padded K = RL_KRES ([TB][KPC + 4], else two streamed
+// chunks [TB][KC + 4]), two raw and two split v chunks, one x tile at pitch
+// RL_XP, its lanes and the table. One block an SM, whatever K.
+constexpr int RL_KRES = 256;        // K4: theta stays on chip to this padded K
+constexpr int RL_XP = TD + 8;       // K4: pitch of the x tile, 8 mod 32
 constexpr int stats_wide_smem_floats() {
   return tf32x3::W_RES + NLANE * TD + (THREADS / 32) * TD + TABLE_N;
 }
-constexpr int row_ll_wide_smem_floats() { return 2 * STAGE + 2 * (TB * TD + NLANE * TD) + TABLE_N; }
+constexpr int row_ll_wide_smem_floats() {
+  return TB * (RL_KRES + 4) + 2 * tf32x3::W_VRAW + 2 * tf32x3::W_VHL + TB * RL_XP + NLANE * TD +
+         TABLE_N;
+}
 
-// Hopper's shared memory a block may take, and the kernels' static shared
-// memory (the stats reductions' 128 bytes; K4's row sums, a double a row)
+// K4's switch: the whole-K kernel (FP32 pipes) to padded K = 64, the wide
+// kernel (split-TF32 tensor cores) past it
+constexpr int ROW_LL_WHOLE_K = 64;
+
+// Hopper's shared memory a block may take, and K1/K2's static shared memory
+// (the stats reductions' 128 bytes)
 constexpr int SMEM_LIMIT = 232448;
 constexpr int STATS_STATIC = 128;
-constexpr int ROW_LL_STATIC = 8 * TB;
 
-// K1/K2 (kind 0) or K4 (kind 1) takes the whole-K kernel while its tiles fit
-// a block at padded latent dimension KP, the wide one past that (K1: KP <=
-// 124, K4: KP <= 152)
+// K1/K2 (kind 0) takes the whole-K kernel while its tiles fit a block at
+// padded latent dimension KP (KP <= 124), K4 (kind 1) to its switch (KP <=
+// 64); the wide kernel past that
 inline bool whole_k_fits(int kind, int KP) {
-  return kind == 1 ? (int)sizeof(float) * row_ll_smem_floats(KP) + ROW_LL_STATIC <= SMEM_LIMIT
+  return kind == 1 ? KP <= ROW_LL_WHOLE_K
                    : (int)sizeof(float) * stats_smem_floats(KP) + STATS_STATIC <= SMEM_LIMIT;
 }
 
@@ -427,16 +495,16 @@ int prepare(Kernel kernel, int smem) {
 }
 
 // registers, static and dynamic shared memory and resident blocks per SM of
-// a kernel at `smem` dynamic bytes, into info[0..3]
+// a kernel at `smem` dynamic bytes and `threads` a block, into info[0..3]
 template <typename Kernel>
-int kernel_info(Kernel kernel, int smem, int* info) {
+int kernel_info(Kernel kernel, int smem, int* info, int threads = THREADS) {
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err != 0) return err;
   err = prepare(kernel, smem);
   if (err != 0) return err;
   int blocks = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   info[0] = attr.numRegs;
   info[1] = (int)attr.sharedSizeBytes;
   info[2] = smem;

@@ -1,5 +1,5 @@
-// K1/K2 and K4 at every latent dimension past the whole-K tiles of
-// csrc/fused_poisson.cu (K1/K2: padded K > 124, K4: > 152). They replace the
+// K1/K2 and K4 at every latent dimension past the whole-K kernels of
+// csrc/fused_poisson.cu (K1/K2: padded K > 124, K4: > 64). They replace the
 // same TPU kernels (spmf_tpu/ops/fused_poisson.py::_stats_grad_kernel,
 // ::_sum_static_grad_kernel and ::_row_ll_kernel), which put the whole
 // latent dimension in one block and set no limit on it. The cells and the
@@ -19,51 +19,51 @@
 // the link and the clip are run-time flags (an instance per likelihood and
 // per route, 10 in all, where the whole-K kernel has 20).
 //
-// K4 decodes on the FP32 pipes in chunks of KC = 28 latent dimensions: a
-// chunk is theta's TB rows at KC latent dimensions, row-major [TB][KC], and
-// the v tile's KC rows [KC][TP]; the ring holds two, and cp.async brings the
-// next while the block computes on the current one. Per column tile: acc (8
-// rows x 4 columns a thread, registers) += theta_c . v_c, k ascending as in
-// the whole-K kernel; per 4 k one float4 of theta for each of the thread's 8
-// rows and one of v for each k: 12 loads for 128 multiply-adds; then
-// row_ll_cells from the registers, a double per row owned by one thread: the
-// same bits on every launch. 111,232 bytes of dynamic shared memory (the
-// ring, two stages of the x tile and the lanes, the table), whatever K: two
-// blocks an SM, and __launch_bounds__(256, 2) holds it to 128 registers
+// K4 (row_ll_wide_kernel, ::_row_ll_kernel's per-row unclipped ll sums) runs
+// the decode alone, 2 S B D K flops, on the same tensor cores: three TF32
+// passes are 1.017 ms at S=8, B=4096, D=20000, K=128 (494.7 TFLOP/s), against
+// 2.53 ms for one pass on the FP32 pipes, the route of the K-chunked kernel it
+// replaces (chunks of 28 in a register micro-tile); the exps and logs of the
+// log link (16 a clock and SM) read about 0.31 ms and do not bound it. Its
+// design is split_tf32.cuh's decode (decode_step, load_v, split_v,
+// load_theta): theta's A fragments split in registers (split_int), v split
+// once a chunk into hi and lo, a fresh float32 partial a chunk (4 k-steps:
+// tests/test_torch_row_ll_split.py reads 5.4e-7 against the row sums' 1e-5).
+//
+// The block has 16 warps: warp w the rows 16 (w % 8) .. +15 and the columns 32
+// (w / 8) .. +31 of every 64-column tile (4 n8 tiles). The 8-warp layout of
+// K1/K5's wide kernels (every warp over all 64 columns; RL_THREADS = 256,
+// RL_NJ = 8) holds 208 registers, two warps a scheduler, and runs its cells
+// and its decode in lock step with too few warps to hide their latencies:
+// 7.02-7.20 ms at K=128 on an H100 80GB HBM3 at 700 W against this layout's
+// 6.21-6.34 (115 registers, under the 128 that 512 threads allow), whose cells
+// take about 1.3 ms and whose decode about 2.8
+// (benchmarks/torch_row_ll_variants.py, its `no cells` and `no decode`
+// builds). Scoring the last tile's cells between the next tile's k-steps
+// instead, to overlap the two, ran out of registers and spilled, and a third
+// raw v stage, loads two steps ahead, did not help.
+//
+// With no gradient products to hide loads under, the block walks steps Q =
+// (column tile Q / n, chunk Q % n) of n chunks of 32, one barrier each: at the
+// top of step Q the raw v chunk of step Q + 2 is requested into the stage step
+// Q freed (cp.async, two stages) and step Q + 1's is split into the split
+// buffer step Q - 1 read, so a chunk lands and is split under one step's
+// products. Theta stays raw on chip to padded K = 256 ([TB][KPC + 4], loaded
+// once a block); past that its chunks stream through two stages beside v's.
+// The tile's x (pitch 72) and its eta / phi / codes lanes are requested at the
+// tile's first step into one stage, the last tile's cells being done: they
+// land under that step's products, as the chunks do, and a second stage would
+// cost the room that keeps theta on chip to K = 256. The cells are scored from
+// the C fragments (row_ll_cells_frag): a row's 8 cells of a thread in float32,
+// the 4 lanes t by xor-shuffles, a double a row and half in its owner lane's
+// registers; at the end the second half's doubles are added to the first's
+// through shared memory, in that order: the same bits on every launch. Shared
+// memory 224,256 bytes whatever K, no static, one block an SM,
+// __launch_bounds__(512, 1); ptxas: 94 to 126 registers, no spill
 // (chip_smoke.py fails on a spill).
 #include "fused_poisson.cuh"
 
 namespace {
-
-static_assert(KC % KS == 0, "a chunk is whole k-steps");
-static_assert((STAGE * 4) % 16 == 0 && (TB * KC * 4) % 16 == 0, "stages on 16 bytes");
-
-__device__ __forceinline__ float comp(const float4& v, int j) {
-  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
-}
-
-// chunk kc0 .. kc0 + kw - 1 into a stage: theta's rows r0.. (zeros past row
-// B and past K) and v's rows at columns col0.. (zeros past K and past D)
-__device__ __forceinline__ void load_chunk(float* stage, const CellArgs& a, int s, int r0,
-                                           const float* __restrict__ v_smp, int kc0, int col0) {
-  const int kw = min(KC, a.KP - kc0), nq = kw / 4;
-  float* th = stage;
-  float* vc = stage + TB * KC;
-  for (int p = threadIdx.x; p < TB * nq; p += THREADS) {
-    const int r = p / nq, q = p % nq, k = kc0 + 4 * q;
-    float* dst = th + r * KC + 4 * q;
-    if (r0 + r < a.B)
-      load_group(dst, a.theta + ((size_t)s * a.B + r0 + r) * a.K + k, a.K - k, a.vec_theta);
-    else
-      st4(dst, 0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  for (int p = threadIdx.x; p < kw * TX; p += THREADS) {
-    const int j = p / TX, g = p % TX, k = kc0 + j, col = col0 + 4 * g;
-    float* dst = vc + j * TP + 4 * g;
-    if (k < a.K) load_group(dst, v_smp + (size_t)k * a.D + col, a.D - col, a.vec);
-    else st4(dst, 0.0f, 0.0f, 0.0f, 0.0f);
-  }
-}
 
 // the eta, phi and codes lanes of columns col0.. into lane_s [NLANE][TD]
 __device__ __forceinline__ void load_lanes(float* lane_s, const CellArgs& a,
@@ -73,29 +73,6 @@ __device__ __forceinline__ void load_lanes(float* lane_s, const CellArgs& a,
     const int row = t / TX, g = t % TX, col = col0 + 4 * g;
     const float* src = row == 0 ? a.eta : (row == 1 ? phi_smp : a.codes);
     load_group(lane_s + row * TD + 4 * g, src + col, a.D - col, a.vec);
-  }
-}
-
-// acc[i][j] += theta[tile_row(ty, i)] . v[:, 4 tx + j] over the chunk's kw
-// latent dimensions, k ascending
-__device__ __forceinline__ void decode_chunk(const float* th, const float* vc, int kw, int tx,
-                                             int ty, float (&acc)[RI][4]) {
-  const float* b = vc + tx * 4;
-  for (int k0 = 0; k0 < kw; k0 += KS) {
-    float4 t[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) t[i] = ld4(th + tile_row(ty, i) * KC + k0);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const float4 w = ld4(b + (k0 + kk) * TP);
-      const float vv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float th_k = comp(t[i], kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(th_k, vv[j], acc[i][j]);
-      }
-    }
   }
 }
 
@@ -307,59 +284,122 @@ stats_wide_kernel(const CellArgs a, bool lg, bool st, double* __restrict__ psum,
 }
 
 // ------------------------------------------------------------------ K4
+// 16 warps: warp w the rows 16 (w % 8) .. +15 of the block and the columns
+// 32 (w / 8) .. +31 of each tile (RL_NJ = 4 n8 tiles; RL_THREADS = 256 and
+// RL_NJ = 8 are the 8-warp layout of K1/K5's wide kernels, which
+// benchmarks/torch_row_ll_variants.py times); a partial a chunk
+// (tests/test_torch_row_ll_split.py)
+constexpr int RL_THREADS = 512;
+constexpr int RL_NJ = 4;
+constexpr int RL_PARTS = TD / (8 * RL_NJ);      // warps a row group, parts of a tile's columns
+constexpr int RL_PART = tf32x3::W_KSC;
+static_assert(RL_THREADS / 32 == RL_PARTS * (TB / 16) && (RL_PARTS == 1 || RL_PARTS == 2),
+              "a warp a row group and part of the tile's columns");
+static_assert(ROW_LL_WHOLE_K >= tf32x3::W_KC,
+              "past the switch a tile has two chunks or more: its x, requested at "
+              "its first step, has landed by the top of its second");
+static_assert(2 * tf32x3::W_THS <= TB * (RL_KRES + 4), "streamed theta fits the resident room");
+static_assert((RL_XP * 4) % 16 == 0, "x rows on 16 bytes");
+
 template <int LIK, bool LOG>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(RL_THREADS, 1)
 row_ll_wide_kernel(const CellArgs a, float* __restrict__ out) {
+  using tf32x3::W_KC;
+  using tf32x3::W_THS;
+  using tf32x3::W_VHL;
+  using tf32x3::W_VP;
+  using tf32x3::W_VRAW;
+  constexpr int NT = RL_THREADS;
   extern __shared__ __align__(16) float smem[];
-  const int KP = a.KP, B = a.B, D = a.D;
-  constexpr int XL = TB * TD + NLANE * TD;    // an x tile and its lanes
-  float* ring = smem;                         // 2 x STAGE
-  float* xl = ring + 2 * STAGE;               // 2 x XL
-  float* tab_s = xl + 2 * XL;                 // [TABLE_N]
-  __shared__ double row_sum[TB];              // one owner thread per row
+  float* th_s = smem;                           // [TB][KPC + 4], or 2 x [TB][KC + 4]
+  float* vraw = th_s + TB * (RL_KRES + 4);      // 2 x [KC][TD] raw v chunks
+  float* vhl = vraw + 2 * W_VRAW;               // 2 x split v chunks: hi [KC][VP], lo
+  float* x_s = vhl + 2 * W_VHL;                 // [TB][RL_XP] the tile's x
+  float* lane_s = x_s + TB * RL_XP;             // [NLANE][TD] eta, phi, codes
+  float* tab_s = lane_s + NLANE * TD;           // [TABLE_N]
 
-  const int s = blockIdx.x % a.S;
+  const int K = a.K, B = a.B, D = a.D;
+  const int s = blockIdx.x % a.S;               // samples of one row tile are adjacent
   const int r0 = (blockIdx.x / a.S) * TB;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const float* v_smp = a.v + (size_t)s * a.K * D;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int rw = (warp % (TB / 16)) * 16;       // this warp's first row in the block
+  const int cb = (warp / (TB / 16)) * 8 * RL_NJ;  // ... and first column of a tile
+  const float* th_blk = a.theta + ((size_t)s * B + r0) * K;
+  const float* v_smp = a.v + (size_t)s * K * D;
   const float* phi_smp = a.phi + (size_t)s * D;
-  const int n = (KP + KC - 1) / KC;
+  const int kpc = tf32x3::padded_kc(K), n = kpc / W_KC;
+  const bool res = kpc <= RL_KRES;              // theta on chip for the block's life
+  const int thp = res ? kpc + 4 : W_KC + 4;     // 4 mod 32
+  const int total = n * ((D + TD - 1) / TD);    // steps: chunk Q % n of tile Q / n
+  const auto load_v_step = [&](int Q) {
+    tf32x3::load_v<NT>(vraw + (Q & 1) * W_VRAW, v_smp, Q % n * W_KC, Q / n * TD, K, D, a.vec);
+  };
+  const auto load_th_step = [&](int Q) {
+    tf32x3::load_theta<NT>(th_s + (Q & 1) * W_THS, W_KC + 4, th_blk, B - r0, K, Q % n * W_KC,
+                           W_KC / 4, a.vec_theta);
+  };
+  const auto split_step = [&](int Q) {
+    tf32x3::split_v<NT>(vraw + (Q & 1) * W_VRAW, vhl + (Q & 1) * W_VHL, W_KC * W_VP);
+  };
 
-  load_x_tile(xl, a.x, r0, 0, B, D, a.vec);
-  load_lanes(xl + TB * TD, a, phi_smp, 0);
-  load_chunk(ring, a, s, r0, v_smp, 0, 0);
-  cp_async_commit();
-  if (tid < TB) row_sum[tid] = 0.0;
   if (HAS_POISSON<LIK> && tid < TABLE_N) tab_s[tid] = a.lgtab[tid];
-
-  int stage = 0, xst = 0;
-  for (int col0 = 0; col0 < D; col0 += TD, xst ^= 1) {
-    const bool more = col0 + TD < D;
-    float acc[RI][4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int q = 0; q < n; ++q, stage ^= 1) {
-      cp_async_wait_all();
-      __syncthreads();  // chunk q is in; the other stages' readers are done
-      if (q == 0 && more) {  // the next tile's x and lanes land under this decode
-        load_x_tile(xl + (xst ^ 1) * XL, a.x, r0, col0 + TD, B, D, a.vec);
-        load_lanes(xl + (xst ^ 1) * XL + TB * TD, a, phi_smp, col0 + TD);
-      }
-      if (q + 1 < n) load_chunk(ring + (stage ^ 1) * STAGE, a, s, r0, v_smp, (q + 1) * KC, col0);
-      else if (more) load_chunk(ring + (stage ^ 1) * STAGE, a, s, r0, v_smp, 0, col0 + TD);
-      cp_async_commit();
-      decode_chunk(ring + stage * STAGE, ring + stage * STAGE + TB * KC, min(KC, KP - q * KC), tx,
-                   ty, acc);
-    }
-    const float* xt = xl + xst * XL;
-    row_ll_cells<LIK, LOG>(a, acc, xt, xt + TB * TD, xt + TB * TD + TD, xt + TB * TD + 2 * TD,
-                           tab_s, row_sum, r0, col0);
-  }
+  if (res) tf32x3::load_theta<NT>(th_s, thp, th_blk, B - r0, K, 0, kpc / 4, a.vec_theta);
+  else load_th_step(0);
+  load_v_step(0);
+  if (total > 1) load_v_step(1);
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  if (tid < TB && r0 + tid < B) out[(size_t)s * B + r0 + tid] = (float)row_sum[tid];
+  split_step(0);
+
+  double sum0 = 0.0, sum8 = 0.0;                // rows rw + g and rw + g + 8, these columns
+  float T[RL_NJ][4];
+  for (int Q = 0; Q < total; ++Q) {
+    const int c = Q % n, col0 = Q / n * TD;
+    cp_async_wait_all();
+    __syncthreads();  // step Q's v is split, Q + 1's raw is in; step Q - 1 is read
+    if (!res && Q + 1 < total) load_th_step(Q + 1);
+    if (Q + 2 < total) load_v_step(Q + 2);
+    if (c == 0) {     // the last tile's cells are done
+      load_x_tile<NT>(x_s, a.x, r0, col0, B, D, a.vec, RL_XP);
+      load_lanes(lane_s, a, phi_smp, col0);
+    }
+    cp_async_commit();
+    if (Q + 1 < total) split_step(Q + 1);
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < RL_NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) T[j][i] = 0.0f;
+    }
+    tf32x3::decode_step<RL_PART, RL_NJ>(res ? th_s + c * W_KC : th_s + (Q & 1) * W_THS, thp,
+                                        vhl + (Q & 1) * W_VHL + cb, W_KC * W_VP,
+                                        tf32x3::chunk_ksteps(K, c), rw, T);
+    if (c == n - 1)   // x and the lanes landed by the top of the tile's second step
+      row_ll_cells_frag<LIK, LOG>(a, T, x_s, RL_XP, lane_s, tab_s, r0, rw, cb, col0, sum0,
+                                  sum8);
+  }
+  // a row's two halves, in a fixed order: the second half's doubles through
+  // shared memory (the x tile's room), added to the first's
+  if (RL_PARTS == 2) {
+    double* half_s = reinterpret_cast<double*>(x_s);  // [TB]
+    __syncthreads();  // every warp's cells are done
+    if (cb > 0 && t == 0) {
+      half_s[rw + g] = sum0;
+      half_s[rw + g + 8] = sum8;
+    }
+    __syncthreads();
+    if (cb == 0 && t == 0) {
+      sum0 += half_s[rw + g];
+      sum8 += half_s[rw + g + 8];
+    }
+  }
+  if (cb == 0 && t == 0) {
+    const size_t o = (size_t)s * B + r0 + rw + g;
+    if (r0 + rw + g < B) out[o] = (float)sum0;
+    if (r0 + rw + g + 8 < B) out[o + 8] = (float)sum8;
+  }
 }
 
 // ------------------------------------------------------------ launches
@@ -391,7 +431,7 @@ int launch_row_ll_wide(const CellArgs& a, float* out, cudaStream_t stream) {
   const int err = prepare(row_ll_wide_kernel<LIK, LOG>, smem);
   if (err != 0) return err;
   const int blocks = a.S * ((a.B + TB - 1) / TB);
-  row_ll_wide_kernel<LIK, LOG><<<blocks, THREADS, smem, stream>>>(a, out);
+  row_ll_wide_kernel<LIK, LOG><<<blocks, RL_THREADS, smem, stream>>>(a, out);
   return (int)cudaGetLastError();
 }
 
@@ -458,12 +498,12 @@ extern "C" int poisson_row_ll_wide(const float* theta, const float* v,
 
 // Registers a thread, static and dynamic shared memory a block and resident
 // blocks an SM of the Poisson identity-link instance of the wide K1 (kind 0;
-// its instance at padded K = 128) or K4 (kind 1), into info[0..3]; their
-// shared memory does not depend on K.
+// its instance at padded K = 128) or K4 (kind 1; one instance for both of
+// its routes), into info[0..3]; their shared memory does not depend on K.
 extern "C" int poisson_wide_kernel_info(int kind, int* info) {
   return kind == 1
              ? kernel_info(row_ll_wide_kernel<LIK_POISSON, false>,
-                           (int)sizeof(float) * row_ll_wide_smem_floats(), info)
+                           (int)sizeof(float) * row_ll_wide_smem_floats(), info, RL_THREADS)
              : kernel_info(stats_wide_kernel<W_NRES, LIK_POISSON>,
                            (int)sizeof(float) * stats_wide_smem_floats(), info);
 }

@@ -1,6 +1,7 @@
 // Split-TF32 products on the tensor cores, shared by csrc/fused_expsum.cu (K5,
-// whole-K and wide) and csrc/fused_poisson_wide.cu (the wide K1/K2), and the
-// K-chunked machinery of their two wide kernels.
+// whole-K and wide) and csrc/fused_poisson_wide.cu (the wide K1/K2, and the
+// wide K4, which runs the decode alone: decode_step, the loads and the split
+// of v), and the K-chunked machinery of their wide kernels.
 //
 // TF32 keeps 10 mantissa bits, too few for the tolerances these kernels are
 // held to (sums 1e-5 relative, gmin 1e-6, gradients 1e-4 of their largest
@@ -192,10 +193,11 @@ __device__ __forceinline__ void load_group(float* dst, const float* __restrict__
 
 // theta's rows of the block (th_blk, `rows` of them inside B, row stride K)
 // at latent dimensions k0 .. k0 + 4 kq - 1 into dst [TB][pitch], raw (zeros
-// past row B and past K)
+// past row B and past K), by the block's NT threads
+template <int NT = W_THREADS>
 __device__ __forceinline__ void load_theta(float* dst, int pitch, const float* __restrict__ th_blk,
                                            int rows, int K, int k0, int kq, bool vec_th) {
-  for (int p = threadIdx.x; p < W_TB * kq; p += W_THREADS) {
+  for (int p = threadIdx.x; p < W_TB * kq; p += NT) {
     const int r = p / kq, k = k0 + 4 * (p % kq);
     float* d = dst + r * pitch + (k - k0);
     if (r < rows) load_group(d, th_blk + (size_t)r * K + k, K - k, vec_th);
@@ -205,9 +207,10 @@ __device__ __forceinline__ void load_theta(float* dst, int pitch, const float* _
 
 // v's rows kc0 .. kc0 + 31 at columns col0 .. col0 + 63 into dst [KC][TD],
 // raw (zeros past K and D)
+template <int NT = W_THREADS>
 __device__ __forceinline__ void load_v(float* dst, const float* __restrict__ v_smp, int kc0,
                                        int col0, int K, int D, bool vec) {
-  for (int p = threadIdx.x; p < W_KC * (W_TD / 4); p += W_THREADS) {
+  for (int p = threadIdx.x; p < W_KC * (W_TD / 4); p += NT) {
     const int j = p / (W_TD / 4), gi = p % (W_TD / 4), k = kc0 + j, c = col0 + 4 * gi;
     float* d = dst + j * W_TD + 4 * gi;
     if (k < K) load_group(d, v_smp + (size_t)k * D + c, D - c, vec);
@@ -216,8 +219,9 @@ __device__ __forceinline__ void load_v(float* dst, const float* __restrict__ v_s
 }
 
 // a raw v chunk [KC][TD] split into hi [KC][VP] and lo (lo_off floats on)
+template <int NT = W_THREADS>
 __device__ __forceinline__ void split_v(const float* src, float* hi, int lo_off) {
-  for (int p = threadIdx.x; p < W_KC * (W_TD / 4); p += W_THREADS) {
+  for (int p = threadIdx.x; p < W_KC * (W_TD / 4); p += NT) {
     const int k = p / (W_TD / 4), c = 4 * (p % (W_TD / 4));
     const float4 x = *reinterpret_cast<const float4*>(src + k * W_TD + c);
     uint32_t h[4], l[4];
@@ -230,23 +234,24 @@ __device__ __forceinline__ void split_v(const float* src, float* hi, int lo_off)
   }
 }
 
-// T (C fragments of the warp's 16 x 64 tile, n8 tile j) += theta_w @ v_c
+// T (C fragments of the warp's 16 x 8 NJ tile, n8 tile j) += theta_w @ v_c
 // over the chunk's nks k-steps, through a fresh partial every PART k-steps
 // (4: one a chunk). th: the chunk's first latent dimension of the block's
-// row 0, raw, rows thp floats apart (4 mod 32; A split here, once for all 8
-// n8 tiles); vh: the chunk's split v, hi, lo vlo floats on.
-template <int PART>
+// row 0, raw, rows thp floats apart (4 mod 32; A split here, once for all
+// NJ n8 tiles); vh: the chunk's split v at the warp's first column, hi, lo
+// vlo floats on.
+template <int PART, int NJ = 8>
 __device__ __forceinline__ void decode_step(const float* th, int thp, const float* vh, int vlo,
-                                            int nks, int rw, float (&T)[8][4]) {
+                                            int nks, int rw, float (&T)[NJ][4]) {
   static_assert(W_KSC % PART == 0, "whole partials in a chunk");
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  float part[8][4];
+  float part[NJ][4];
 #pragma unroll
   for (int ks = 0; ks < W_KSC; ++ks) {
     if (ks < nks) {
       if (ks % PART == 0) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
       }
@@ -260,12 +265,12 @@ __device__ __forceinline__ void decode_step(const float* th, int thp, const floa
       // b0 = v[8 ks + t][8 j + g], b1 four rows on
       const int ob = (8 * ks + t) * W_VP + g;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
         mma3(part[j], ah, al, bits(vh[ob + 8 * j]), bits(vh[ob + 4 * W_VP + 8 * j]),
              bits(vh[vlo + ob + 8 * j]), bits(vh[vlo + ob + 4 * W_VP + 8 * j]));
       if (ks % PART == PART - 1 || ks == nks - 1) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) T[j][i] += part[j][i];
       }

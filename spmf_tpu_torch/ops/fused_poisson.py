@@ -32,7 +32,7 @@ eta), is ``fused_exp_rate_sum``; like K1 its kernel emits the gradients at
 unit cotangent from the same tiles, so the backward is a rescale.
 
 Each wrapper launches its kernel (K1/K2 and K4 in ``csrc/fused_poisson.cu``,
-or past the latent dimensions whose tiles fit a block in
+or past the latent dimensions its whole-K kernel takes in
 ``csrc/fused_poisson_wide.cu``; K5 in ``csrc/fused_expsum.cu``) for CUDA
 tensors, at every latent dimension K >= 1, and runs its twin
 (``stats_twin``, ``row_loglik_twin``, ``expsum_twin``) for CPU tensors. The
@@ -102,7 +102,8 @@ def _split_likelihood(likelihood):
 #: kernel launches, counted by the wrappers where they launch: "stats" for
 #: clip='reference' (K1), "static" for clip='static' (K2), "row_ll" (K4) and
 #: "expsum" (K5); with "_wide" where the K-chunked kernel ran (past the
-#: latent dimensions whose whole-K tiles fit a block)
+#: latent dimensions the whole-K kernels take: K1/K2 padded K > 124, K4 and
+#: K5 K > 64)
 LAUNCHES = {"stats": 0, "static": 0, "row_ll": 0, "expsum": 0,
             "stats_wide": 0, "static_wide": 0, "row_ll_wide": 0,
             "expsum_wide": 0}
@@ -303,14 +304,13 @@ _EXPSUM_SIGNATURES = {"poisson_expsum": [_P] * 6 + [_I] * 4 + [_P],
 # libraries' poisson_smem_bytes and expsum_smem_bytes).
 _THREADS, _TB, _TD, _K_STEP = 256, 128, 64, 4
 _TBP, _TP, _NLANE, _TABLE_N = _TB + 4, _TD + 4, 3, 64
-# the wide K4: chunks of KC latent dimensions, two stages of theta's rows
-# [TB][KC] and v's rows [KC][TP]
-_KC = 28
-_STAGE = _TB * _KC + _KC * _TP
 # K5: k-steps of 8 (mma.m16n8k8), an instance per k-step to K = 64 (its
 # dtheta sums live in registers); v and G tiles at pitch 72, two blocks an
 # SM to K = 32
-_EXPSUM_K_STEP, _EXPSUM_K_MAX, _VP = 8, 64, _TD + 8
+_EXPSUM_K_STEP, _VP = 8, _TD + 8
+# the switches of K4 and K5: their whole-K kernels to padded K = 64, the
+# split-TF32 wide kernels past it (K1/K2's whole-K tiles end where they fit)
+_WHOLE_K_MAX = {"row_ll": 64, "expsum": 64}
 # the wide K1/K2 and K5 (csrc/split_tf32.cuh): chunks of 32 latent
 # dimensions; one size of shared memory, the larger of the layout that keeps
 # everything on chip to padded K = 128 (theta [128][132], the tile's split
@@ -320,6 +320,13 @@ _EXPSUM_K_STEP, _EXPSUM_K_MAX, _VP = 8, 64, _TD + 8
 _W_KC = 32
 _W_RES = (_TB * (4 * _W_KC + 4) + 2 * 4 * _W_KC * (_TD + 8) + 2 * _W_KC * _TD
           + 2 * _TB * (_TD + 4))
+# the wide K4 on the same decode: theta on chip to padded K = 256 ([128][260];
+# past it two streamed chunks), two raw v chunks [32][64], two split ones
+# [2][32][72], one x tile at pitch 72, its lanes, the table
+_RL_KRES = 256
+_RL_WIDE = (_TB * (_RL_KRES + 4) + 2 * _W_KC * _TD + 2 * 2 * _W_KC * _VP
+            + _TB * (_TD + 8) + _NLANE * _TD + _TABLE_N)
+_RL_THREADS = 512           # 16 warps: 8 row groups x 2 column halves
 _STATIC_SMEM = {"stats": 128, "expsum": 8 * 8, "row_ll": 8 * _TB}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 _SMEM_PER_SM = 233472       # ... and an SM holds, each block reserving 1 KB
@@ -357,10 +364,10 @@ class LaunchGeometry(typing.NamedTuple):
 def launch_geometry(kind, S, B, K, D):
     """The launch geometry of K1/K2 (``'stats'``), K4 (``'row_ll'``) or K5
     (``'expsum'``) at theta (S, B, K) and D features: the whole-K kernel
-    while its tiles fit a block's shared memory (K1/K2 to padded K = 124, K4
-    to 152, K5 to K = 64), the K-chunked wide kernel past that; raises
-    ``ValueError`` only for K < 1. Plain arithmetic on the tiling
-    constants: no card needed."""
+    while its tiles fit a block's shared memory (K1/K2 to padded K = 124)
+    or to its switch (K4 and K5 to K = 64), the K-chunked wide kernel past
+    that; raises ``ValueError`` only for K < 1. Plain arithmetic on the
+    tiling constants: no card needed."""
     if kind not in _STATIC_SMEM:
         raise ValueError(f"unknown kernel kind {kind!r}")
     if K < 1:
@@ -371,9 +378,9 @@ def launch_geometry(kind, S, B, K, D):
     v_tile = (kp + _NLANE) * _TP          # v rows, then eta, phi, codes
     if kind == "row_ll":                  # theta^T, 2 x (v, x), the table
         floats = kp * _TBP + 2 * v_tile + 2 * _TB * _TD + _TABLE_N
-        # wide: the chunk ring, 2 x (x, lanes), the table
-        wide = 2 * _STAGE + 2 * (_TB * _TD + _NLANE * _TD) + _TABLE_N
-        stages, wide_chunk = 2, _KC
+        # wide: the split-TF32 decode's layout, x and its lanes, the table
+        wide = _RL_WIDE
+        stages, wide_chunk = 2, _W_KC
     elif kind == "stats":  # theta^T, dtheta, v, x, dtv, dphi, the table
         floats = (kp * _TBP + _TB * kp + v_tile + _TB * _TD + _TB * _TP
                   + _TD + _TABLE_N)
@@ -388,18 +395,21 @@ def launch_geometry(kind, S, B, K, D):
         # wide: the split-TF32 layout, eta
         wide = _W_RES + _TD
         stages, wide_chunk = 2, _W_KC
-    fits = (kp <= _EXPSUM_K_MAX if kind == "expsum"
+    fits = (kp <= _WHOLE_K_MAX[kind] if kind in _WHOLE_K_MAX
             else 4 * floats + static <= _SMEM_LIMIT)
     chunk = kp if fits else wide_chunk
     if not fits:                          # the wide kernels: two stages
         floats, stages = wide, 2
+        if kind == "row_ll":              # no static shared memory
+            static = 0
     smem = 4 * floats
     blocks = _SMEM_PER_SM // (smem + static + 1024)
     if kind == "expsum" and fits:  # __launch_bounds__(256, 2) to K = 32
         blocks = min(blocks, 2 if kp <= 32 else 1)
     row_tiles = -(-B // _TB)
+    threads = _RL_THREADS if kind == "row_ll" and not fits else _THREADS
     return LaunchGeometry(
-        kind=kind, samples=S, rows=B, threads=_THREADS, row_tile=_TB,
+        kind=kind, samples=S, rows=B, threads=threads, row_tile=_TB,
         col_tile=_TD, k_step=k_step, k_padded=kp, k_chunk=chunk,
         chunks=-(-kp // chunk), stages=stages, smem_bytes=smem,
         static_smem_bytes=static, blocks_per_sm=blocks,

@@ -200,10 +200,12 @@ def test_launch_geometry_at_the_model_widths(kind):
         tfp.launch_geometry("k7", 8, 4096, 32, 20000)
 
 
-#: the latent dimensions past one kernel's whole-K tiles or another (K5's
-#: instances end at 64, K1/K2's tiles at padded K = 124, K4's at 152)
-WIDE_K = (65, 125, 128, 153, 256, 512, 1024)
-WHOLE_K_LIMIT = {"stats": 124, "row_ll": 152, "expsum": 64}
+#: the latent dimensions past one kernel's whole-K tiles or another (K4's
+#: and K5's whole-K kernels end at their switch, 64, K1/K2's tiles at padded
+#: K = 124); 153 past the wide K4's first design, 257 and past where the
+#: wide K4's theta streams
+WIDE_K = (65, 125, 128, 153, 256, 257, 512, 1024)
+WHOLE_K_LIMIT = {"stats": 124, "row_ll": 64, "expsum": 64}
 
 
 @pytest.mark.parametrize("kind", ["stats", "row_ll", "expsum"])
@@ -211,11 +213,12 @@ WHOLE_K_LIMIT = {"stats": 124, "row_ll": 152, "expsum": 64}
 def test_launch_geometry_past_the_whole_k_tiles(K, kind):
     """Every K gets a geometry that fits a Hopper block's shared memory,
     whose chunks cover the padded latent dimension, and whose blocks own
-    every (sample, row) once. Past the whole-K tiles: the wide K4 takes two
-    stages of 28 latent dimensions and two blocks an SM; the split-TF32 wide
-    K1/K2 and K5 take chunks of 32 (four mma k-steps), two stages of them
-    when they stream (padded K > 128), and one block an SM (231,552 and
-    228,672 bytes of the SM's 233,472 with the 1 KB each block reserves)."""
+    every (sample, row) once. Past the whole-K kernels the split-TF32 wide
+    K1/K2, K4 and K5 take chunks of 32 (four mma k-steps), two stages of
+    them where they stream (K1/K2 and K5 past padded K = 128; K4's raw v
+    always, its theta past 256), and one block an SM (231,552, 225,280 and
+    228,672 bytes of the SM's 233,472 with the 1 KB each block reserves);
+    the wide K4 runs 16 warps, the others 8."""
     S, B, D = 2, 1000, 19997
     g = tfp.launch_geometry(kind, S, B, K, D)
     assert g.k_padded % g.k_step == 0 and K <= g.k_padded < K + g.k_step
@@ -224,10 +227,9 @@ def test_launch_geometry_past_the_whole_k_tiles(K, kind):
     assert (g.chunks > 1) == (g.k_padded > WHOLE_K_LIMIT[kind])
     if g.chunks > 1:
         assert g.stages == 2 and g.k_chunk % g.k_step == 0
-        per_sm = 2 if kind == "row_ll" else 1
-        assert g.k_chunk == (28 if kind == "row_ll" else 32)
-        assert g.blocks_per_sm == per_sm
-        assert per_sm * (g.smem_bytes + g.static_smem_bytes + 1024) <= 233472
+        assert g.k_chunk == 32 and g.blocks_per_sm == 1
+        assert g.smem_bytes + g.static_smem_bytes + 1024 <= 233472
+        assert g.threads == (512 if kind == "row_ll" else 256)
     assert g.grid == S * g.row_tiles
     owned = np.zeros((S, B), np.int64)
     for i in range(g.grid):

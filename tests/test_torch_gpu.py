@@ -154,8 +154,8 @@ def test_row_ll_kernel_is_deterministic(cuda):
         assert torch.equal(first, second)
 
 
-#: latent dimensions past the whole-K tiles of one kernel or another: K5's
-#: instances end at 64, K1/K2's tiles at 124, K4's at 152
+#: latent dimensions past the whole-K kernels of one kernel or another: K4's
+#: and K5's end at their switch, 64, K1/K2's tiles at 124
 WIDE_K = (65, 128, 256)
 
 
@@ -186,11 +186,10 @@ def test_launch_geometry_matches_the_library(cuda, kind):
     geom = tfp.launch_geometry(kind, 8, 4096, wide, 20000)
     assert geom.chunks > 1 and info["smem_bytes"] == geom.smem_bytes
     assert info["static_smem_bytes"] <= geom.static_smem_bytes
-    # the wide K4 keeps two blocks an SM under 128 registers; the split-TF32
-    # wide K1/K2 and K5 take one block an SM and up to 255 registers
-    per_sm, regs = (2, 128) if kind == "row_ll" else (1, 255)
-    assert info["blocks_per_sm"] == geom.blocks_per_sm == per_sm
-    assert info["registers"] <= regs
+    # the split-TF32 wide K1/K2, K4 and K5 take one block an SM and up to
+    # 255 registers
+    assert info["blocks_per_sm"] == geom.blocks_per_sm == 1
+    assert info["registers"] <= 255
 
 
 def _wide_inputs(K, dev, seed):
@@ -233,11 +232,17 @@ def test_kernels_match_twin_at_wide_latent_dims(cuda, K, log_transform):
                                rtol=1e-5)
 
 
-def test_row_ll_kernel_rescue_rows_are_nan(cuda):
-    args = _stats_inputs(2, 150, 6, 400, cuda, seed=4)
+@pytest.mark.parametrize("K", [6, 128])
+def test_row_ll_kernel_rescue_rows_are_nan(cuda, K):
+    """K = 6 on the whole-K kernel, K = 128 on the split-TF32 wide one."""
+    args = _stats_inputs(2, 150, K, 400, cuda, seed=4)
+    args[1] *= min(1.0, (8.0 / K) ** 0.5)
     args[2][1, :, 5] = -1e-3     # sample 1, column 5: a negative intercept
     args[0][1, [3, 70, 149]] = 0.0  # ...which is the rate of these rows
+    key = "row_ll_wide" if K > 64 else "row_ll"
+    before = tfp.LAUNCHES[key]
     out_k = tfp._kernel_row_ll(*args, False).cpu().numpy()
+    assert tfp.LAUNCHES[key] == before + 1
     out_t = tfp.row_loglik_twin(*[a.double() for a in args]).cpu().numpy()
     nan_t = np.isnan(out_t)
     assert nan_t.sum() == 3 and nan_t[1, [3, 70, 149]].all()
@@ -634,6 +639,51 @@ def test_wide_stats_kernel_likelihoods_match_twin(cuda, name, static,
                                rtol=1e-6)
     for k, t in zip(out_k[3:], out_t[3:]):
         assert _rel_max(k, t) < 1e-4
+
+
+@pytest.mark.parametrize("log_transform", [False, True])
+@pytest.mark.parametrize("name", ["poisson"] + list(SELECTORS))
+def test_wide_row_ll_kernel_likelihoods_match_twin(cuda, name, log_transform):
+    """The split-TF32 wide K4 at K = 128 (S=2, B=300, D=997: no tile
+    multiples) for the five likelihoods and both links, against the
+    float64 twin at 1e-5; the wide kernel is the one that launches
+    (tests/test_torch_row_ll_split.py emulates its decode here)."""
+    lik = SELECTORS.get(name, name)
+    if name == "poisson":
+        args, codes = _wide_inputs(128, cuda, seed=11), None
+    else:
+        args, codes = _likelihood_inputs(name, 2, 300, 128, 997, cuda,
+                                         seed=11)
+    assert tfp.launch_geometry("row_ll", 2, 300, 128, 997).chunks > 1
+    before = tfp.LAUNCHES["row_ll_wide"]
+    out_k = tfp._kernel_row_ll(*args, log_transform, lik, codes)
+    out_t = tfp.row_loglik_twin(*[a.double() for a in args],
+                                log_transform=log_transform, likelihood=lik,
+                                codes=codes)
+    torch.cuda.synchronize()
+    assert tfp.LAUNCHES["row_ll_wide"] == before + 1
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_t.cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [128, 256, 300])
+def test_wide_row_ll_kernel_is_deterministic(cuda, K):
+    """The wide K4 on theta held on chip (K = 128, 256) and streamed (K =
+    300), S=8, B=1000, D=19,997: each row sum is a fixed-order sum held by
+    one owner lane and stored once, so two launches give the same bits,
+    and both are within 1e-5 of the float64 twin."""
+    args = _stats_inputs(8, 1000, K, 19997, cuda, seed=12)
+    args[1] *= min(1.0, (8.0 / K) ** 0.5)
+    assert tfp.launch_geometry("row_ll", 8, 1000, K, 19997).chunks > 1
+    for log_transform in (False, True):
+        first = tfp._kernel_row_ll(*args, log_transform)
+        second = tfp._kernel_row_ll(*args, log_transform)
+        out_t = tfp.row_loglik_twin(*[a.double() for a in args],
+                                    log_transform=log_transform)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        np.testing.assert_allclose(first.cpu().numpy(), out_t.cpu().numpy(),
+                                   rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["poisson_softplus", "mixed"])

@@ -105,8 +105,9 @@ def test_row_ll_twin_matches_interpreted_kernel_f32(log_transform):
 
 @pytest.mark.parametrize("log_transform", [False, True])
 def test_row_ll_twin_matches_interpreted_kernel_f32_at_k128(log_transform):
-    """The same at K = 128 (the port's K4 takes its whole-K kernel there
-    to padded K = 152, the K-chunked one past it)."""
+    """The same at K = 128 (the port's K4 takes its split-TF32 wide kernel
+    there, past padded K = 64; tests/test_torch_row_ll_split.py emulates
+    its arithmetic)."""
     _check_row_ll_against_interpreted_kernel(
         _row_inputs(seed=2, rescue=True, latent=128), log_transform)
 

@@ -708,7 +708,8 @@ def philox_draws(model, seed, dev, stratified=False, sample_size=S):
         base = torch.randint(0, 1 << 23, (tot_n,), generator=g,
                              dtype=torch.int64, device=dev)
         eps_h = torch.special.ndtri(lattice_uniform(None, half, (tot_n,),
-                                                    f64, dev, bits=base))
+                                                    f64, device=dev,
+                                                    bits=base))
         normal_eps = torch.cat([eps_h, -eps_h])
     seeds = [int(torch.randint(0, 2**31 - 1, (1,), generator=g,
                                dtype=torch.int32, device=dev))
@@ -3507,6 +3508,7 @@ def main():
     from spmf_tpu_torch.ops import fused_poisson as tfp
     from spmf_tpu_torch.utils import params_from_numpy
     from spmf_tpu_torch.vi.minibatch import _device_batch
+    from spmf_tpu_torch.vi.waic import waic
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -4281,6 +4283,25 @@ def main():
            f"{ll['per_row']:.4f} in {ll_s:.2f} s ({B_SPARSE / ll_s:.0f} "
            f"rows/s); launches {scoring}; waic(subsample='batch') "
            f"{ {k: round(v, 3) for k, v in w.items()} }")
+
+    # waic with spmf_tpu's positional order (dtype 7th, sample_chunk 8th)
+    # against the keyword call, from the same seed: K4 is deterministic, so
+    # the two agree bit for bit
+    held_batches = list(held)
+    score_args = (scorer._row_log_likelihood, scorer._surrogate,
+                  scorer.surrogate_params, lambda: iter(held_batches))
+    k4 = [tfp.LAUNCHES["row_ll"]]
+    w_pos = waic(*score_args, 20, 3, scorer.dtype, 8)
+    k4.append(tfp.LAUNCHES["row_ll"])
+    w_kw = waic(*score_args, num_samples=20, seed=3, sample_chunk=8,
+                dtype=scorer.dtype, device=scorer.device)
+    k4.append(tfp.LAUNCHES["row_ll"])
+    k4 = np.diff(k4).tolist()
+    check(k4[0] == k4[1] >= 3, f"positional waic: K4 launches {k4}")
+    check(w_pos == w_kw and np.isfinite(w_pos["waic"]),
+          f"positional waic {w_pos} against keywords {w_kw}")
+    say(8, f"waic in spmf_tpu's positional order equals the keyword call "
+           f"bit for bit: {w_pos}")
 
     # the COO row log-likelihood at a small size: K4 (f32, card) vs the
     # plain float64 path on the same samples

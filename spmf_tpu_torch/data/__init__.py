@@ -65,7 +65,7 @@ class ArrayDataset:
     def prefetch(self, n=None):
         return self
 
-    def to_device(self, dtype=None, device=None):
+    def to_device(self, dtype=None, *, device=None):
         """Move the whole dataset onto ``device`` (a ``DeviceArrayDataset``;
         None means the card), keeping the shuffle and batch settings;
         floating arrays are cast to ``dtype`` when one is given."""
@@ -109,7 +109,7 @@ class DeviceArrayDataset:
 
     def __init__(self, tensors: Dict, batch_size: Optional[int] = None,
                  shuffle: bool = False, seed: int = 0,
-                 drop_remainder: bool = False, dtype=None, device=None):
+                 drop_remainder: bool = False, dtype=None, *, device=None):
         self.device = canonical_device(device)
         self.tensors = {}
         for k, v in tensors.items():

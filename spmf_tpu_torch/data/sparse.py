@@ -156,7 +156,7 @@ class SparseCounts:
         self._pad_bs = None
         return self
 
-    def to_device(self, max_nnz=None, dtype=None, block_rows=None,
+    def to_device(self, max_nnz=None, dtype=None, block_rows=None, *,
                   device=None):
         """Move the CSR structure onto ``device`` (``DeviceSparseCounts``),
         keeping the shuffle and batch settings. ``block_rows=R`` builds the
@@ -246,7 +246,7 @@ class DeviceSparseCounts:
 
     def __init__(self, sparse: SparseCounts, batch_size=None, shuffle=False,
                  seed=0, drop_remainder=False, max_nnz=None, dtype=None,
-                 block_rows=None, device=None):
+                 block_rows=None, *, device=None):
         self._host = sparse
         self.shape = sparse.shape
         self.num_rows = sparse.num_rows

@@ -57,6 +57,7 @@ class PoissonAutoencoder(BayesianModel):
         mesh=None,
         count_key=None,
         dtype=None,
+        *,
         device=None,
         **kwargs,
     ):

@@ -97,7 +97,7 @@ _ENGINE = ("convergence_window", "decay_schedule", "elbo_estimator",
 
 class BayesianModel:
     def __init__(self, data=None, data_transform_fn=None, strategy=None,
-                 mesh=None, dtype=None, device=None):
+                 mesh=None, dtype=None, *, device=None):
         """``mesh``: a ``spmf_tpu_torch.parallel.Mesh`` of the ranks this
         model trains on (rows over dp, the feature dim over fp), or None
         for one process."""

@@ -248,6 +248,7 @@ class PoissonFactorization(BayesianModel):
         aux_broadcast=False,
         sparse_dense_scatter=None,
         likelihood_clip="reference",
+        *,
         device=None,
         **kwargs,
     ):
@@ -712,9 +713,9 @@ class PoissonFactorization(BayesianModel):
         if not self._meshed():
             return fused_poisson_loglik(theta, B, phi, x, self.eta_i,
                                         self.log_transform,
-                                        self._fused_kind(),
-                                        self.likelihood_clip,
-                                        codes=self._codes_lane())
+                                        likelihood=self._fused_kind(),
+                                        codes=self._codes_lane(),
+                                        clip=self.likelihood_clip)
         width = x.shape[-1]
         return fused_poisson_loglik_sharded(
             theta, B, phi, x, self._lane(self.eta_i, width), self.mesh,

@@ -36,6 +36,7 @@ class DenseHorseshoe:
         activation=tfb.softplus,
         weight_scale: float = 1.0,
         dtype=None,
+        *,
         device=None,
     ):
         self.input_size = int(input_size)
@@ -73,7 +74,7 @@ class DenseHorseshoe:
         return tfd.JointDistributionNamed(prior)
 
     def assemble_networks(self, params: Dict[str, torch.Tensor],
-                          activation=None, mesh=None):
+                          activation=None, *, mesh=None):
         """``net(x)`` applying the sampled layers, the activation after
         every layer but the last; sample dims broadcast (x: (B, D_in), w_l:
         (..., d_in, d_out) -> out (..., B, d_out)).

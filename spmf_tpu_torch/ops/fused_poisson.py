@@ -592,7 +592,7 @@ class _FusedStats(torch.autograd.Function):
 
 
 def fused_poisson_loglik(theta, v, phi, x, eta, log_transform=False,
-                         likelihood="poisson", clip="reference", codes=None):
+                         likelihood="poisson", codes=None, clip="reference"):
     """Per-sample clipped log-likelihood sums, shape (S,), float32.
 
     theta (S,B,K), v (S,K,D), phi (S,1,D), x (B,D), eta (1,D) or anything
@@ -660,7 +660,8 @@ def fused_poisson_loglik_sharded(theta, v, phi, x, eta, mesh,
     axes = (rows or ()) + ((fp,) if fp is not None else ())
     if not axes:
         return fused_poisson_loglik(theta, v, phi, x, eta, log_transform,
-                                    likelihood, clip, codes)
+                                    likelihood=likelihood, codes=codes,
+                                    clip=clip)
     f32 = torch.float32
     theta = theta.to(f32).contiguous()
     v = v.to(f32).contiguous()

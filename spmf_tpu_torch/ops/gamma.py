@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spmf_tpu_torch.config import canonical_device
+
 __all__ = ["exact_gamma", "lattice_shift", "lattice_uniform", "sample_gamma",
            "wilson_hilferty_gamma"]
 
@@ -116,8 +118,8 @@ def _gens_tensor(gens, device):
     return _GENS[key]
 
 
-def lattice_uniform(generator, half, shape, dtype, device, gens=None,
-                    bits=None):
+def lattice_uniform(generator, half, shape, dtype, gens=None, *,
+                    device=None, bits=None):
     """``(half,) + shape`` uniforms stratified across the leading (pair)
     axis: one 23-bit base integer per coordinate; pair ``p`` adds the
     lattice shift floor((p g mod half) 2^23 / half) in the bit domain
@@ -126,11 +128,15 @@ def lattice_uniform(generator, half, shape, dtype, device, gens=None,
     is finite and 1 - u exact. Each pair's u is marginally uniform.
 
     ``gens``: optional generators, one per ``shape[0]`` (default 1 for every
-    coordinate). ``bits`` (tests): the base integers, of ``shape``, in place
-    of the generator's draw."""
+    coordinate). ``device``: the generator's by default, else the card's.
+    ``bits`` (tests): the base integers, of ``shape``, in place of the
+    generator's draw."""
     if half > 65536:
         raise ValueError(f"lattice_uniform supports at most 65536 pairs, "
                          f"got {half}")
+    if device is None:
+        device = (generator.device if generator is not None
+                  else canonical_device())
     if bits is None:
         bits = torch.randint(0, 1 << 23, tuple(shape), generator=generator,
                              dtype=torch.int64, device=device)
@@ -170,10 +176,11 @@ def _mirror_base_draws(generator, shape, dtype, device, boost,
     if stratified:
         bits_e, bits_u = (None, None) if bits is None else bits
         eps_h = torch.special.ndtri(lattice_uniform(
-            generator, H, rest, dtype, device, bits=bits_e))
+            generator, H, rest, dtype, device=device, bits=bits_e))
         eps = torch.cat([eps_h, -eps_h], dim=0)
-        u_b = lattice_uniform(generator, H, (boost,) + rest, dtype, device,
-                              gens=_LATTICE_GENS[1:boost + 1], bits=bits_u)
+        u_b = lattice_uniform(generator, H, (boost,) + rest, dtype,
+                              gens=_LATTICE_GENS[1:boost + 1], device=device,
+                              bits=bits_u)
         u_h = torch.movedim(u_b, 0, 1)          # (boost, H) + rest
         # the grid is symmetric about 1/2: 1 - u is exact and >= 2^-24
         return eps, torch.cat([u_h, 1.0 - u_h], dim=1)
@@ -187,7 +194,7 @@ def _mirror_base_draws(generator, shape, dtype, device, boost,
 
 
 def wilson_hilferty_gamma(generator, concentration, boost: int = _BOOST,
-                          antithetic: bool = False, draws=None):
+                          antithetic: bool = False, *, draws=None):
     """Pathwise-differentiable Gamma(concentration, 1) sampler.
     ``antithetic``: mirror the base draws across the leading (sample) axis;
     'stratified' also lattice-couples the pairs (``_mirror_base_draws``).
@@ -226,7 +233,7 @@ def exact_gamma(generator, concentration):
 
 
 def sample_gamma(generator, concentration, method: str = "exact",
-                 antithetic: bool = False, draws=None):
+                 antithetic: bool = False, *, draws=None):
     """Gamma(concentration, 1) with selectable gradient machinery:
     - 'exact': rejection sampling with implicit reparameterisation
       gradients (``exact_gamma``);

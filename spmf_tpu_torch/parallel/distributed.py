@@ -27,6 +27,7 @@ __all__ = ["initialize_distributed", "global_mesh", "process_local_rows",
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
+                           *,
                            backend: Optional[str] = None,
                            timeout: Optional[float] = None,
                            device=None) -> bool:

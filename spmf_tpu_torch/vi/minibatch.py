@@ -333,28 +333,30 @@ def fit_surrogate_posterior(
     convergence_window: int = 8,
     seed: int = 0,
     dtype=torch.float32,
-    device=None,
+    mesh=None,
     checkpoint_dir: Optional[str] = None,
     verbose: bool = True,
-    decay_schedule: Optional[str] = None,
-    elbo_estimator: str = "standard",
-    antithetic: bool = False,
     opt_state=None,
-    resume_from: Optional[str] = None,
-    checkpoint_full_state: bool = True,
-    epoch_scan: Optional[bool] = None,
-    epoch_chunk: Optional[int] = None,
-    prefetch: int = 2,
     profile_dir: Optional[str] = None,
     remat_sampling: Optional[bool] = None,
-    mesh=None,
     param_sharding: str = "auto",
+    decay_schedule: Optional[str] = None,
+    prefetch: int = 2,
+    resume_from: Optional[str] = None,
+    elbo_estimator: str = "standard",
+    antithetic: bool = False,
+    epoch_scan: Optional[bool] = None,
+    epoch_chunk: Optional[int] = None,
+    checkpoint_full_state: bool = True,
+    *,
+    device=None,
 ) -> FitResult:
     """Run minibatch ADVI. The displayed per-batch loss is -ELBO / rows,
     the ELBO estimated by ``sample_size`` x ``sample_batches`` samples;
     ``prior_weight = batch_size / dataset_size`` is forwarded to the
     energy. Randomness comes from one ``torch.Generator`` seeded with
-    ``seed`` on the parameters' device. ``antithetic``: mirror the
+    ``seed`` on ``device`` (keyword-only; the parameters' device by
+    default). The positional order is spmf_tpu's. ``antithetic``: mirror the
     surrogate's base draws across the (even) sample axis; 'stratified' also
     couples the S/2 pairs on a randomly shifted Korobov lattice.
 

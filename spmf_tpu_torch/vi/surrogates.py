@@ -72,7 +72,7 @@ class TrainableNormal(_Trainable):
     """Mean-field Normal with trainable loc and softplus-parameterized
     scale."""
 
-    def __init__(self, loc, scale, event_ndims=None, dtype=None,
+    def __init__(self, loc, scale, event_ndims=None, dtype=None, *,
                  device=None):
         loc, scale = np.asarray(loc), np.asarray(scale)
         super().__init__(np.broadcast_shapes(loc.shape, scale.shape),
@@ -96,7 +96,7 @@ class TrainableInverseGamma(_Trainable):
     """Trainable InverseGamma surrogate (softplus-parameterized
     concentration and scale), for the horseshoe+ auxiliaries."""
 
-    def __init__(self, concentration, scale, event_ndims=None, dtype=None,
+    def __init__(self, concentration, scale, event_ndims=None, dtype=None, *,
                  device=None):
         conc, scale = np.asarray(concentration), np.asarray(scale)
         super().__init__(np.broadcast_shapes(conc.shape, scale.shape),
@@ -327,7 +327,7 @@ class SurrogatePosterior:
 
                     eps_h = torch.special.ndtri(lattice_uniform(
                         generator, S // 2, (total,), self.dtype,
-                        self.device))
+                        device=self.device))
                 else:
                     eps_h = torch.randn((S // 2, total), generator=generator,
                                         dtype=self.dtype, device=self.device)
@@ -580,8 +580,8 @@ class SurrogatePosterior:
         return values, logq
 
     def sample_and_log_prob(self, params, generator, sample_shape=(),
-                            antithetic=False, draws=None,
-                            apply_broadcast=True, logq_params=None):
+                            apply_broadcast=True, logq_params=None,
+                            antithetic=False, *, draws=None):
         """Joint reparameterized sample and log q. ``antithetic``: mirror
         the base draws across the (1-d, even) sample axis; 'stratified'
         also lattice-couples the pairs (``ops.gamma.lattice_uniform``, and
@@ -693,7 +693,7 @@ class SurrogatePosterior:
 
 
 def build_trainable_normal_dist(loc, scale, ndims=None, dtype=None,
-                                strategy=None, device=None):
+                                strategy=None, *, device=None):
     """API-parity helper (``strategy`` accepted and ignored)."""
     del strategy
     return TrainableNormal(loc, scale, event_ndims=ndims, dtype=dtype,
@@ -701,7 +701,7 @@ def build_trainable_normal_dist(loc, scale, ndims=None, dtype=None,
 
 
 def build_trainable_InverseGamma_dist(concentration, scale, ndims=None,
-                                      dtype=None, strategy=None,
+                                      dtype=None, strategy=None, *,
                                       device=None):
     del strategy
     return TrainableInverseGamma(concentration, scale, event_ndims=ndims,

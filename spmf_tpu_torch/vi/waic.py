@@ -71,8 +71,9 @@ def waic(
     batched_data_factory: Callable,
     num_samples: int = 100,
     seed: int = 1,
-    sample_chunk: int = 8,
     dtype=torch.float32,
+    sample_chunk: int = 8,
+    *,
     device=None,
     mesh=None,
 ) -> dict:
@@ -81,7 +82,8 @@ def waic(
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the surrogate's
     by default). Returns {'waic', 'se', 'lppd', 'pwaic', 'n_rows'}.
     ``mesh``: score each batch's part on this rank (see the module
-    docstring)."""
+    docstring). The positional order is spmf_tpu's; ``device`` and
+    ``mesh``, the port's own, are keyword-only."""
     if mesh is not None:
         mesh.check_member("waic")
     if mesh is not None and mesh.trivial:

@@ -57,7 +57,7 @@ def test_lattice_uniform_matches_jax_bit_for_bit(half, gens, dtype):
     uj, bits = _jax_lattice(half, gens, shape)
     uj = uj[dtype]
     ut = tgamma.lattice_uniform(None, half, shape, getattr(torch, dtype),
-                                "cpu", gens=gens, bits=bits)
+                                gens=gens, device="cpu", bits=bits)
     assert ut.shape == (half,) + shape
     np.testing.assert_array_equal(ut.numpy(), uj)
 
@@ -73,7 +73,8 @@ def test_lattice_shift_matches_jax(half):
 
 def test_lattice_uniform_refuses_too_many_pairs():
     with pytest.raises(ValueError):
-        tgamma.lattice_uniform(None, 65537, (3,), torch.float64, "cpu")
+        tgamma.lattice_uniform(None, 65537, (3,), torch.float64,
+                               device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(8, 30), (6, 11)])   # 4 and 3 pairs
@@ -222,7 +223,7 @@ def test_stratified_marginals_match_independent():
 
 def test_lattice_uniform_grid_and_stratification():
     u = tgamma.lattice_uniform(torch.Generator().manual_seed(0), 4, (257,),
-                               torch.float64, "cpu").numpy()
+                               torch.float64, device="cpu").numpy()
     assert u.min() >= 2.0 ** -24 and u.max() <= 1 - 2.0 ** -24
     k = u * 2.0 ** 23 - 0.5
     np.testing.assert_allclose(k, np.round(k), atol=0)

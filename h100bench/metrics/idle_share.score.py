@@ -1,0 +1,12 @@
+"""The share of the traced scoring calls in which no device operation ran:
+1 - (the union of the device events' intervals) / wall."""
+UNIT = "%"
+LAYER = "device"
+MOVES = "score_rows_per_s"
+
+
+def read(ctx):
+    if ctx.kind != "score" or not ctx.trace.steady_wall_s:
+        return None
+    return 100.0 * (1.0 - ctx.trace.steady_busy_s()
+                    / ctx.trace.steady_wall_s)

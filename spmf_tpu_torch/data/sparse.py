@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from spmf_tpu_torch.config import canonical_device, canonical_dtype
+from spmf_tpu_torch.utils.spans import span
 
 __all__ = ["DeviceSparseCounts", "SparseCounts"]
 
@@ -527,8 +528,9 @@ class DeviceSparseCounts:
         # the permutation truncated to the consumed rows, so the epoch
         # decode is exactly the concatenation of the yielded batches
         perm = self._tensor(idx[:stop], torch.int32)
-        ep = self._epoch_decode_math(self.indptr, self.indices, self.data,
-                                     perm, pad)
+        with span("epoch decode"):
+            ep = self._epoch_decode_math(self.indptr, self.indices,
+                                         self.data, perm, pad)
         for b in range(stop // bs):
             batch = self._epoch_take_math(ep, b, bs, pad)
             self._pending_nnz.append(batch.pop("coo_nnz"))

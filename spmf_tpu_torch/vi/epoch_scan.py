@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from spmf_tpu_torch.data import DeviceArrayDataset, DeviceSparseCounts
+from spmf_tpu_torch.utils.spans import span
 
 __all__ = ["EpochDecisions", "EpochScan", "packed_clone", "scan_source"]
 
@@ -427,7 +428,8 @@ class EpochScan:
         if kind not in self.graphs:
             what = ("the epoch's decisions" if kind == "decide"
                     else "the training step")
-            self.graphs[kind] = self._capture(fn, tensors(), what, draws)
+            with span("graph capture"):
+                self.graphs[kind] = self._capture(fn, tensors(), what, draws)
         self.graphs[kind]()
 
     def _step_state(self):
@@ -441,15 +443,17 @@ class EpochScan:
             self.perm = torch.arange(self.n_perm, dtype=torch.int32,
                                      device=self.device)
         if self.shuffle:
-            self.perm.copy_(self._permutation())
+            with span("epoch permutation"):
+                self.perm.copy_(self._permutation())
         if self.sparse:
-            ep = DeviceSparseCounts._epoch_decode_math(
-                *self.csr, self.perm[:self.nb * self.bs], self.pad)
-            if self.ep is None:
-                self.ep = ep
-            else:
-                for k, v in ep.items():
-                    self.ep[k].copy_(v)
+            with span("epoch decode"):
+                ep = DeviceSparseCounts._epoch_decode_math(
+                    *self.csr, self.perm[:self.nb * self.bs], self.pad)
+                if self.ep is None:
+                    self.ep = ep
+                else:
+                    for k, v in ep.items():
+                        self.ep[k].copy_(v)
         for _ in range(self.nb):
             self._run("full", self._full_step, self._step_state)
         if self.rem:

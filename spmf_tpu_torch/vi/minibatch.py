@@ -75,6 +75,7 @@ from spmf_tpu_torch.utils.convert import (
     adam_state_from_numpy,
     adam_state_to_numpy,
 )
+from spmf_tpu_torch.utils.spans import span
 
 __all__ = ["FitResult", "clip_and_step", "elbo_loss", "fit_surrogate_posterior",
            "make_optimizer", "resume_seed"]
@@ -705,8 +706,8 @@ def fit_surrogate_posterior(
 
     def run_chunk(epoch, k):
         """Epochs ``epoch + 1 .. epoch + k`` as one chunk, then the host's
-        replay of their decisions and the chunk's checkpoint. Returns the
-        last epoch."""
+        replay of their decisions, the chunk's checkpoint and the
+        convergence test. Returns the last epoch."""
         nonlocal decide, carry_on_device, chunk_used
         if decide is None:
             decide = _scan.EpochDecisions(
@@ -715,36 +716,39 @@ def fit_surrogate_posterior(
         if not carry_on_device:
             decide.load(best_loss, stall, lr)
         t_chunk = time.perf_counter()
-        with torch.profiler.record_function("fit chunk"):
+        with span("fit chunk"):
             # ONE device fetch for the chunk
             rows = scan.run_chunk(k, decide).tolist()
-        # the carry stays in device form between chunks: re-deriving the
-        # best loss from the host's float64 means would drift from it
-        carry_on_device = True
-        per_epoch = (time.perf_counter() - t_chunk) / k
-        chunk_used = max(chunk_used, k)
-        w = decide.width
-        last_improve = None
-        for row in rows:
-            epoch += 1
-            epoch_seconds.append(per_epoch)
-            improved, plateau_dev, finite = (bool(f) for f in row[w:w + 3])
-            if improved:
-                last_improve = (epoch, row[w + 5])
-            plateau = _bookkeep(epoch, float(np.mean(row[:w])), row[w - 1],
-                                improved, finite)
-            if plateau != plateau_dev:
-                # the parameters followed the device's decisions either way
-                warnings.warn(
-                    "epoch-chunk replay drifted from the on-device decision "
-                    f"sequence at epoch {epoch} (host plateau={plateau}, "
-                    f"device={plateau_dev}); prints/lr bookkeeping may lag "
-                    "the device state", RuntimeWarning)
-        if last_improve is not None and ckpt_path is not None:
-            # the device carry is the control state a resume continues
-            c_loss, c_stall, c_lr = rows[-1][w + 3:]
-            save_ckpt(last_improve[0], (c_loss, c_stall, c_lr),
-                      last_improve[1])
+        with span("fit bookkeep"):
+            # the carry stays in device form between chunks: re-deriving the
+            # best loss from the host's float64 means would drift from it
+            carry_on_device = True
+            per_epoch = (time.perf_counter() - t_chunk) / k
+            chunk_used = max(chunk_used, k)
+            w = decide.width
+            last_improve = None
+            for row in rows:
+                epoch += 1
+                epoch_seconds.append(per_epoch)
+                improved, plateau_dev, finite = (bool(f) for f in row[w:w + 3])
+                if improved:
+                    last_improve = (epoch, row[w + 5])
+                plateau = _bookkeep(epoch, float(np.mean(row[:w])), row[w - 1],
+                                    improved, finite)
+                if plateau != plateau_dev:
+                    # the parameters followed the device's decisions either way
+                    warnings.warn(
+                        "epoch-chunk replay drifted from the on-device "
+                        f"decision sequence at epoch {epoch} (host "
+                        f"plateau={plateau}, device={plateau_dev}); "
+                        "prints/lr bookkeeping may lag the device state",
+                        RuntimeWarning)
+            if last_improve is not None and ckpt_path is not None:
+                # the device carry is the control state a resume continues
+                c_loss, c_stall, c_lr = rows[-1][w + 3:]
+                save_ckpt(last_improve[0], (c_loss, c_stall, c_lr),
+                          last_improve[1])
+            _check_convergence(epoch)
         return epoch
 
     if profile_dir is not None:
@@ -777,7 +781,7 @@ def fit_surrogate_posterior(
                          else (chunk_size if remaining >= chunk_size else 0))
                 if k >= 2:
                     epoch = run_chunk(epoch, k)
-                    if _check_convergence(epoch):
+                    if converged:
                         break
                     continue
 
@@ -786,7 +790,7 @@ def fit_surrogate_posterior(
                 t_epoch = time.perf_counter()
                 # a named range for torch.profiler (the smoke script's per-
                 # step launches and busy share are read inside these)
-                with torch.profiler.record_function("fit epoch"):
+                with span("fit epoch"):
                     if scan is not None:
                         batch_losses = scan.run_epoch()
                     else:
@@ -800,20 +804,22 @@ def fit_surrogate_posterior(
                         batch_losses = torch.stack(batch_losses)
                     # ONE device fetch for the epoch
                     batch_losses = batch_losses.cpu().tolist()
-                epoch_seconds.append(time.perf_counter() - t_epoch)
-                epoch_loss = float(np.mean(batch_losses))
-                finite = bool(np.isfinite(epoch_loss))
-                plateau = _bookkeep(epoch, epoch_loss, batch_losses[-1],
-                                    finite and epoch_loss < best_loss, finite,
-                                    on_improve=_on_improve)
-                if not finite or plateau:
-                    # in place: a captured step reads this storage
-                    _restore(state, best)
-                    _set_lr(lr)
-                    if not finite:
-                        continue
-                if _check_convergence(epoch):
-                    break
+                with span("fit bookkeep"):
+                    epoch_seconds.append(time.perf_counter() - t_epoch)
+                    epoch_loss = float(np.mean(batch_losses))
+                    finite = bool(np.isfinite(epoch_loss))
+                    plateau = _bookkeep(
+                        epoch, epoch_loss, batch_losses[-1],
+                        finite and epoch_loss < best_loss, finite,
+                        on_improve=_on_improve)
+                    if not finite or plateau:
+                        # in place: a captured step reads this storage
+                        _restore(state, best)
+                        _set_lr(lr)
+                        if not finite:
+                            continue
+                    if _check_convergence(epoch):
+                        break
     except KeyboardInterrupt:
         # Ctrl-C / SIGINT: return the best state reached so far (written
         # checkpoints stay on disk)

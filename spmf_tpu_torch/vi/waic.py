@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from spmf_tpu_torch.parallel.mesh import shard_batch
+from spmf_tpu_torch.utils.spans import span
 from spmf_tpu_torch.vi.minibatch import _device_batch
 
 __all__ = ["waic", "streaming_waic_terms"]
@@ -43,20 +44,21 @@ def streaming_waic_terms(ll_chunks) -> tuple:
     n = 0
     warned = False
     for ll in ll_chunks:
-        ll = np.asarray(ll, np.float64)
-        if not warned and not np.isfinite(ll).all():
-            warned = True
-            warnings.warn(
-                f"{int((~np.isfinite(ll)).sum())} non-finite per-row "
-                "log-likelihood values entered WAIC (chunk shape "
-                f"{ll.shape}); the result will be non-finite.",
-                RuntimeWarning,
-            )
-        c = logsumexp(ll, axis=0)
-        lse = c if lse is None else np.logaddexp(lse, c)
-        s1 = s1 + ll.sum(axis=0)
-        s2 = s2 + (ll * ll).sum(axis=0)
-        n += ll.shape[0]
+        with span("waic reduce"):
+            ll = np.asarray(ll, np.float64)
+            if not warned and not np.isfinite(ll).all():
+                warned = True
+                warnings.warn(
+                    f"{int((~np.isfinite(ll)).sum())} non-finite per-row "
+                    "log-likelihood values entered WAIC (chunk shape "
+                    f"{ll.shape}); the result will be non-finite.",
+                    RuntimeWarning,
+                )
+            c = logsumexp(ll, axis=0)
+            lse = c if lse is None else np.logaddexp(lse, c)
+            s1 = s1 + ll.sum(axis=0)
+            s2 = s2 + (ll * ll).sum(axis=0)
+            n += ll.shape[0]
     lppd_i = lse - np.log(float(n))
     mean = s1 / n
     pwaic_i = (s2 - n * mean * mean) / (n - 1)  # ddof=1
@@ -102,9 +104,16 @@ def waic(
         batch = _device_batch(batch, dtype, device)
 
         def chunks():
+            # each chunk's draw, score and fetch; streaming_waic_terms
+            # reduces it before the next chunk is drawn
             for s in sizes:
-                samples = surrogate.sample(params, generator, (s,))
-                yield row_log_likelihood_fn(batch, samples).cpu().numpy()
+                with span("waic draw"):
+                    samples = surrogate.sample(params, generator, (s,))
+                with span("waic row_ll"):
+                    ll = row_log_likelihood_fn(batch, samples)
+                with span("waic fetch"):
+                    ll = ll.cpu().numpy()
+                yield ll
 
         lppd_i, pwaic_i = streaming_waic_terms(chunks())
         lppd_all.append(lppd_i)

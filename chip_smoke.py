@@ -5,7 +5,7 @@
 
 Phases, each printing lines; any failure raises and exits non-zero:
   1 device   the card, its power limit, TF32 off
-  2 build    nvcc builds csrc/*.cu (five libraries) for sm_90a, one process
+  2 build    nvcc builds csrc/*.cu (six libraries) for sm_90a, one process
              per source, at once
              (two threads meanwhile set up the small float64 CPU models of
              the plain path); a register spill in any library's build log
@@ -30,8 +30,12 @@ Phases, each printing lines; any failure raises and exits non-zero:
              scRNA CLI does (log link, column means as norms); one epoch each
              of the blocked COO energy (K5), the flat COO energy (K5) and the
              dense scatter (K1), with launch counters and the dispatch
-             record; one blocked-COO step at a small size against the plain
-             float64 path on the same draws
+             record; the densify's scatter kernel (csrc/coo_scatter.cu) on
+             a batch of the flat layout with its pad (B=4096) against its
+             twin, bit for bit, timed beside the twin, zeros + scatter_add_
+             and scatter_add_ with a sink slot for each pad slot; one
+             blocked-COO step at a small size against the plain float64
+             path on the same draws
   C 0.1%     the scRNA width at 0.1% density (N=32768 x D=20000, 655,360
              nonzeros expected), flat decode, log link: one epoch under the
              auto dispatch, which takes the COO energy (K5), and one with
@@ -80,8 +84,8 @@ Phases, each printing lines; any failure raises and exits non-zero:
              restore); at the dense scRNA width (B=4096, N=32768 resident)
              the captured scan, the eager scan twice, and the general loop
              over the same DeviceArrayDataset and over a host ArrayDataset,
-             in turns; the 3% blocked and 0.1% flat sparse sets captured
-             against epoch_scan=False; fused_normals on and off under
+             in turns; the 3% blocked, 3% flat dense-scatter and 0.1% flat
+             sparse sets captured against epoch_scan=False; fused_normals on and off under
              capture. Each arm prints ms/step, rows/s, peak GB, and from a
              profiled turn its busy share and host launches a step.
              epoch_chunk: at the small size, captured chunks of 4 against
@@ -3503,6 +3507,7 @@ def main():
                                 MixedFactorization, PoissonFactorization)
     from spmf_tpu_torch.data import ArrayDataset, SparseCounts
     from spmf_tpu_torch.ops import _build
+    from spmf_tpu_torch.ops import coo_scatter as tcs
     from spmf_tpu_torch.ops import fused_ig as tig
     from spmf_tpu_torch.ops import fused_normal as tfn
     from spmf_tpu_torch.ops import fused_poisson as tfp
@@ -3574,15 +3579,15 @@ def main():
     plain_pool.shutdown(wait=False)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         for f in [pool.submit(tfp._lib), pool.submit(tfp._wide_lib),
                   pool.submit(tfp._expsum_lib), pool.submit(tig._lib),
-                  pool.submit(tfn._lib)]:
+                  pool.submit(tfn._lib), pool.submit(tcs._lib)]:
             f.result()
     say(2, f"built {sorted(_build.BUILD_SECONDS)} in "
            f"{time.perf_counter() - t0:.1f} s (nvcc {_build.NVCC_FLAGS})")
     for lib in ("fused_poisson", "fused_poisson_wide", "fused_expsum",
-                "fused_ig", "fused_normal"):
+                "fused_ig", "fused_normal", "coo_scatter"):
         # ptxas -v: one (name, spill, registers) triple of lines per kernel
         with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
             lines = [ln.strip() for ln in f]
@@ -3612,6 +3617,7 @@ def main():
                 "nfwd": (tfn.LAUNCHES, "fwd"), "nbwd": (tfn.LAUNCHES, "bwd")}
     counters.update({f"{k}_wide": (tfp.LAUNCHES, f"{k}_wide")
                      for k in WIDE_KERNELS})
+    counters["coo_scatter"] = (tcs.LAUNCHES, "coo_scatter")
     kernels = tuple(counters)
 
     def zero_launches():
@@ -4181,11 +4187,14 @@ def main():
         launches = path_launches[tag] = read_launches()
         check(np.isfinite(loss).all(), f"{tag}: non-finite losses {loss}")
         if tag == "scatter":
-            check(launches["stats"] >= sparse_steps, f"{tag}: {launches}")
+            check(launches["stats"] >= sparse_steps
+                  and launches["coo_scatter"] >= sparse_steps,
+                  f"{tag}: {launches}")
             check(m.fusion_active and m.fusion_inactive_reason is None,
                   f"{tag}: dispatch {m.fusion_inactive_reason}")
         else:
-            check(launches["expsum"] >= sparse_steps, f"{tag}: {launches}")
+            check(launches["expsum"] >= sparse_steps
+                  and launches["coo_scatter"] == 0, f"{tag}: {launches}")
             expect = {"blocked": "blocked COO energy",
                       "flat": "sparse COO gather energy"}[tag]
             check(not m.fusion_active
@@ -4194,6 +4203,61 @@ def main():
         say(7, f"{tag}: {sparse_steps} steps in {fit_s:.1f} s, losses "
                f"{[round(x, 4) for x in loss]}; dispatch "
                f"{m.fusion_inactive_reason!r}; launches {launches}")
+
+    # the densify's scatter on a batch of the flat layout with its pad (the
+    # triplets _densify_coo takes): the kernel against its twin (zeros + the
+    # accumulating index_put_), bit for bit on counts; timed beside the
+    # twin, zeros + scatter_add_ on the flattened slab (the library's one
+    # computation of the slab) and scatter_add_ with a sink slot of its own
+    # for each zero slot, past the slab (no run of adds on cell (0, 0))
+    rows_c, cols_c, vals_c, _ = sparse["scatter"]._coo_arrays(
+        next(iter(flat)))
+    shape_c, n_c = (B_SPARSE, D), int(vals_c.shape[0])
+    nnz_c = int((vals_c != 0).sum())
+    flat_idx = rows_c.long() * D + cols_c.long()
+
+    def scatter_add():
+        x = torch.zeros(B_SPARSE * D, dtype=vals_c.dtype, device=dev)
+        return x.scatter_add_(0, flat_idx, vals_c).view(shape_c)
+
+    def scatter_add_sink():
+        idx = torch.where(vals_c != 0, flat_idx, B_SPARSE * D
+                          + torch.arange(n_c, device=dev))
+        x = torch.zeros(B_SPARSE * D + n_c, dtype=vals_c.dtype, device=dev)
+        return x.scatter_add_(0, idx, vals_c)[:B_SPARSE * D].view(shape_c)
+
+    before = tcs.LAUNCHES["coo_scatter"]
+    x_k = tcs.coo_scatter(rows_c, cols_c, vals_c, shape_c)
+    check(tcs.LAUNCHES["coo_scatter"] == before + 1,
+          "coo_scatter: the wrapper did not launch the kernel")
+    x_t = tcs.coo_scatter_twin(rows_c, cols_c, vals_c, shape_c)
+    for tag, x in (("twin", x_t), ("scatter_add_", scatter_add()),
+                   ("scatter_add_ with sinks", scatter_add_sink())):
+        check(torch.equal(x_k, x), f"coo_scatter: the kernel's slab differs "
+                                   f"from {tag}'s")
+    errs["coo_scatter"] = float((x_k - x_t).abs().max())
+    del x_k, x_t
+    ms_cs = {tag: cuda_ms(fn) for tag, fn in (
+        ("kernel", lambda: tcs.coo_scatter(rows_c, cols_c, vals_c, shape_c)),
+        ("twin", lambda: tcs.coo_scatter_twin(rows_c, cols_c, vals_c,
+                                              shape_c)),
+        ("scatter_add_", scatter_add),
+        ("scatter_add_ with sinks", scatter_add_sink))}
+    kt_cs = (ms_cs["kernel"], ms_cs["twin"])
+    # the slab written once, the slots read once; the adds' sectors are left
+    # out, so the bound is a floor
+    bd_cs = bound(B_SPARSE * D * vals_c.element_size()
+                  + n_c * (rows_c.element_size() + cols_c.element_size()
+                           + vals_c.element_size()), 0)
+    library_cs = ms_cs["scatter_add_"]
+    say(7, f"coo_scatter B={B_SPARSE} D={D}: {nnz_c} nonzeros in {n_c} "
+           f"slots; kernel == twin == scatter_add_ (with and without sinks) "
+           f"bit for bit; " + ", ".join(f"{tag} {ms:.4f} ms" for tag, ms in
+                                        ms_cs.items())
+           + f" (CUDA events, median of 10, the fill included); bound "
+             f"{bd_cs[0]:.4f} ms ({bd_cs[1]}; {bd_cs[0] / kt_cs[0]:.1%} of "
+             f"the kernel) ({vals_c.dtype}, {rows_c.dtype}; {smi})")
+    del rows_c, cols_c, vals_c, flat_idx
 
     # one blocked-COO step at a small size through the kernels (log link:
     # K5), against the plain float64 path on the same batch and draws
@@ -4251,7 +4315,9 @@ def main():
                 "sparse COO gather energy"),
                 f"C {tag}: the dispatch took {m.fusion_inactive_reason!r}")
         else:
-            check(launches["stats"] >= sparse_steps, f"C {tag}: {launches}")
+            check(launches["stats"] >= sparse_steps
+                  and launches["coo_scatter"] >= sparse_steps,
+                  f"C {tag}: {launches}")
             check(m.fusion_active and m.fusion_inactive_reason is None,
                   f"C {tag}: dispatch {m.fusion_inactive_reason}")
         say("C", f"{tag}: {sparse_steps} steps in {fit_s:.1f} s, losses "
@@ -4442,8 +4508,11 @@ def main():
     path_launches["G scan"] = scan_phase(
         dev, smi, zero_launches, read_launches,
         {"sparse 3% blocked": (sparse["blocked"], blocked),
+         "sparse 3% flat, dense scatter": (sparse["scatter"], flat),
          "sparse 0.1% flat": (coo_arms["auto"], flat_c)})
     say("G", f"launches {path_launches['G scan']}")
+    check(path_launches["G scan"]["coo_scatter"] > 0,
+          "G: the 3% flat set's captured scan never launched coo_scatter")
 
     # ---- AE: horshoe_plus=False at the scRNA width and the
     # PoissonAutoencoder at its bench width
@@ -4613,6 +4682,9 @@ def main():
              "nfwd": f"total={N_TOTAL}", "nbwd": f"total={N_TOTAL}"}
     kt.update(kt_w)
     sizes.update({k: f"B={B}, K={W_K}" for k in kt_w})
+    kt["coo_scatter"], bd["coo_scatter"] = kt_cs, bd_cs
+    sizes["coo_scatter"] = f"B={B_SPARSE}, a 3% batch with its pad"
+    library = {"coo_scatter": library_cs}
     for key, (k_ms, t_ms) in kt.items():
         say(9, f"{key}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, bound "
                f"{bd[key][0]:.3f} ms ({bd[key][1]}; {bd[key][0] / k_ms:.1%} "
@@ -4712,17 +4784,23 @@ def main():
         "expsum_wide": ("fused_exp_rate_sum_wide (K5 past K=64)",
                         "spmf_tpu_torch/csrc/fused_expsum.cu",
                         "spmf_tpu/ops/fused_poisson.py:872"),
+        "coo_scatter": ("coo_scatter (the densify's COO-to-dense slab)",
+                        "spmf_tpu_torch/csrc/coo_scatter.cu",
+                        "no Pallas kernel: .at[].add, "
+                        "spmf_tpu/models/poisson.py:952"),
     }
     total = {k: sum(p.get(k, 0) for p in path_launches.values())
              for k in kernels}
     say(9, f"launches per path {path_launches}")
     check(all(total[k] > 0 for k in kernels), f"kernel never launched {total}")
-    # no single PyTorch call computes any of these functions: library null
+    # no single PyTorch computation gives any of these functions but the
+    # densify's slab (zeros + scatter_add_): library null elsewhere
     print(json.dumps({"kernels": [
         {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
          "replaces": meta[k][2], "launches": total[k],
          "max_abs_err": errs[k], "ms": kt[k][0], "plain_ms": kt[k][1],
-         "bound_ms": bd[k][0], "bound_by": bd[k][1], "library_ms": None}
+         "bound_ms": bd[k][0], "bound_by": bd[k][1],
+         "library_ms": library.get(k)}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

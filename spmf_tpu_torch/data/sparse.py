@@ -503,7 +503,10 @@ class DeviceSparseCounts:
             # block-aligned layout: the pad is exact by construction
             self._pending_nnz = []
             return
-        totals = torch.stack(self._pending_nnz).cpu().numpy()
+        # 0-d totals from the batches this iterator yields, (nb,) vectors
+        # from the scan path's epochs: both kinds may be pending at once
+        totals = torch.cat([t.reshape(-1) for t in self._pending_nnz]
+                           ).cpu().numpy()
         self._pending_nnz = []
         if (totals > self._max_nnz).any():
             raise ValueError(

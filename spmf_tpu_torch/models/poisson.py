@@ -915,8 +915,11 @@ class PoissonFactorization(BayesianModel):
 
     def _densify_coo(self, batch, enforce_slab_limit=True):
         """Scatter a COO batch's triplets into a transient dense (B, D) slab
-        on the device and return a dense-count batch dict. Zero padding
-        adds 0 into cell (0, 0): exact."""
+        on the device (``ops.coo_scatter``: the kernel on the card, which
+        skips zero slots, the twin on the CPU) and return a dense-count
+        batch dict. Zero padding adds 0 into cell (0, 0): exact."""
+        from spmf_tpu_torch.ops.coo_scatter import coo_scatter
+
         B = batch["indices"].shape[0]
         D = int(self.feature_dim)
         if enforce_slab_limit:
@@ -942,9 +945,7 @@ class PoissonFactorization(BayesianModel):
             B, D = r1 - r0, c1 - c0
         else:
             out = dict(batch)
-        x = torch.zeros((B, D), dtype=self.dtype, device=self.device)
-        x.index_put_((rows, cols), vals, accumulate=True)
-        out[self.count_key] = x
+        out[self.count_key] = coo_scatter(rows, cols, vals, (B, D))
         return out
 
     def _coo_energy_supported(self):

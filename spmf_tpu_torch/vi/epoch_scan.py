@@ -97,10 +97,12 @@ def scan_source(batched_data_factory, epoch_scan, mesh=None):
 
 def _launch_counters():
     """Every kernel wrapper's launch counter, as (dict, key) pairs."""
-    from spmf_tpu_torch.ops import fused_ig, fused_normal, fused_poisson
+    from spmf_tpu_torch.ops import (coo_scatter, fused_ig, fused_normal,
+                                    fused_poisson)
 
     return [(d, k) for d in (fused_poisson.LAUNCHES, fused_ig.LAUNCHES,
-                             fused_normal.LAUNCHES) for k in d]
+                             fused_normal.LAUNCHES, coo_scatter.LAUNCHES)
+            for k in d]
 
 
 class _Replay:

@@ -214,7 +214,7 @@ def test_epoch_chunk_requires_scan_path(source, chunk, error):
     assert len(result.losses) == 3
 
 
-def _sparse_run(max_nnz=None, block_rows=None, **kw):
+def _sparse_run(max_nnz=None, block_rows=None, peek=False, **kw):
     rng = np.random.default_rng(3)
     X = (rng.random((96, 12)) < 0.4) * rng.poisson(2.0, (96, 12))
     m = PoissonFactorization(latent_dim=2, feature_dim=12, u_tau_scale=0.1,
@@ -224,6 +224,8 @@ def _sparse_run(max_nnz=None, block_rows=None, **kw):
         32, drop_remainder=True).to_device(max_nnz=max_nnz, device="cpu",
                                            dtype="float64",
                                            block_rows=block_rows)
+    if peek:
+        next(iter(dev))   # one batch by hand, its epoch left unfinished
     losses = m.fit(batched_data_factory=dev, num_steps=8, learning_rate=0.05,
                    sample_size=4, verbose=False, rel_tol=None, seed=0, **kw)
     return m, losses
@@ -248,6 +250,20 @@ def test_sparse_epoch_scan_path():
     assert np.isfinite(losses_b).all() and losses_b[-1] < losses_b[0]
     with pytest.raises(ValueError, match="overflowed"):
         _sparse_run(max_nnz=64, epoch_scan=True)
+
+
+@pytest.mark.parametrize("max_nnz", [None, 64])
+def test_sparse_scan_audit_after_a_batch_taken_by_hand(max_nnz):
+    """A batch taken by hand from the flat layout leaves its per-batch nnz
+    total pending beside the scan's per-epoch vectors: the overflow audit
+    reads both kinds, and an undersized pad still overflows."""
+    if max_nnz is None:
+        m, losses = _sparse_run(peek=True, epoch_scan=True)
+        assert m.last_fit.extras["epoch_scan"] is True
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    else:
+        with pytest.raises(ValueError, match="overflowed"):
+            _sparse_run(max_nnz=max_nnz, peek=True, epoch_scan=True)
 
 
 # ------------------------------------------- control flow against spmf_tpu

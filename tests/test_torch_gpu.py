@@ -12,7 +12,9 @@ f64 transcendentals; the Normal sampler's y and gradients 1e-5 and 1e-4 of
 their largest entry, since y = loc + scale * eps may cancel to near zero, and
 its log q sums 1e-6). K4's NaN rows (negative rates) match position for
 position. The new likelihoods of K1/K2 and K4 are held to the Poisson
-tolerances.
+tolerances. The COO scatter equals ``index_put_`` bit for bit on integer
+counts; on non-integer repeats each cell lies within 1e-6 of the sum of its
+terms' magnitudes of the float64 sum (float32 atomics in run order).
 """
 import _torch_threads  # noqa: F401  (first: one torch thread)
 
@@ -1177,3 +1179,123 @@ def test_autoencoder_mesh_forward_on_the_card(cuda):
                     verbose=False, rel_tol=None)
     assert np.isfinite(losses).all()
     assert tfn.LAUNCHES["fwd"] > 0 and tfn.LAUNCHES["bwd"] > 0
+
+
+# ------------------------------------------- the COO-to-dense scatter kernel
+def _device_sparse(n, d, density, bs, seed, dtype="float32"):
+    """A flat DeviceSparseCounts on the card of an n x d count matrix with
+    about ``density`` of its cells nonzero."""
+    from spmf_tpu_torch.data import SparseCounts
+
+    g = np.random.default_rng(seed)
+    x = g.poisson(2.0, (n, d)) * (g.random((n, d)) < density)
+    return x, SparseCounts.from_dense(x).shuffle(seed=seed).batch(
+        bs, drop_remainder=True).to_device(device="cuda", dtype=dtype)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coo_scatter_kernel_equals_index_put_on_counts(cuda, dtype,
+                                                       index_dtype):
+    """On integer counts the kernel's slab is ``index_put_``'s bit for bit:
+    a device-decode batch with its pad, then the same slots in a random
+    order with repeated triplets (a CSR with a repeated column)."""
+    from spmf_tpu_torch.ops import coo_scatter as cs
+
+    _, ds = _device_sparse(1500, 2500, 0.03, 512, 1)
+    b = next(iter(ds))
+    assert b["coo_vals"].shape[0] > int(ds._pending_nnz[-1])
+    rows, cols = b["coo_rows"].to(index_dtype), b["coo_cols"].to(index_dtype)
+    vals = b["coo_vals"].to(dtype)
+    perm = torch.randperm(rows.shape[0], device=cuda)
+    dup = torch.randint(0, rows.shape[0], (5000,), device=cuda)
+    for r, c, v in ((rows, cols, vals),
+                    (rows[perm], cols[perm], vals[perm]),
+                    (torch.cat([rows, rows[dup]]), torch.cat([cols, cols[dup]]),
+                     torch.cat([vals, vals[dup]]))):
+        out = cs.coo_scatter(r, c, v, (512, 2500))
+        ref = torch.zeros((512, 2500), dtype=dtype, device=cuda)
+        ref.index_put_((r, c), v, accumulate=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+def test_coo_scatter_kernel_non_integer_duplicates(cuda):
+    """Repeated cells of non-integer values sum in the atomics' order:
+    within float32 rounding of ``index_put_``'s sorted sum (each cell
+    within 1e-6 of the sum of its terms' magnitudes); NaN and inf are
+    added, zero slots skipped."""
+    from spmf_tpu_torch.ops import coo_scatter as cs
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    n, shape = 200_000, (64, 300)
+    rows = torch.randint(0, 8, (n,), generator=g).to(torch.int32)
+    cols = torch.randint(0, 20, (n,), generator=g).to(torch.int32)
+    vals = torch.randn(n, generator=g)
+    vals[::7] = 0.0
+    vals[5], rows[5], cols[5] = float("nan"), 40, 100
+    vals[11], rows[11], cols[11] = float("inf"), 41, 101
+    out = cs.coo_scatter(rows.to(cuda), cols.to(cuda), vals.to(cuda),
+                         shape).cpu()
+    ref = torch.zeros(shape, dtype=torch.float64)
+    ref.index_put_((rows.long(), cols.long()), vals.double(), accumulate=True)
+    mag = torch.zeros(shape, dtype=torch.float64)
+    mag.index_put_((rows.long(), cols.long()), vals.double().abs(),
+                   accumulate=True)
+    ref32 = torch.zeros(shape, device=cuda)
+    ref32.index_put_((rows.to(cuda), cols.to(cuda)), vals.to(cuda),
+                     accumulate=True)
+    assert torch.isnan(out[40, 100]) and out[41, 101] == float("inf")
+    fin = torch.isfinite(ref)
+    assert ((out.double() - ref).abs()[fin] <= 1e-6 * mag[fin]).all()
+    assert ((out.double() - ref32.cpu().double()).abs()[fin]
+            <= 2e-6 * mag[fin]).all()
+
+
+def test_coo_scatter_kernel_replaces_the_sort(cuda):
+    """``_densify_coo`` on the card runs the scatter kernel (named for the
+    benchmark's data-layer metric) after the slab's fill, and no sort and
+    no ``index_put_`` kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmf_tpu_torch import PoissonFactorization
+
+    x, ds = _device_sparse(1024, 2000, 0.03, 512, 3)
+    b = next(iter(ds))
+    m = PoissonFactorization(latent_dim=4, feature_dim=x.shape[1],
+                             device="cuda")
+    m._densify_coo(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = m._densify_coo(b)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if getattr(e, "self_device_time_total", 0) > 0}
+    assert any("coo_scatter_kernel" in k for k in names), names
+    assert not any("sort" in k.lower() or "indexing_backward" in k
+                   for k in names), names
+    ref = torch.as_tensor(x[b["indices"].cpu().numpy()], dtype=torch.float32)
+    assert torch.equal(out["counts"].cpu(), ref)
+
+
+def test_captured_sparse_step_launches_the_scatter_once_a_replay(cuda):
+    """A fit over the flat device layout with the dense scatter: one
+    ``coo_scatter`` launch a densify (the initial loss, the graph's
+    warm-up, one a replayed batch), each feeding one K1 launch."""
+    from spmf_tpu_torch import PoissonFactorization
+    from spmf_tpu_torch.ops import coo_scatter as cs
+
+    x, ds = _device_sparse(1536, 3000, 0.03, 512, 4)
+    m = PoissonFactorization(latent_dim=4, feature_dim=x.shape[1],
+                             device="cuda", data=ds, u_tau_scale=1e-3,
+                             sparse_dense_scatter=True,
+                             fused_likelihood=True, gamma_sampler="fused")
+    cs.LAUNCHES["coo_scatter"] = 0
+    tfp.LAUNCHES["stats"] = 0
+    epochs, batches = 3, 3
+    losses = m.fit(num_steps=epochs, learning_rate=0.05, sample_size=4,
+                   verbose=False, rel_tol=None)
+    assert m.last_fit.extras["epoch_scan"] is True
+    assert np.isfinite(losses).all()
+    assert cs.LAUNCHES["coo_scatter"] == 2 + epochs * batches
+    assert tfp.LAUNCHES["stats"] == cs.LAUNCHES["coo_scatter"]

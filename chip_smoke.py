@@ -1666,7 +1666,11 @@ def autoencoder_phase(dev, smi, zero_launches, read_launches):
 
     # (b) the autoencoder at D=2000, B=1024, S=8, 8192 rows resident (8
     # batches an epoch): the captured scan and the general loop in turns,
-    # the second turn profiled
+    # the second turn profiled. The ms/step they report is a speed only:
+    # the captured step's throughput, at the cells' B = 4,096, is the
+    # benchmark cell ae_train_dense (h100bench/, with its weight prior's and
+    # network's device ms a step); the checks here are the losses, the
+    # scan taken and no kernel launched
     n_a = 8192
     xa = torch.poisson(torch.ones(n_a + AE_B, AE_D, device=dev), generator=g)
     dsa = DeviceArrayDataset({"counts": xa[:n_a],
@@ -1772,12 +1776,13 @@ def autoencoder_phase(dev, smi, zero_launches, read_launches):
     sur.gamma_sampler, sur.fused_normals = "fast", False
     del gy, glq, loc, rs
 
-    # (d) one step's breakdown: the step timed and profiled; inside its
-    # profile the device time of log_exp1 forward and backward (the host
-    # ops _LogExp1 / _LogExp1Backward) and of the matmul kernels; then the
-    # weight and bias prior, the network with its likelihood, and the
-    # surrogate draw each run alone (forward and backward), and what the
-    # prior's autograd graph keeps
+    # (d) one step's breakdown at B = 1,024 (the cell ae_train_dense reads
+    # the prior and the network at B = 4,096): the step timed and
+    # profiled; inside its profile the device time of log_exp1 forward and
+    # backward (the host ops _LogExp1 / _LogExp1Backward) and of the
+    # matmul kernels; then the weight and bias prior, the network with its
+    # likelihood, and the surrogate draw each run alone (forward and
+    # backward), and what the prior's autograd graph keeps
     batch = dsa.peek_batch()
     step = step_timer(ma, batch)
     ms_step, mem = time_steps(step)

@@ -31,6 +31,7 @@ from spmf_tpu_torch.models.base import BayesianModel
 from spmf_tpu_torch.nn.dense import DenseHorseshoe
 from spmf_tpu_torch.parallel.mesh import _feature_axis_for
 from spmf_tpu_torch.utils.checkpoint import to_numpy
+from spmf_tpu_torch.utils.spans import span
 from spmf_tpu_torch.vi.surrogates import build_surrogate_posterior
 
 __all__ = ["PoissonAutoencoder"]
@@ -197,10 +198,11 @@ class PoissonAutoencoder(BayesianModel):
     def log_likelihood_components(self, data, **params):
         """The pointwise log-likelihood and the rates of the batch's
         columns (this rank's tile on a mesh)."""
-        x = self._tile_counts(data)
-        rates = self._rates(x, self._local_samples(params))
-        return {"log_likelihood": tfd.Poisson(rate=rates).log_prob(x),
-                "rates": rates}
+        with span("ae network"):
+            x = self._tile_counts(data)
+            rates = self._rates(x, self._local_samples(params))
+            return {"log_likelihood": tfd.Poisson(rate=rates).log_prob(x),
+                    "rates": rates}
 
     def predictive_distribution(self, data, **params):
         """The rates and the log-likelihood summed over rows and
@@ -215,7 +217,8 @@ class PoissonAutoencoder(BayesianModel):
         batch's on every rank of a mesh (its tile's sum completed over the
         ranks of distinct tiles)."""
         params = self._local_samples(params)
-        prior_parts = self._prior_parts(params)
+        with span("ae prior"):
+            prior_parts = self._prior_parts(params)
         prior_parts = {k: v * prior_weight for k, v in prior_parts.items()}
         ll = self.log_likelihood_components(data, **params)["log_likelihood"]
         prior_parts["x"] = torch.sum(ll, dim=(-1, -2))

@@ -8,8 +8,10 @@ one clock. With no profiler recording it is one shared null context: the
 cost is one flag test, where an unguarded ``record_function`` costs
 microseconds a call.
 
-Every span is host-side and outside any captured CUDA graph: a span inside
-a capture would record the capture alone, never a replay.
+Every span is host-side. The spans but ``ae prior`` and ``ae network`` are
+outside any captured CUDA graph; those two are inside the training step,
+so in a captured step they record its eager warm-up and its capture, never
+a replay.
 """
 from __future__ import annotations
 
@@ -51,6 +53,19 @@ SPANS = (
     "waic fetch",
     # vi/waic.py: a chunk's host reduce (``streaming_waic_terms``)
     "waic reduce",
+    # models/autoencoder.py: the joint weight prior's log-prob parts in
+    # ``unormalized_log_prob_parts`` (``_prior_parts``: the exact-E1
+    # horseshoe of every sampled weight, the biases' Normal). Inside the
+    # step: on the card it records the capture's eager warm-up and the
+    # capture, and the step's backward of it runs under autograd's own
+    # ranges, not under the span. The autoencoder launches no kernel of its
+    # own, so no ``LAUNCHES`` counter stands beside this span: a Python
+    # counter would never see a graph replay
+    "ae prior",
+    # models/autoencoder.py: ``log_likelihood_components``, the forward
+    # through ``assemble_networks`` and the Poisson log-prob (in a fit's
+    # step as ``ae prior``; in ``log_likelihood`` a chunk's network)
+    "ae network",
 )
 
 _OFF = contextlib.nullcontext()

@@ -14,7 +14,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from spmf_tpu_torch import PoissonFactorization, PoissonMatrixFactorization
+from spmf_tpu_torch import (PoissonAutoencoder, PoissonFactorization,
+                            PoissonMatrixFactorization)
 from spmf_tpu_torch.data import DeviceArrayDataset, SparseCounts
 from spmf_tpu_torch.utils import spans
 
@@ -72,6 +73,21 @@ def _sparse_fit(num_steps=3):
                    learning_rate=0.05, sample_size=2, verbose=False,
                    rel_tol=None, seed=0)
     return m, losses
+
+
+def _autoencoder():
+    X = np.random.default_rng(4).poisson(1.0, (32, 6)).astype(float)
+    ds = DeviceArrayDataset({"data": X}, batch_size=16, shuffle=True,
+                            device="cpu")
+    m = PoissonAutoencoder(ds, latent_dim=2, column_norms=X.mean(0) + 0.1,
+                           dtype="float64", device="cpu")
+    return m, ds
+
+
+def _ae_fit(m, ds, num_steps=2):
+    return m.fit(batched_data_factory=ds, num_steps=num_steps,
+                 learning_rate=0.01, sample_size=2, verbose=False,
+                 rel_tol=None, seed=0)
 
 
 def _profiled(fn):
@@ -138,6 +154,24 @@ def test_sparse_fit_spans_the_epoch_decode():
     assert _counts(events) == {"test call": 1, "epoch decode": 1}
 
 
+def test_autoencoder_spans_each_energy():
+    """An autoencoder fit evaluates its energy once for the initial loss
+    and once a step (2 epochs of 2 batches): each time ``ae prior`` and
+    then ``ae network``, inside the call and never overlapping;
+    ``log_likelihood`` runs ``ae network`` once a chunk (2 chunks of 2
+    batches) and no prior."""
+    m, ds = _autoencoder()
+    _, events = _profiled(lambda: _ae_fit(m, ds))
+    ae = [(n, a, b) for n, a, b in events if n.startswith("ae ")]
+    assert [n for n, _, _ in ae] == ["ae prior", "ae network"] * 5
+    for (_, _, end), (_, start, _) in zip(ae, ae[1:]):
+        assert end <= start
+    _, events = _profiled(lambda: m.log_likelihood(data=ds, num_samples=12,
+                                                   sample_chunk=8))
+    assert _counts([e for e in events if e[0].startswith("ae ")]) == {
+        "ae network": 4}
+
+
 def test_no_profiler_no_record_function(monkeypatch):
     """With no profiler recording, ``span`` hands out the one shared no-op,
     and a fit (single epochs and chunks) and a scoring call enter no
@@ -156,6 +190,9 @@ def test_no_profiler_no_record_function(monkeypatch):
     _sparse_fit(num_steps=1)
     m, blocks = _scorer()
     m.log_likelihood(data=blocks, num_samples=12, sample_chunk=8)
+    ae, ds = _autoencoder()
+    _ae_fit(ae, ds, num_steps=1)
+    ae.log_likelihood(data=ds, num_samples=12, sample_chunk=8)
     assert entered == []
 
 
@@ -168,14 +205,19 @@ def _annotations(prof):
 
 
 def test_every_name_seen_is_listed():
-    """Each range a profiled fit and scoring call emit, and the card's
-    ``graph capture``, is in ``SPANS``, and ``SPANS`` holds nothing else."""
+    """Each range a profiled fit and scoring call emit (the
+    factorizations' and the autoencoder's), and the card's ``graph
+    capture``, is in ``SPANS``, and ``SPANS`` holds nothing else."""
     seen = set()
     m, blocks = _scorer()
+    ae, ds = _autoencoder()
     for fn in (lambda: _dense_fit(num_steps=4, epoch_chunk=2),
                lambda: _dense_fit(num_steps=1), lambda: _sparse_fit(1),
                lambda: m.log_likelihood(data=blocks, num_samples=12,
-                                        sample_chunk=8)):
+                                        sample_chunk=8),
+               lambda: _ae_fit(ae, ds, num_steps=1),
+               lambda: ae.log_likelihood(data=ds, num_samples=12,
+                                         sample_chunk=8)):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             fn()
         seen |= _annotations(prof)
